@@ -1,25 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's AQA serving path once on one CUDA card.
+"""Drive the PyTorch port's serving paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
 Phases, each printing its own lines:
 
-1. build the CUDA kernels (myriad_tpu_torch/csrc, nvcc, sm_90a) from the
-   checkout and print the build time;
-2. hold each kernel on the main path (B1 int8 weight-only matmul, B2 decode
-   attention, B3 prefill attention) against its plain PyTorch version on
-   the card, at the main path's shapes, with the stated tolerance, and time
-   both (CUDA events around 10 back-to-back calls, median of 21 such runs,
-   after warm-up);
+1. build the CUDA kernels (myriad_tpu_torch/csrc, one nvcc per source, all
+   started together, sm_90a) from the checkout and print the build time;
+2. hold each kernel of the paths (B1 int8 weight-only matmul, B2 decode
+   attention, B3 prefill attention, B4 KV-cache write) against its plain
+   PyTorch version on the card, at the paths' shapes, with the stated
+   tolerance, and time both, with one PyTorch library call that computes
+   the same function where there is one: device time (10 calls captured in
+   a CUDA graph, replayed under CUDA events, median of 21 replays), and the
+   kernel's eager time per call (CUDA events around 10 back-to-back calls,
+   median of 21), which is the host's time where that is the longer;
 3. build Myriad at full width (EVA-ViT-g, Q-Former, ImageBind-huge,
    Vicuna-7B with int8 weights and an int8 KV cache, towers in bf16) with
    random weights drawn from --seed on the card, and run ``generate``
    (zero-shot maps, greedy, 90 new tokens) on 8 uint8 224x224 images and the
    AQA question; check the tokens, the maps and that every kernel of the path
-   was launched; compare the prefill logits with the plain path's.
+   was launched; compare the prefill logits with the plain path's;
+4. speculative generate at full width (``llm_spec_k`` = 3, batch 8, 90 new
+   tokens): with the prompt-lookup drafts through ``Myriad.generate``, with
+   the greedy transcript of phase 3 as oracle drafts, and with the lookup
+   run's own transcript as oracle drafts (the acceptance ceiling); gate the
+   first verify round's logits against the plain path's;
+5. chat at full width (batch 1, three scripted turns, the resident cache),
+   with and without speculative decoding; gate turn 2's delta-prefill logits
+   against a full re-prefill of the same prompt; then run one more
+   speculative generate (prompt-lookup drafts) under ``torch.profiler`` and
+   print its device time by kernel and the device's busy share.
 
-The last two lines are a JSON summary of the kernels and the
+Each path is driven with every launch count set to 0 just before it and read
+just after.  The last two lines are a JSON summary of the kernels and the
 ``{"ok": true, "device": ...}`` result.  Any failed check exits non-zero
 before them.  Without a CUDA card, or outside a checkout of the repository,
 it exits non-zero and prints no result.
@@ -44,12 +58,24 @@ AQA_QUESTION = ("<Img><ImageHere></Img>This image may be simulated by photo edit
 SCENES = ["bottle", "cable", "capsule", "hazelnut"]
 BATCH = 8
 NEW_TOKENS = 90
+# the serving profile of eval_configs/myriad.yaml that Myriad.from_config reads
+SERVING = {"arch_preset": "full", "llm_weight_dtype": "int8", "llm_kv_dtype": "int8",
+           "end_sym": "###"}
+SPEC_K = 3
+CHAT_QUESTIONS = ["Is there any defect in this image?", "Where is it?",
+                  "How severe is it, and what caused it?"]
+CHAT_TOKENS = 32
+# published H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_S = 989e12
+PEAK_FP32_S = 67e12
 
 
 def _time_ms(fn, launches: int = 10, repeats: int = 21) -> float:
-    """Device time of one call: CUDA events around ``launches`` back-to-back
-    calls (the host runs ahead, so launch gaps do not count), median over
-    ``repeats`` after a warm-up."""
+    """Time of one eager call: CUDA events around ``launches`` back-to-back
+    calls, median over ``repeats`` after a warm-up.  Where the device work of
+    a call is shorter than the host's time to issue it, this is the host's
+    time per call."""
     import torch
 
     for _ in range(3):
@@ -61,6 +87,35 @@ def _time_ms(fn, launches: int = 10, repeats: int = 21) -> float:
         start.record()
         for _ in range(launches):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def _device_ms(fn, launches: int = 10, repeats: int = 21) -> float:
+    """Device time of one call with the host's launch gaps removed:
+    ``launches`` calls captured once into a CUDA graph, the graph replayed
+    under CUDA events, median over ``repeats`` replays after a warm-up."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
@@ -82,47 +137,76 @@ def _card() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_S):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of moving ``nbytes`` at the memory rate and doing ``ops`` at
+    the peak rate of their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 class Check:
     """One kernel's comparisons with its plain version."""
 
     def __init__(self, name, source, replaces, counter):
         self.name, self.source, self.replaces, self.counter = name, source, replaces, counter
         self.max_err = 0.0
-        self.ms = self.plain_ms = self.launches = None
+        self.ms = self.plain_ms = self.library_ms = self.bound_ms = self.bound_by = None
+        self.eager_ms = None
+        self.launches = None
+        self.by_path = {}
 
-    def compare(self, label, kernel, plain, tol_of, main_shape=False):
-        """Check the kernel against its plain version and time both; the
-        main path's shape supplies the times of the JSON summary."""
+    def compare(self, label, kernel, plain, tol_of, *, outputs=None, main=None, library=None):
+        """Check the kernel against its plain version and time both (and the
+        library call, where given).  ``outputs`` returns the (kernel, plain)
+        tensors to compare when the calls write in place; ``main`` =
+        (bytes, operations[, peak]) marks the path's shape, which supplies
+        the JSON summary's times and bound."""
         import torch
 
-        out = kernel()
-        ref = plain()
+        out, ref = kernel(), plain()
+        if outputs is not None:
+            out, ref = outputs()
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = tol_of(ref)
         ok = bool(torch.isfinite(out.float()).all()) and err <= tol
         self.max_err = max(self.max_err, err)
-        ms, plain_ms = _time_ms(kernel), _time_ms(plain)
-        if main_shape:
-            self.ms, self.plain_ms = ms, plain_ms
-        print(f"  {self.name} {label}: max_abs_err={err:.3e} tol={tol:.3e} kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f}" + ("" if ok else "  FAILED"), flush=True)
+        eager_ms = _time_ms(kernel)
+        ms, plain_ms = _device_ms(kernel), _device_ms(plain)
+        lib_ms = _device_ms(library) if library is not None else None
+        line = (f"  {self.name} {label}: max_abs_err={err:.3e} tol={tol:.3e} kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f}")
+        if lib_ms is not None:
+            line += f" library_ms={lib_ms:.4f}"
+        line += f" kernel_eager_ms={eager_ms:.4f}"
+        if main is not None:
+            self.ms, self.plain_ms, self.library_ms = ms, plain_ms, lib_ms
+            self.eager_ms = eager_ms
+            self.bound_ms, self.bound_by = bound(*main)
+            line += f" bound_ms={self.bound_ms:.6f} ({self.bound_by}) [path shape]"
+        print(line + ("" if ok else "  FAILED"), flush=True)
         check(ok, f"{self.name} {label}: kernel disagrees with its plain version")
 
     def record(self):
         return {"name": self.name, "route": "cuda", "source": self.source,
                 "replaces": self.replaces, "launches": self.launches,
-                "max_abs_err": self.max_err, "ms": self.ms, "plain_ms": self.plain_ms}
+                "max_abs_err": self.max_err, "ms": self.ms, "plain_ms": self.plain_ms,
+                "bound_ms": self.bound_ms, "bound_by": self.bound_by,
+                "library_ms": self.library_ms, "eager_ms": self.eager_ms,
+                "launches_by_path": self.by_path}
 
 
 def kernel_checks(dev, seed):
-    """Phase 2: each kernel against its plain version at the main path's shapes."""
+    """Phase 2: each kernel against its plain version at the paths' shapes."""
     import torch
+    import torch.nn.functional as F
 
-    from myriad_tpu_torch.models.llama import quantize_kv
     from myriad_tpu_torch.ops import decode_attention as da
+    from myriad_tpu_torch.ops import kv_write as kw
     from myriad_tpu_torch.ops import prefill_attention as pa
     from myriad_tpu_torch.ops import quant
+    from myriad_tpu_torch.ops.attention import causal_mask
 
     g = torch.Generator(device=dev).manual_seed(seed)
     bf16 = torch.bfloat16
@@ -136,62 +220,143 @@ def kernel_checks(dev, seed):
                "myriad_tpu/ops/decode_attention.py:31", da.counter)
     b3 = Check("B3 prefill_attention", "myriad_tpu_torch/csrc/prefill_attention.cu",
                "myriad_tpu/ops/prefill_attention.py:37", pa.counter)
+    b4 = Check("B4 kv_write", "myriad_tpu_torch/csrc/kv_write.cu",
+               "myriad_tpu/ops/kv_write.py:56", kw.counter)
 
     # B1: a bf16 output differs by at most one rounding of its largest value
-    print("B1: tolerance 2^-7 * max|plain| (one bf16 ulp at the largest output)")
+    print("B1: tolerance 2^-7 * max|plain| (one bf16 ulp at the largest output); library: "
+          "torch.matmul on the weight dequantized to bf16 beforehand (it reads twice the "
+          "weight bytes)")
     for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
         w8, scale = quant.quantize_per_channel(randn(k, n) * 0.02)
-        for m in (1, 8, 48):
+        w_bf16 = (w8.float() * scale).to(bf16)
+        for m in (1, 8, 32, 48):
             x = randn(m, k, dtype=bf16)
+            is_main = m == BATCH and (k, n) == (4096, 11008)
             b1.compare(f"M={m} {k}x{n}", lambda: quant.int8_weight_only_matmul(x, w8, scale),
                        lambda: quant.int8_weight_only_matmul_plain(x, w8, scale),
                        lambda ref: 2.0 ** -7 * ref.float().abs().max().item(),
-                       main_shape=(m == BATCH and (k, n) == (4096, 11008)))
+                       library=lambda: torch.matmul(x, w_bf16),
+                       main=(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n)
+                       if is_main else None)
 
     b, h, t, d = BATCH, 32, 416, 128
     kv_len, frontier = 320, 300
-    print("B2/B3: tolerance 2e-2 absolute (bf16 probabilities and outputs; |out| <~ 3)")
+    print("B2/B3: tolerance 2e-2 absolute (bf16 probabilities and outputs; |out| <~ 3); "
+          "library: scaled_dot_product_attention with the additive mask on the cache "
+          "dequantized to bf16")
     q1 = randn(b, h, 1, d, dtype=bf16)
     kf, vf = randn(b, h, t, d), randn(b, h, t, d)
-    k8, ks = quantize_kv(kf)
-    v8, vs = quantize_kv(vf)
+    k8, ks = kw.quantize_kv(kf)
+    v8, vs = kw.quantize_kv(vf)
     ks, vs = ks.half(), vs.half()
     kbf, vbf = kf.to(bf16), vf.to(bf16)
+    kdq, vdq = (k8.float() * ks.float()).to(bf16), (v8.float() * vs.float()).to(bf16)
     kpos = torch.arange(kv_len, device=dev)
     mask = torch.where(kpos <= frontier, 0.0, -1e9).float()[None, None, None].expand(
         b, 1, 1, kv_len).contiguous()
+    kdq_len, vdq_len = kdq[:, :, :kv_len].contiguous(), vdq[:, :, :kv_len].contiguous()
     for label, kk, vv, kss, vss in (("int8", k8, v8, ks, vs), ("bf16", kbf, vbf, None, None)):
         args = dict(mask=mask, scale=d ** -0.5, k_scale=kss, v_scale=vss, kv_len=kv_len)
+        is_main = label == "int8"
+        nbytes = (2 * b * h * d * 2 + 2 * b * h * kv_len * d + 2 * b * h * kv_len * 2
+                  + b * kv_len * 4)
         b2.compare(f"{label} B={b} H={h} T={t} kv_len={kv_len} D={d}",
                    lambda: da.decode_attention(q1, kk, vv, **args),
                    lambda: da.decode_attention_plain(q1, kk, vv, **args),
-                   lambda ref: 2e-2, main_shape=(label == "int8"))
+                   lambda ref: 2e-2,
+                   library=(lambda: F.scaled_dot_product_attention(
+                       q1, kdq_len, vdq_len, attn_mask=mask.to(bf16), scale=d ** -0.5))
+                   if is_main else None,
+                   main=(nbytes, 4 * b * h * kv_len * d) if is_main else None)
 
-    for tq, offset in ((297, 0), (33, 264), (7, 290)):
+    ragged = torch.tensor([297, 300, 310, 299, 305, 301, 296, 320], device=dev,
+                          dtype=torch.int32)
+    for tq, offset in ((297, 0), (33, 264), (7, 290), (SPEC_K + 1, None)):
         qq = randn(b, h, tq, d, dtype=bf16)
-        pos = (offset + torch.arange(tq, device=dev, dtype=torch.int32))[None].expand(b, tq)
+        start = ragged if offset is None else torch.full((b,), offset, device=dev,
+                                                         dtype=torch.int32)
+        pos = (start[:, None] + torch.arange(tq, device=dev, dtype=torch.int32)[None]
+               ).contiguous()
+        where = "ragged per-row positions" if offset is None else f"offset={offset}"
         for label, kk, vv, kss, vss in (("int8", k8, v8, ks, vs),
                                         ("bf16", kbf, vbf, None, None)):
             args = dict(scale=d ** -0.5, k_scale=kss, v_scale=vss)
-            b3.compare(f"{label} tq={tq} offset={offset} Tk={t}",
+            is_main = label == "int8" and tq == 297
+            # what this run's data needs: each query sees keys <= its position
+            n_keys = min(t, int(pos.max()) + 1)
+            pairs = int((pos.long() + 1).clamp(max=t).sum()) * h
+            nbytes = (2 * b * h * tq * d * 2 + 2 * b * h * n_keys * d
+                      + 2 * b * h * n_keys * 2 + b * tq * 4)
+            cmask = causal_mask(pos, t).to(bf16)
+            b3.compare(f"{label} tq={tq} {where} Tk={t}",
                        lambda: pa.prefill_attention(qq, kk, vv, pos, **args),
                        lambda: pa.prefill_attention_plain(qq, kk, vv, pos, **args),
-                       lambda ref: 2e-2, main_shape=(label == "int8" and tq == 297))
-    return [b1, b2, b3]
+                       lambda ref: 2e-2,
+                       library=(lambda: F.scaled_dot_product_attention(
+                           qq, kdq, vdq, attn_mask=cmask, scale=d ** -0.5)) if is_main else None,
+                       main=(nbytes, 4 * d * pairs) if is_main else None)
+
+    # B4: per-row starts include two that clamp (413 and 1000 -> T - t)
+    print("B4: bit-exact (tolerance 0): copy mode on an int8 payload, fp16 scales (D=1) "
+          "and a bf16 cache, and the fused quantize-and-write, with per-row starts of which "
+          "two clamp; library (copy mode, bf16 cache): one indexed assignment; none computes "
+          "the fused quantize-and-write")
+    starts = torch.tensor([300, 412, 0, 413, 37, 200, 5, 1000], device=dev, dtype=torch.int32)
+    tw = SPEC_K + 1
+    rows = torch.arange(b, device=dev)[:, None].expand(b, tw)
+    cols = starts.long().clamp(0, t - tw)[:, None] + torch.arange(tw, device=dev)[None]
+    exact = lambda ref: 0.0  # noqa: E731
+    for label, dtype, dd in (("int8 payload", torch.int8, d), ("fp16 scales", torch.float16, 1),
+                             ("bf16 cache", bf16, d)):
+        buf = (randn(b, h, t, dd) * 50).clamp(-127, 127).to(dtype)
+        # the attention's layout: (B, t, H, D) transposed
+        upd = (randn(b, tw, h, dd) * 50).clamp(-127, 127).to(dtype).transpose(1, 2)
+        out, ref, lib = buf.clone(), buf.clone(), buf.clone()
+        upd_rows = upd.transpose(1, 2).contiguous()
+
+        def assign(lib=lib, upd_rows=upd_rows):
+            lib[rows, :, cols] = upd_rows
+        b4.compare(f"copy {label} B={b} H={h} T={t} t={tw} D={dd}",
+                   lambda: kw.kv_cache_write(out, upd, starts),
+                   lambda: kw.kv_cache_write_plain(ref, upd, starts), exact,
+                   library=assign if label == "bf16 cache" else None)
+    for tw_q in (1, SPEC_K + 1, 297):
+        idx = starts if tw_q < 297 else 0
+        k = (randn(b, tw_q, h, d) * 4).to(bf16).transpose(1, 2)
+        v = randn(b, tw_q, h, d).to(bf16).transpose(1, 2)
+        bufs = [torch.randint(-127, 128, (b, h, t, d), generator=g, device=dev,
+                              dtype=torch.int8) for _ in range(2)]
+        bufs += [torch.rand(b, h, t, 1, generator=g, device=dev).half() for _ in range(2)]
+        outs, refs = [x.clone() for x in bufs], [x.clone() for x in bufs]
+        is_main = tw_q == SPEC_K + 1
+        nbytes = 2 * b * h * tw_q * d * 2 + 2 * b * h * tw_q * d + 2 * b * h * tw_q * 2 + b * 4
+        b4.compare(f"quantize-and-write B={b} H={h} T={t} t={tw_q} D={d} "
+                   f"{'per-row starts' if tw_q < 297 else 'start 0'}",
+                   lambda: kw.kv_quantize_write(*outs, k, v, idx),
+                   lambda: kw.kv_quantize_write_plain(*refs, k, v, idx), exact,
+                   outputs=lambda: (torch.cat([x.flatten().float() for x in outs]),
+                                    torch.cat([x.flatten().float() for x in refs])),
+                   # abs, max, divide, round per element, in fp32
+                   main=(nbytes, 4 * 2 * b * h * tw_q * d, PEAK_FP32_S) if is_main else None)
+    return [b1, b2, b3, b4]
 
 
 class plain_path:
-    """Route the three kernel wrappers to their plain versions while active, so
-    the full-width model can be run once as the kernels' reference."""
+    """Route the kernel wrappers to their plain versions while active, so the
+    full-width model can be run once as the kernels' reference."""
 
     def __enter__(self):
         from myriad_tpu_torch.ops import decode_attention as da
+        from myriad_tpu_torch.ops import kv_write as kw
         from myriad_tpu_torch.ops import prefill_attention as pa
         from myriad_tpu_torch.ops import quant
 
         swaps = [(quant, "int8_weight_only_matmul", quant.int8_weight_only_matmul_plain),
                  (da, "decode_attention", da.decode_attention_plain),
-                 (pa, "prefill_attention", pa.prefill_attention_plain)]
+                 (pa, "prefill_attention", pa.prefill_attention_plain),
+                 (kw, "kv_cache_write", kw.kv_cache_write_plain),
+                 (kw, "kv_quantize_write", kw.kv_quantize_write_plain)]
         self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, plain in swaps:
             setattr(mod, name, plain)
@@ -201,18 +366,90 @@ class plain_path:
             setattr(mod, name, orig)
 
 
+def drive(checks, path, fn, needs):
+    """Run one path with every launch count set to 0 just before and read
+    just after; check that each kernel in ``needs`` was launched."""
+    import torch
+
+    for c in checks:
+        c.counter.count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {}
+    for c in checks:
+        c.by_path[path] = counts[c.name] = c.counter.count
+    for name in needs:
+        check(counts[name] > 0, f"{name} was not launched on the {path} path")
+    return res, wall, counts
+
+
+def rel(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def sensitivity_gate(label, kernel_logits, run, embeds, seed):
+    """The int8 path is sensitive by nature: W8A8 re-quantizes every
+    activation row, so a one-ulp change anywhere can flip int8 roundings
+    downstream, and random weights amplify it over 32 layers.  The kernels
+    are held to the plain path's own sensitivity: their logits may move at
+    most twice as far (relative L2) from the plain path's as the plain path's
+    move when its input embeddings take N(0, 2^-9) relative noise and are
+    re-rounded to bf16.  ``run(embeds)`` computes the logits."""
+    import torch
+
+    g = torch.Generator(device=embeds.device).manual_seed(seed + 1)
+    noise = torch.randn(embeds.shape, generator=g, device=embeds.device) * 2.0 ** -9
+    noisy = (embeds.float() * (1.0 + noise)).to(embeds.dtype)
+    with plain_path():
+        plain, plain_noisy = run(embeds), run(noisy)
+    err, floor = rel(kernel_logits, plain), rel(plain_noisy, plain)
+    agree = (kernel_logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    print(f"{label}: kernels vs plain rel_l2={err:.4e} max_abs_err="
+          f"{(kernel_logits - plain).abs().max().item():.4e}; plain vs plain with noisy input "
+          f"rel_l2={floor:.4e}; tol=2x that; argmax agreement {agree:.3f}", flush=True)
+    check(bool(torch.isfinite(kernel_logits).all()), f"{label}: non-finite logits")
+    check(err <= 2.0 * floor, f"{label}: kernels disagree with the plain path")
+
+
+def check_tokens(tokens, rows, new_tokens, vocab):
+    from myriad_tpu_torch.generation import GenerationConfig
+
+    cfg = GenerationConfig()
+    check(tuple(tokens.shape) == (rows, new_tokens), tokens.shape)
+    check(bool(((tokens >= 0) & (tokens < vocab)).all()), "token id out of range")
+    # a stop id is never emitted: the step that produces it marks the row done
+    # and the row emits pad from then on (tests/test_torch_llama.py pins the rest)
+    for row in tokens.tolist():
+        check(cfg.eos_token_id not in row and cfg.stop_single not in row,
+              "a single stop id was emitted instead of pad")
+        check(not any(a == cfg.stop_pair[0] and b == cfg.stop_pair[1]
+                      for a, b in zip(row, row[1:])), "the '###' pair was emitted")
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
 def full_slice(dev, seed, checks, card):
     """Phase 3: the full-width main path through Myriad.generate."""
     import numpy as np
     import torch
 
-    from myriad_tpu_torch.generation import GenerationConfig, _prefill
+    from myriad_tpu_torch.generation import _prefill
     from myriad_tpu_torch.models.llama import init_cache, serving_cache_dtype
     from myriad_tpu_torch.models.myriad import Myriad
 
     t0 = time.time()
-    model = Myriad.from_config({"arch_preset": "full", "llm_weight_dtype": "int8",
-                                "llm_kv_dtype": "int8"}, device=dev, class_names=SCENES)
+    model = Myriad.from_config(SERVING, device=dev, class_names=SCENES)
     model.init_random(seed)
     model.vision_expert.build_text_features()
     torch.cuda.synchronize()
@@ -226,36 +463,21 @@ def full_slice(dev, seed, checks, card):
                "question2": [AQA_QUESTION] * BATCH}
     model.generate(samples, max_new_tokens=4)  # warm-up (cuBLAS/cuDNN set-up)
 
-    for c in checks:
-        c.counter.count = 0
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    walls = []
-    for run in range(3):  # the first run is the counted main-path run
-        t0 = time.perf_counter()
-        res = model.generate(samples, max_new_tokens=NEW_TOKENS)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        if run == 0:
-            out = res
-            for c in checks:
-                c.launches = c.counter.count
-    launches = {c.name: c.launches for c in checks}
+    names = [c.name for c in checks]
+    out, wall0, launches = drive(checks, "aqa_greedy",
+                                 lambda: model.generate(samples, max_new_tokens=NEW_TOKENS),
+                                 names)
+    for c in checks:
+        c.launches = c.counter.count
+    walls = [wall0] + [timed(lambda: model.generate(samples, max_new_tokens=NEW_TOKENS))[1]
+                       for _ in range(2)]
     peak = torch.cuda.max_memory_allocated(dev)
     wall = statistics.median(walls)
 
     tokens, maps = out["token_ids"], out["ve_anomaly_maps"]
     vocab = model.arch.llama.vocab_size
-    cfg = GenerationConfig()
-    check(tuple(tokens.shape) == (BATCH, NEW_TOKENS), tokens.shape)
-    check(bool(((tokens >= 0) & (tokens < vocab)).all()), "token id out of range")
-    # a stop id is never emitted: the step that produces it marks the row done
-    # and the row emits pad from then on (tests/test_torch_llama.py pins the rest)
-    for row in tokens.tolist():
-        check(cfg.eos_token_id not in row and cfg.stop_single not in row,
-              "a single stop id was emitted instead of pad")
-        check(not any(a == cfg.stop_pair[0] and b == cfg.stop_pair[1]
-                      for a, b in zip(row, row[1:])), "the '###' pair was emitted")
+    check_tokens(tokens, BATCH, NEW_TOKENS, vocab)
     ms = model.arch.map_size
     check(tuple(maps.shape) == (BATCH, ms, ms, 1), maps.shape)
     check(bool(torch.isfinite(maps).all()), "non-finite anomaly map")
@@ -263,8 +485,6 @@ def full_slice(dev, seed, checks, card):
     print(f"generate: tokens {tuple(tokens.shape)} in [0, {vocab}); maps "
           f"{tuple(maps.shape)} in [{float(maps.min()):.4f}, {float(maps.max()):.4f}]")
     print(f"kernel launches in the generate run: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
     print(f"throughput: {BATCH / wall:.4f} images/s, median of 3 runs ({BATCH} images, "
           f"{NEW_TOKENS} new tokens; wall s {', '.join(f'{w:.3f}' for w in walls)}, host "
           f"clock after synchronize); peak device memory {peak / 2**30:.2f} GiB; "
@@ -272,13 +492,6 @@ def full_slice(dev, seed, checks, card):
 
     # the kernels' path against the plain path at full width
     with torch.inference_mode():
-        def timed(fn):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            return res, time.perf_counter() - t
-
         image = torch.as_tensor(samples["image"], device=dev)
         ve = model.vision_expert
         (maps_k, _), t_ve = timed(lambda: ve.module.zero_shot(
@@ -294,36 +507,16 @@ def full_slice(dev, seed, checks, card):
         print(f"stage times (host clock, synchronized, one run each): VE maps {t_ve:.4f} s, "
               f"encode_img + prefix {t_enc:.4f} s, prefill {t_pre:.4f} s, decode loop "
               f"(the rest of the median generate) ~{wall - t_ve - t_enc - t_pre:.4f} s")
-        # The int8 path is sensitive by nature: W8A8 re-quantizes every
-        # activation row, so a one-ulp change anywhere can flip int8 roundings
-        # downstream, and random weights amplify it over 32 layers.  The
-        # kernels are therefore held to the plain path's own sensitivity: their
-        # logits may move at most twice as far (relative L2) as the plain
-        # path's do when its prefix embeddings take N(0, 2^-9) relative noise
-        # and are re-rounded to bf16.
-        g = torch.Generator(device=dev).manual_seed(seed + 1)
-        noise = torch.randn(embeds.shape, generator=g, device=dev) * 2.0 ** -9
-        noisy = (embeds.float() * (1.0 + noise)).to(embeds.dtype)
 
-        def prefill(x, chunks):
-            cache = init_cache(llama.config, BATCH, p + NEW_TOKENS, cache_dtype, dev)
-            return _prefill(llama, x, cache, chunks)[:, -1].float()
-
-        def rel(a, b):
-            return ((a - b).norm() / b.norm()).item()
+        def prefill(chunks):
+            def run(x):
+                cache = init_cache(llama.config, BATCH, p + NEW_TOKENS, cache_dtype, dev)
+                return _prefill(llama, x, cache, chunks)[:, -1].float()
+            return run
 
         for label, chunks in (("1 chunk", 1), ("10 chunks", 10)):
-            kern = prefill(embeds, chunks)
-            with plain_path():
-                plain, plain_noisy = prefill(embeds, chunks), prefill(noisy, chunks)
-            err, floor = rel(kern, plain), rel(plain_noisy, plain)
-            agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-            print(f"prefill logits ({p} positions, {label}): kernels vs plain rel_l2="
-                  f"{err:.4e} max_abs_err={(kern - plain).abs().max().item():.4e}; plain "
-                  f"vs plain with noisy input rel_l2={floor:.4e}; tol=2x that; argmax "
-                  f"agreement {agree:.3f}")
-            check(bool(torch.isfinite(kern).all()), "non-finite prefill logits")
-            check(err <= 2.0 * floor, "prefill logits: kernels disagree with the plain path")
+            sensitivity_gate(f"prefill logits ({p} positions, {label})",
+                             prefill(chunks)(embeds), prefill(chunks), embeds, seed)
         with plain_path():
             plain_tokens, t_plain = timed(
                 lambda: model.generate(samples, max_new_tokens=NEW_TOKENS)["token_ids"])
@@ -332,6 +525,211 @@ def full_slice(dev, seed, checks, card):
           f"one run) against the kernels' {BATCH / wall:.4f}")
     print(f"greedy tokens identical to the plain path's: {same:.4f} of {tokens.numel()} "
           f"(reported, not required: random weights leave thin argmax margins)")
+    return model, samples, tokens, embeds
+
+
+def spec_slice(dev, seed, model, checks, card, samples, greedy, embeds):
+    """Phase 4: speculative generate at full width, lookup and oracle drafts."""
+    import torch
+
+    from myriad_tpu_torch.generation import (GenerationConfig, _lookup_drafts, _prefill,
+                                             speculative_generate)
+    from myriad_tpu_torch.models.llama import init_cache, set_frontier
+    from myriad_tpu_torch.models.myriad import Myriad
+
+    spec = Myriad.from_config({**SERVING, "llm_spec_k": SPEC_K}, device=dev,
+                              class_names=SCENES)
+    check(spec.spec_k == SPEC_K, "from_config did not read llm_spec_k")
+    spec.load_state_dicts(model.module.state_dict(), model.vision_expert.module.state_dict())
+    spec.vision_expert.build_text_features()
+    warm = spec.generate(samples, max_new_tokens=4)
+    check("spec_stats" in warm, "llm_spec_k did not route generate to speculative decoding")
+    llama = spec.module.llama
+    vocab = spec.arch.llama.vocab_size
+
+    def oracle_generate(drafts):
+        """Myriad._generate_fused with ``drafts`` as the oracle drafts."""
+        with torch.inference_mode():
+            image, question, _, maps, _ = spec.prepare_sample(samples, 1)
+            before, after = spec.split_prompt(question)
+            x = spec.module.prefill_embeds(image, maps, before, after, 1, add_bos=False)
+            tokens, stats = speculative_generate(
+                llama, x, config=GenerationConfig(max_new_tokens=NEW_TOKENS), spec_k=SPEC_K,
+                oracle_drafts=drafts, cache_dtype="int8", return_stats=True)
+        return {"token_ids": tokens, "spec_stats": stats}
+
+    needs = ["B1 int8_matmul", "B3 prefill_attention", "B4 kv_write"]
+    runs = [("prompt-lookup drafts (Myriad.generate)", "spec_lookup",
+             lambda: spec.generate(samples, max_new_tokens=NEW_TOKENS)),
+            ("oracle drafts = phase 3's greedy transcript", "spec_oracle_greedy",
+             lambda: oracle_generate(greedy)),
+            ("oracle drafts = the lookup run's own transcript", "spec_oracle_self",
+             lambda: oracle_generate(own))]
+    own = None
+    for label, path, fn in runs:
+        out, wall, counts = drive(checks, path, fn, needs)
+        tokens, stats = out["token_ids"], out["spec_stats"]
+        if own is None:
+            own, lookup_wall = tokens, wall
+        check_tokens(tokens, BATCH, NEW_TOKENS, vocab)
+        check(stats["rounds"] > 0 and stats["drafted"] > 0, "no verify round ran")
+        same = (tokens == greedy).float().mean().item()
+        print(f"speculative generate, {label}: {BATCH / wall:.4f} images/s ({wall:.3f} s, one "
+              f"run, host clock after synchronize; {BATCH} images, {NEW_TOKENS} new tokens, "
+              f"K={SPEC_K}); spec_stats {stats}, acceptance "
+              f"{stats['accepted'] / max(stats['drafted'], 1):.4f}; launches "
+              f"{ {n: counts[n] for n in needs} }; tokens identical to phase 3's greedy: "
+              f"{same:.4f}, to the lookup run's: {(tokens == own).float().mean().item():.4f} "
+              f"(reported, not required); card: {card}", flush=True)
+
+    # the first verify round, kernels against the plain path: the same feed
+    # (the kernels' own first token and lookup drafts) on both sides
+    with torch.inference_mode():
+        before, after = spec.split_prompt(AQA_QUESTION)
+        lookup = spec._spec_lookup_ids(after)[None].expand(BATCH, -1)
+        p = embeds.shape[1]
+        max_len = p + NEW_TOKENS + SPEC_K + 1
+
+        def prefill(x):
+            cache = init_cache(llama.config, BATCH, max_len, "int8", dev)
+            return cache, _prefill(llama, x, cache, 1)
+
+        _, logits = prefill(embeds)
+        last = logits[:, -1].float().argmax(-1)
+        prev = torch.full_like(last, -1)
+        draft = _lookup_drafts(lookup, prev, last, torch.full_like(last, lookup.shape[1]),
+                               SPEC_K).clamp(0, vocab - 1)
+        feed = torch.cat([last[:, None], draft], dim=1)
+
+        def verify(x):
+            cache, _ = prefill(x)
+            set_frontier(cache, torch.full((BATCH,), p, dtype=torch.int32, device=dev))
+            return llama(llama.embed(feed), cache).float()
+
+        sensitivity_gate(f"first verify round logits ({BATCH}x{SPEC_K + 1} positions after a "
+                         f"{p}-position prefix)", verify(embeds), verify, embeds, seed)
+    return spec, lookup_wall
+
+
+def chat_slice(dev, seed, model, checks, card):
+    """Phase 5: three scripted chat turns at full width on the resident cache."""
+    import numpy as np
+    import torch
+
+    from myriad_tpu_torch.conversation import CONV_VISION, Chat
+
+    rng = np.random.default_rng(seed + 2)
+    size = model.arch.img_size
+    image = rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+    llama = model.module.llama
+    vocab = model.arch.llama.vocab_size
+    for spec_k in (0, SPEC_K):
+        chat = Chat(model, incremental=True, spec_k=spec_k)
+        conv = CONV_VISION.copy()
+        img_list = []
+        _, t_up = timed(lambda: chat.upload_img(image, conv, img_list))
+        print(f"chat (spec_k={spec_k}): image uploaded in {t_up:.4f} s (VE maps + encode_img)",
+              flush=True)
+        needs = ["B1 int8_matmul", "B3 prefill_attention", "B4 kv_write"]
+        if spec_k == 0:
+            needs.append("B2 decode_attention")
+        for turn, question in enumerate(CHAT_QUESTIONS):
+            chat.ask(question, conv)
+            if turn == 1 and spec_k == 0:
+                _chat_delta_gate(chat, conv, img_list, llama, dev, seed)
+            (text, tokens), wall, counts = drive(
+                checks, f"chat_spec{spec_k}_turn{turn + 1}",
+                lambda: chat.answer(conv, img_list, max_new_tokens=CHAT_TOKENS), needs)
+            check_tokens(torch.as_tensor(tokens), 1, CHAT_TOKENS, vocab)
+            print(f"  turn {turn + 1}: {wall:.4f} s (host clock after synchronize; prefill of "
+                  f"{chat._delta_log[-1]} positions at frontier "
+                  f"{chat._frontier - chat._delta_log[-1]}, {CHAT_TOKENS} new tokens); launches "
+                  f"{counts}; answer {len(text)} chars; card: {card}", flush=True)
+
+
+def _chat_delta_gate(chat, conv, img_list, llama, dev, seed):
+    """Turn 2's delta prefill on a copy of the resident cache (turn 1's decode
+    scratch included) against a full re-prefill of the same prompt into a
+    fresh cache.  The re-prefill runs as two chunks split at the frontier
+    (chunked prefill is exact by construction) so that each row takes the
+    projection route it takes on the resident path: in one chunk of more than
+    256 rows the delta's rows would go through W8A8 instead of B1, a
+    difference of route, not of the cache.  The one-chunk re-prefill is
+    printed beside it."""
+    import torch
+
+    from myriad_tpu_torch.models.llama import init_cache
+
+    with torch.inference_mode():
+        probe = conv.copy()
+        probe.append_message(probe.roles[1], None)  # as answer() does
+        units, _ = chat._context_units(probe, img_list)
+        frontier = chat._frontier
+        check(units[:frontier] == chat._units[:frontier] and len(units) > frontier,
+              "turn 2 does not extend the cached prompt")
+        cache = [{k: (v.clone() if torch.is_tensor(v) else v) for k, v in layer.items()}
+                 for layer in chat._cache]
+        delta = chat._embed_units(units[frontier:], img_list)
+        delta_logits = llama.prefill(delta, cache)[:, -1].float()
+        full = chat.get_context_emb(probe, img_list)
+
+        def reprefill(x, split=True):
+            fresh = init_cache(llama.config, 1, chat._bucket, chat._cache_dtype(), dev)
+            if split:
+                llama.prefill(x[:, :frontier], fresh)
+                x = x[:, frontier:]
+            return llama.prefill(x, fresh)[:, -1].float()
+
+        err = rel(delta_logits, reprefill(full))
+        one_chunk = rel(delta_logits, reprefill(full, split=False))
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        noise = torch.randn(full.shape, generator=g, device=dev) * 2.0 ** -9
+        with plain_path():
+            plain = reprefill(full)
+            floor = rel(reprefill((full.float() * (1.0 + noise)).to(full.dtype)), plain)
+        print(f"chat turn 2: delta prefill of {len(units) - frontier} positions at frontier "
+              f"{frontier} on the resident cache vs a full re-prefill of {len(units)}: "
+              f"rel_l2={err:.4e} (split at the frontier), {one_chunk:.4e} (one chunk, "
+              f"reported); plain vs plain with noisy input rel_l2={floor:.4e}; tol=2x that",
+              flush=True)
+        check(bool(torch.isfinite(delta_logits).all()), "chat turn 2: non-finite logits")
+        check(err <= 2.0 * floor, "chat turn 2: delta prefill disagrees with a full re-prefill")
+
+
+KERNEL_OF = {"int8_matmul": "B1", "decode_attention_kernel": "B2",
+             "prefill_attention_kernel": "B3", "kv_write_kernel": "B4",
+             "kv_quantize_write_kernel": "B4"}
+
+
+def profile_spec(spec, samples, card, wall_unprofiled):
+    """One speculative generate under torch.profiler: device time by kernel,
+    and the device's busy share of an unprofiled run's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: spec.generate(samples, max_new_tokens=NEW_TOKENS))
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    total = sum(r[0] for r in rows)
+    check(total > 0, "the profiler recorded no device time")
+    print(f"profile of one speculative generate (prompt-lookup drafts, {BATCH} images, "
+          f"{NEW_TOKENS} new tokens, K={SPEC_K}): device time {total / 1e3:.1f} ms in all; "
+          f"profiled wall {wall:.3f} s; device busy {total / 1e6 / wall_unprofiled:.3f} of the "
+          f"unprofiled run's {wall_unprofiled:.3f} s; card: {card}")
+    by_kernel = {}
+    for us, _, key in rows:
+        tag = next((k for name, k in KERNEL_OF.items() if name in key), "other")
+        by_kernel[tag] = by_kernel.get(tag, 0.0) + us
+    print("  by kernel: " + ", ".join(f"{k} {v / 1e3:.1f} ms ({v / total:.3f})"
+                                      for k, v in sorted(by_kernel.items())))
+    for us, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"  {us / 1e3:9.1f} ms {us / total:6.3f} {count:7d} calls  {key[:90]}")
 
 
 def main(argv=None) -> int:
@@ -372,7 +770,13 @@ def main(argv=None) -> int:
     checks = kernel_checks(dev, args.seed)
     card = _card()
     print("phase 3: full-width Myriad.generate", flush=True)
-    full_slice(dev, args.seed, checks, card)
+    model, samples, greedy, embeds = full_slice(dev, args.seed, checks, card)
+    print("phase 4: full-width speculative generate", flush=True)
+    spec, spec_wall = spec_slice(dev, args.seed, model, checks, card, samples, greedy, embeds)
+    del model
+    print("phase 5: full-width chat on the resident cache", flush=True)
+    chat_slice(dev, args.seed, spec, checks, card)
+    profile_spec(spec, samples, card, spec_wall)
     print(card)
     print(json.dumps({"kernels": [c.record() for c in checks]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

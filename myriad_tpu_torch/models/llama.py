@@ -10,20 +10,28 @@ first ``kv_len`` cache positions with the additive -1e9 mask (kernel B2).
 
 The cache is preallocated and written in place at its ``index``: unlike
 the JAX package's functional cache, a forward with a cache mutates it.
-This is the port's one in-place deviation.
+This is the port's one in-place deviation.  ``index`` is an int (every row
+at one frontier) or a (B,) int32 tensor of per-row frontiers (speculative
+decoding's ragged acceptance); every write goes through kernel B4
+(``ops/kv_write.py``), which clamps a start to [0, T - t] as the JAX
+package's cache writes do.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
 from myriad_tpu_torch.models.layers import (Dense, Policy, maybe_quant_dense, merge_heads,
                                             new_param)
+from myriad_tpu_torch.ops import kv_write
 from myriad_tpu_torch.ops.attention import causal_mask, mha
+# quantize_kv lives beside kernel B4; it is also reachable here, where the
+# JAX package defines it
+from myriad_tpu_torch.ops.kv_write import quantize_kv  # noqa: F401
 
 Cache = Dict[str, object]
 
@@ -112,12 +120,10 @@ class LoraDense(nn.Module):
         return y
 
 
-def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 over the head dim: x (B,H,T,D) -> (x8, scale (B,H,T,1) fp32)."""
-    xf = x.float()
-    scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
-    x8 = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-    return x8, scale
+def set_frontier(cache: List[Cache], index) -> None:
+    """Set every layer's write frontier (an int or a (B,) int32 tensor)."""
+    for layer_cache in cache:
+        layer_cache["index"] = index
 
 
 def serving_cache_dtype(config: LlamaConfig, compute_dtype):
@@ -170,23 +176,19 @@ class LlamaAttention(nn.Module):
         k = apply_rope(k, cos, sin).transpose(1, 2)
         v = v.transpose(1, 2)
 
+        # the write frontier (int or per-row tensor); LlamaModel advances it
         idx = cache["index"]
         k_sc = v_sc = None
         if "k_scale" in cache:
-            # int8 KV: per-(batch, head, position) quant at write; the scales
-            # fold into the attention logits/probs, the cache is never
-            # dequantized as a tensor
-            k8, ks = quantize_kv(k)
-            v8, vs = quantize_kv(v)
-            cache["k"][:, :, idx:idx + t] = k8
-            cache["v"][:, :, idx:idx + t] = v8
-            cache["k_scale"][:, :, idx:idx + t] = ks.to(torch.float16)
-            cache["v_scale"][:, :, idx:idx + t] = vs.to(torch.float16)
+            # int8 KV: per-(batch, head, position) quant at write, one B4
+            # launch for K and V; the scales fold into the attention
+            # logits/probs, the cache is never dequantized as a tensor
+            kv_write.kv_quantize_write(cache["k"], cache["v"], cache["k_scale"],
+                                       cache["v_scale"], k, v, idx)
             k_sc, v_sc = cache["k_scale"], cache["v_scale"]
         else:
-            cache["k"][:, :, idx:idx + t] = k.to(cache["k"].dtype)
-            cache["v"][:, :, idx:idx + t] = v.to(cache["v"].dtype)
-        cache["index"] = idx + t
+            kv_write.kv_cache_write(cache["k"], k.to(cache["k"].dtype), idx)
+            kv_write.kv_cache_write(cache["v"], v.to(cache["v"].dtype), idx)
         k_all, v_all = cache["k"], cache["v"]
 
         if hk != h:
@@ -259,22 +261,31 @@ class LlamaModel(nn.Module):
     def forward(self, inputs_embeds: torch.Tensor, cache: List[Cache],
                 kv_limit: Optional[int] = None) -> torch.Tensor:
         """Run over ``inputs_embeds`` (B, T, D) at the cache's write frontier,
-        writing the new K/V in place.  ``kv_limit``: a decode step attends
-        only over cache positions < kv_limit (exact while the frontier stays
-        below it: staged decode)."""
+        writing the new K/V in place and advancing every layer's frontier by
+        T.  The frontier is an int or a (B,) int32 tensor of per-row
+        frontiers; positions are then ``index[:, None] + arange(T)``.
+        ``kv_limit``: a decode step attends only over cache positions <
+        kv_limit (exact while the frontier stays below it: staged decode)."""
         b, t, _ = inputs_embeds.shape
         start = cache[0]["index"]
         kv_len = cache[0]["k"].shape[2]
         if kv_limit is not None:
             kv_len = min(kv_len, int(kv_limit))
-        positions = (start + torch.arange(t, dtype=torch.int32,
-                                          device=inputs_embeds.device))[None].expand(b, t)
+        arange = torch.arange(t, dtype=torch.int32, device=inputs_embeds.device)
+        if torch.is_tensor(start):  # per-row frontiers
+            positions = start[:, None] + arange[None, :]
+        else:
+            positions = (start + arange)[None].expand(b, t)
         # a decode step takes the additive mask over absolute positions, as the
-        # JAX package does; a prefill chunk's kernel applies causality itself
+        # JAX package does; a prefill chunk's kernel applies causality itself.
+        # Either way a slot at or past a row's frontier is never seen before
+        # it is written, so stale entries (a speculative rollback, an earlier
+        # turn's decode scratch) stay out.
         mask = causal_mask(positions, kv_len) if t == 1 else None
         hidden = inputs_embeds.to(self.dtype)
         for layer, layer_cache in zip(self.layers, cache):
             hidden = layer(hidden, positions, layer_cache, mask, kv_len)
+        set_frontier(cache, start + t)
         return self.norm(hidden)
 
 
@@ -293,10 +304,24 @@ class LlamaForCausalLM(nn.Module):
         # preferred_element_type=float32 (the greedy-parity island)
         return torch.matmul(hidden.float(), self.lm_head.to(hidden.dtype).float())
 
-    def prefill(self, inputs_embeds: torch.Tensor, cache: List[Cache]) -> torch.Tensor:
-        """Last-position logits (B, 1, V) only; fills the cache in place."""
+    def prefill(self, inputs_embeds: torch.Tensor, cache: List[Cache],
+                last_index=None) -> torch.Tensor:
+        """Logits (B, 1, V) of one position only; fills the cache in place.
+
+        The last position by default; ``last_index`` (an int, or a (B,) int
+        tensor for per-row columns) selects another, clamped into the chunk
+        as the JAX package's dynamic slice clamps it."""
         hidden = self.model(inputs_embeds, cache)
-        return self.logits(hidden[:, -1:])
+        t = hidden.shape[1]
+        if last_index is None:
+            hidden = hidden[:, -1:]
+        elif torch.is_tensor(last_index) and last_index.dim() == 1:
+            li = last_index.to(device=hidden.device, dtype=torch.int64).clamp(0, t - 1)
+            hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), li][:, None]
+        else:
+            li = min(max(int(last_index), 0), t - 1)
+            hidden = hidden[:, li:li + 1]
+        return self.logits(hidden)
 
     def forward(self, inputs_embeds: torch.Tensor, cache: List[Cache],
                 kv_limit: Optional[int] = None) -> torch.Tensor:

@@ -7,8 +7,10 @@
 with the ImageBind vision expert producing the anomaly maps that feed the
 two map encoders.  ``MyriadModule`` holds the weights and the compute;
 ``Myriad`` is the host class: prompt tokenisation, the vision expert's
-text-feature cache, and ``generate``.  The serving path is zero-shot and
-greedy; one-shot maps, top-p sampling and training are not ported yet.
+text-feature cache, and ``generate`` (greedy, or speculative when
+``spec_k > 0``).  The serving path is zero-shot; one-shot maps, top-p
+sampling and training are not ported yet.  ``Myriad`` builds on the card
+unless the caller passes another device.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from myriad_tpu_torch.generation import GenerationConfig, greedy_generate
+from myriad_tpu_torch.generation import (GenerationConfig, greedy_generate,
+                                         speculative_generate)
+from myriad_tpu_torch.models.clip_tokenizer import HashTokenizer
 from myriad_tpu_torch.models.eva_vit import EvaViT
 from myriad_tpu_torch.models.imagebind import ImageBindConfig
 from myriad_tpu_torch.models.layers import Dense, LayerNormFp32, Policy, init_random_, new_param
@@ -28,9 +32,16 @@ from myriad_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            serving_cache_dtype)
 from myriad_tpu_torch.models.networks import LoraAdaptorV2, VEInstructorV2, VETokenizer
 from myriad_tpu_torch.models.qformer import QFormer
-from myriad_tpu_torch.models.vision_expert import (AnomalyExpertModule, VisionExpert,
-                                                   hash_tokenizer)
+from myriad_tpu_torch.models.vision_expert import AnomalyExpertModule, VisionExpert
 from myriad_tpu_torch.ops.preprocess import u8_normalize
+from myriad_tpu_torch.tokenization import ByteTokenizer
+
+# The AQA task's templated answers, copied from
+# myriad_tpu/datasets/anomaly_detection.py (which imports cv2);
+# tests/test_torch_myriad.py holds the copies equal.  They seed the
+# speculative lookup corpus.
+NORMAL_DESCRIBE = "No, there exists no anomalies in the image."
+ABNORMAL_DESCRIBE = "Yes, there exists anomalies in the image."
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,39 +134,39 @@ class MyriadModule(nn.Module):
         return torch.cat(pieces, dim=1)
 
 
-def _byte_tokenizer():
-    from myriad_tpu.tokenization import ByteTokenizer  # jax-free module
-
-    return ByteTokenizer()
-
-
 class Myriad:
     """Host class: the module, the vision expert, prompt ids and ``generate``."""
 
     def __init__(self, arch: Optional[MyriadArch] = None, *, policy: Optional[Policy] = None,
-                 device="cpu", prefill_chunks: int = 1, staged_decode: bool = False,
-                 cache_granularity: int = 32, class_names: Optional[Sequence[str]] = None):
+                 device="cuda", prefill_chunks: int = 1, staged_decode: bool = False,
+                 cache_granularity: int = 32, spec_k: int = 0, end_sym: str = "\n",
+                 class_names: Optional[Sequence[str]] = None):
         self.arch = arch or MyriadArch.full()
         self.policy = policy or Policy.bf16_params()
         self.device = torch.device(device)
         self.prefill_chunks = int(prefill_chunks)
         self.staged_decode = bool(staged_decode)
         self.cache_granularity = int(cache_granularity)
+        # speculative decoding: verify spec_k drafted tokens per weight pass
+        # (transcript-exact); 0 = plain greedy
+        self.spec_k = int(spec_k)
+        self.end_sym = end_sym
         self.module = MyriadModule(self.arch, policy=self.policy, device=self.device)
-        self.llama_tokenizer = _byte_tokenizer()
+        self.llama_tokenizer = ByteTokenizer()
         ve_module = AnomalyExpertModule(self.arch.imagebind, map_size=self.arch.map_size,
                                         policy=self.policy, device=self.device)
         self.vision_expert = VisionExpert(
-            ve_module, tokenizer=hash_tokenizer(self.arch.imagebind.vocab_size),
+            ve_module, tokenizer=HashTokenizer(self.arch.imagebind.vocab_size),
             class_names=class_names)
         self._prompt_cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     @classmethod
-    def from_config(cls, cfg: Mapping, *, device="cpu", policy: Optional[Policy] = None,
+    def from_config(cls, cfg: Mapping, *, device="cuda", policy: Optional[Policy] = None,
                     class_names: Optional[Sequence[str]] = None) -> "Myriad":
         """Build from the JAX package's config keys that the serving profile
         reads: arch_preset, llm_weight_dtype, llm_kv_dtype,
-        llm_prefill_chunks, llm_staged_decode, llm_cache_granularity."""
+        llm_prefill_chunks, llm_staged_decode, llm_cache_granularity,
+        llm_spec_k, end_sym."""
         if cfg.get("k_shot", 0) > 0:
             raise NotImplementedError("one-shot anomaly maps (k_shot > 0) are not ported")
         arch = MyriadArch.tiny() if cfg.get("arch_preset", "full") == "tiny" else MyriadArch.full()
@@ -168,6 +179,7 @@ class Myriad:
                    prefill_chunks=cfg.get("llm_prefill_chunks", 1),
                    staged_decode=cfg.get("llm_staged_decode", True),
                    cache_granularity=cfg.get("llm_cache_granularity", 32),
+                   spec_k=cfg.get("llm_spec_k", 0), end_sym=cfg.get("end_sym", "\n"),
                    class_names=class_names)
 
     # -- weights --------------------------------------------------------------
@@ -200,9 +212,55 @@ class Myriad:
             self._prompt_cache[prompt] = (ids[0], ids[1])
         return self._prompt_cache[prompt]
 
+    # -- sample prep ----------------------------------------------------------
+    def prepare_sample(self, samples: Dict, stage: int, training: bool = False):
+        """(image, question, texts, maps, one_maps) for a serving batch: the
+        zero-shot maps of the vision expert; one_maps are the same maps, as
+        the JAX package gives them when no reference bank is built.  The
+        training case (augmented images, targets) is not ported."""
+        if training:
+            raise NotImplementedError("training sample prep is not ported")
+        image = samples["image"]
+        image = (image if torch.is_tensor(image)
+                 else torch.as_tensor(np.asarray(image))).to(self.device)
+        if image.dtype != torch.uint8:
+            image = image.float()
+        q_key = {0: "question", 1: "question2", 2: "question3"}[stage]
+        questions = samples.get(q_key) or samples.get("question")
+        question = questions[0] if isinstance(questions, (list, tuple)) else questions
+        maps, _ = self.vision_expert(image, list(samples["scene"]))
+        return image, question, None, maps, maps
+
     # -- serving --------------------------------------------------------------
+    def _spec_lookup_ids(self, after: torch.Tensor) -> torch.Tensor:
+        """Lookup corpus for prompt-lookup speculative decoding: the
+        post-image prompt ids, then the task's templated answers (real
+        transcripts open with one of them), each followed by ``end_sym``."""
+        ids = [int(i) for i in torch.as_tensor(after).reshape(-1).tolist()]
+        for text in (NORMAL_DESCRIBE, ABNORMAL_DESCRIBE):
+            t_ids = self.llama_tokenizer(text + self.end_sym,
+                                         add_special_tokens=False)["input_ids"]
+            if t_ids and isinstance(t_ids[0], list):
+                t_ids = t_ids[0]
+            ids.extend(int(i) for i in t_ids)
+        return torch.tensor(ids, dtype=torch.int64, device=self.device)
+
+    def _decode_fn(self, gen_cfg: GenerationConfig, cache_dtype, lookup_ids):
+        """``greedy_generate``, or its speculative twin when spec_k > 0 and
+        decoding is greedy: a function embeds -> (tokens, stats), stats being
+        the acceptance counters ({} on the plain path)."""
+        llama = self.module.llama
+        if self.spec_k > 0 and not gen_cfg.do_sample:
+            return lambda embeds: speculative_generate(
+                llama, embeds, config=gen_cfg, spec_k=self.spec_k, lookup_ids=lookup_ids,
+                cache_dtype=cache_dtype, return_stats=True)
+        return lambda embeds: (greedy_generate(llama, embeds, config=gen_cfg,
+                                               cache_dtype=cache_dtype), {})
+
     def generate(self, samples: Dict, **generate_kwargs) -> Dict:
-        """Greedy decode of the AQA answer for a batch of images."""
+        """Greedy (or speculative, ``spec_k > 0``) decode of the AQA answer
+        for a batch of images; ``spec_stats`` joins the result on the
+        speculative path."""
         defaults = GenerationConfig()
         gen_cfg = GenerationConfig(
             max_new_tokens=generate_kwargs.get("max_new_tokens", 90),
@@ -220,7 +278,8 @@ class Myriad:
         )
         if gen_cfg.do_sample and gen_cfg.top_p <= 0.01 and gen_cfg.temperature <= 1.0:
             # the reference's shipped kwargs (do_sample, top_p=0.01, T=1) are
-            # greedy in effect: route them to the deterministic greedy path
+            # greedy in effect: route them to the deterministic greedy path,
+            # where speculative decoding (spec_k) engages
             gen_cfg = dataclasses.replace(gen_cfg, do_sample=False)
         if gen_cfg.do_sample:
             raise NotImplementedError("top-p sampling is not ported; greedy only")
@@ -229,21 +288,14 @@ class Myriad:
     @torch.inference_mode()
     def _generate_fused(self, samples: Dict, stage: int, gen_cfg: GenerationConfig) -> Dict:
         """VE zero-shot maps + encode_img + prefill + decode."""
-        ve = self.vision_expert
-        image = torch.as_tensor(np.asarray(samples["image"])).to(self.device)
-        if image.dtype != torch.uint8:
-            image = image.float()
-        q_key = {0: "question", 1: "question2", 2: "question3"}[stage]
-        questions = samples.get(q_key) or samples.get("question")
-        question = questions[0] if isinstance(questions, (list, tuple)) else questions
+        image, question, _, maps, _ = self.prepare_sample(samples, stage)
         before, after = self.split_prompt(question)
-        if ve._text_feats is None:
-            ve.build_text_features()
-        text_feats = ve._text_feats[ve.scene_ids(list(samples["scene"]))]
-        maps, _ = ve.module.zero_shot(image, text_feats)
         # served with no bos embedding, as the reference generates
         embeds = self.module.prefill_embeds(image, maps, before, after, stage, add_bos=False)
         cache_dtype = serving_cache_dtype(self.arch.llama, self.policy.compute_dtype)
-        tokens = greedy_generate(self.module.llama, embeds, config=gen_cfg,
-                                 cache_dtype=cache_dtype)
-        return {"token_ids": tokens, "ve_anomaly_maps": maps}
+        lookup = self._spec_lookup_ids(after) if self.spec_k > 0 else None
+        tokens, stats = self._decode_fn(gen_cfg, cache_dtype, lookup)(embeds)
+        out = {"token_ids": tokens, "ve_anomaly_maps": maps}
+        if stats:
+            out["spec_stats"] = stats
+        return out

@@ -12,8 +12,6 @@ reference bank are not ported yet.
 from __future__ import annotations
 
 import functools
-import importlib.util
-from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,8 +23,8 @@ from myriad_tpu_torch.models.imagebind import (ImageBindConfig, ImageBindText,
 from myriad_tpu_torch.models.layers import Policy
 
 # Prompt-ensemble constants, copied from myriad_tpu/models/vision_expert.py
-# (importing that package pulls in JAX); tests/test_torch_myriad.py holds the
-# copies equal.
+# (the port imports nothing of the JAX package); tests/test_torch_myriad.py
+# holds the copies equal.
 PROMPT_NORMAL = [
     "{}", "flawless {}", "perfect {}", "unblemished {}",
     "{} without flaw", "{} without defect", "{} without damage",
@@ -52,18 +50,6 @@ def prompt_sentences_for(obj: str) -> Tuple[List[str], List[str]]:
     normal = [t.format(s.format(obj)) for s in PROMPT_NORMAL for t in PROMPT_TEMPLATES]
     abnormal = [t.format(s.format(obj)) for s in PROMPT_ABNORMAL for t in PROMPT_TEMPLATES]
     return normal, abnormal
-
-
-def hash_tokenizer(vocab_size: int):
-    """The JAX package's ``HashTokenizer``, loaded from its file by path: the
-    file is stdlib-only, but importing it as ``myriad_tpu.models.*`` would run
-    that package's ``__init__``, which imports JAX."""
-    path = (Path(__file__).resolve().parents[2] / "myriad_tpu" / "models"
-            / "clip_tokenizer.py")
-    spec = importlib.util.spec_from_file_location("_myriad_clip_tokenizer", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.HashTokenizer(vocab_size)
 
 
 @functools.lru_cache(maxsize=8)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, into
-``build/kernels/`` beside the package (listed in ``.gitignore``).  The file
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all at once, and the objects are linked into one shared library with a
+plain C interface, at first use, into ``build/kernels/`` beside the package
+(listed in ``.gitignore``).  The file
 name carries a digest of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the library.  Nothing here runs at import: the CPU
 tests import every module, and only a CUDA tensor reaches ``library()``.
@@ -22,8 +23,10 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+# no -use_fast_math: kernel B4's quantization is bit-exact with the plain
+# version only with IEEE division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +39,8 @@ _SIGNATURES = {
         [_P] * 7 + [_I] * 4 + [_L] * 6 + [_I, _F, _P], _I),
     "myriad_prefill_attention": (
         [_P] * 7 + [_I] * 5 + [_L] * 6 + [_I, _F, _P], _I),
+    "myriad_kv_write": ([_P] * 3 + [_I] * 6 + [_L] * 6 + [_P], _I),
+    "myriad_kv_quantize_write": ([_P] * 7 + [_I] * 6 + [_L] * 9 + [_P], _I),
     "myriad_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -62,9 +67,10 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into one library (once per source digest).  nvcc's
-    output, with ptxas's register and shared-memory report, is kept beside
-    it with the suffix ``.log``."""
+    """Compile csrc/*.cu into one library (once per source digest): one
+    ``nvcc -c`` per source, started together, then one link.  nvcc's output,
+    with ptxas's register and shared-memory report, is kept beside the
+    library with the suffix ``.log``."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
@@ -74,12 +80,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    nvcc = _nvcc()
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    try:
+        logs, failed = [], []
+        for src, proc in zip(sources, procs):
+            logs.append(f"== {src.name}\n{proc.communicate()[0]}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    finally:
+        for proc in procs:
+            proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out

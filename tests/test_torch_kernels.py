@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (B1, B2, B3) against their plain PyTorch versions,
-on the card.  Every test here needs a CUDA device and skips without one.
+"""The port's CUDA kernels (B1, B2, B3, B4) against their plain PyTorch
+versions, on the card.  Every test here needs a CUDA device and skips without
+one.
 
 This file imports no JAX (the card has none), so it runs there without the
 suite's conftest:
@@ -7,14 +8,15 @@ suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 
 Tolerances: B1 one bf16 rounding of the largest output (2^-7 * max|plain|);
-B2/B3 2e-2 absolute (bf16 probabilities and outputs, |out| of a few units).
+B2/B3 2e-2 absolute (bf16 probabilities and outputs, |out| of a few units);
+B4 none: its writes, quantized or copied, are bit-exact.
 """
 
 import pytest
 import torch
 
-from myriad_tpu_torch.models.llama import quantize_kv
 from myriad_tpu_torch.ops import decode_attention as da
+from myriad_tpu_torch.ops import kv_write as kw
 from myriad_tpu_torch.ops import prefill_attention as pa
 from myriad_tpu_torch.ops import quant
 
@@ -35,7 +37,7 @@ def _cache(dev, g, b, h, t, d, int8):
     v = torch.randn(b, h, t, d, generator=g, device=dev)
     if not int8:
         return k.bfloat16(), v.bfloat16(), None, None
-    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    (k8, ks), (v8, vs) = kw.quantize_kv(k), kw.quantize_kv(v)
     return k8, v8, ks.half(), vs.half()
 
 
@@ -112,3 +114,79 @@ def test_prefill_attention_kernel_matches_plain(dev, tq, offset, int8):
     assert pa.counter.count == before + 1
     ref = pa.prefill_attention_plain(q, k, v, pos, **args)
     assert (out.float() - ref.float()).abs().max().item() <= BF16_ATOL
+
+
+@pytest.mark.parametrize("t", [1, 4, 297])
+def test_prefill_attention_kernel_ragged_positions(dev, t):
+    """Per-row positions (a speculative verify round): each row's block stops
+    at its own last visible key."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    b, h, tk, d = 8, 32, 416, 128
+    q = torch.randn(b, h, t, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v, ks, vs = _cache(dev, g, b, h, tk, d, True)
+    starts = torch.tensor([0, 3, 17, 60, 101, 64, 90, 119], device=dev, dtype=torch.int32)
+    pos = starts[:, None] + torch.arange(t, device=dev, dtype=torch.int32)[None, :]
+    args = dict(scale=d ** -0.5, k_scale=ks, v_scale=vs)
+    out = pa.prefill_attention(q, k, v, pos, **args)
+    ref = pa.prefill_attention_plain(q, k, v, pos, **args)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_ATOL
+
+
+STARTS = [300, 412, 0, 413, 37, 200, 5, 1000]  # 413 and 1000 clamp to T - t
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.int8, 128), (torch.float16, 1),
+                                     (torch.bfloat16, 128), (torch.int8, 36)])
+@pytest.mark.parametrize("per_row", [True, False])
+def test_kv_write_copy_bit_exact(dev, dtype, d, per_row):
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, h, T, t = 8, 32, 416, 4
+    buf = (torch.randn(b, h, T, d, generator=g, device=dev) * 50).to(dtype)
+    upd = (torch.randn(b, h, t, d, generator=g, device=dev) * 50).to(dtype)
+    idx = torch.tensor(STARTS, dtype=torch.int32, device=dev) if per_row else 413
+    out, ref = buf.clone(), buf.clone()
+    before = kw.counter.count
+    kw.kv_cache_write(out, upd, idx)
+    assert kw.counter.count == before + 1
+    kw.kv_cache_write_plain(ref, upd, idx)
+    assert torch.equal(out, ref)
+    # a strided update (the attention's transposed K) takes the same path
+    upd_t = upd.transpose(1, 2).contiguous().transpose(1, 2)
+    out2 = buf.clone()
+    kw.kv_cache_write(out2, upd_t, idx)
+    assert torch.equal(out2, ref)
+
+
+@pytest.mark.parametrize("t,d", [(1, 128), (4, 128), (297, 128), (4, 40)])
+def test_kv_quantize_write_bit_exact(dev, t, d):
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, h, T = 8, 32, 416
+    bufs = [torch.randint(-127, 128, (b, h, T, d), generator=g, device=dev, dtype=torch.int8)
+            for _ in range(2)]
+    scales = [torch.rand(b, h, T, 1, generator=g, device=dev).half() for _ in range(2)]
+    k = (torch.randn(b, t, h, d, generator=g, device=dev) * 4).bfloat16().transpose(1, 2)
+    v = torch.randn(b, t, h, d, generator=g, device=dev).bfloat16().transpose(1, 2)
+    k[0, 1, 0] = 0  # an all-zero row takes the 1e-8 scale floor
+    idx = torch.tensor(STARTS, dtype=torch.int32, device=dev) if t < 297 else 0
+    out = [x.clone() for x in bufs + scales]
+    ref = [x.clone() for x in bufs + scales]
+    before = kw.counter.count
+    kw.kv_quantize_write(*out, k, v, idx)
+    assert kw.counter.count == before + 1
+    kw.kv_quantize_write_plain(*ref, k, v, idx)
+    for name, a, r in zip(("k", "v", "k_scale", "v_scale"), out, ref):
+        assert torch.equal(a, r), name
+
+
+def test_kv_write_refuses_what_it_does_not_take(dev):
+    buf = torch.zeros(2, 4, 16, 8, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # dtype mismatch
+        kw.kv_cache_write(buf, torch.zeros(2, 4, 1, 8, device=dev), 0)
+    with pytest.raises(ValueError):  # per-row starts must be int32 on the card
+        kw.kv_cache_write(buf, torch.zeros(2, 4, 1, 8, dtype=torch.bfloat16, device=dev),
+                          torch.zeros(2, dtype=torch.int64, device=dev))
+    k8 = torch.zeros(2, 4, 16, 8, dtype=torch.int8, device=dev)
+    sc = torch.zeros(2, 4, 16, 1, dtype=torch.float16, device=dev)
+    with pytest.raises(ValueError):  # fp32 K/V
+        kw.kv_quantize_write(k8, k8.clone(), sc, sc.clone(), torch.zeros(2, 4, 1, 8, device=dev),
+                             torch.zeros(2, 4, 1, 8, device=dev), 0)

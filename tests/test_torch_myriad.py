@@ -7,10 +7,12 @@ weights on both sides.  Gates: token ids identical; maps within 1e-5 (the
 gate of tests/test_myriad_model.py).
 """
 
+import ast
 import os
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -68,7 +70,7 @@ def pair():
     ve.class_index = {c: i for i, c in enumerate(SCENES)}
     ve.build_text_features()
     arch = MyriadArch.tiny(llama=LlamaConfig.tiny(weight_dtype="int8", kv_cache_dtype="int8"))
-    pm = Myriad(arch, policy=Policy.fp32(), class_names=SCENES)
+    pm = Myriad(arch, policy=Policy.fp32(), device="cpu", class_names=SCENES)
     pm.load_state_dicts(state_dict_from_jax(params), state_dict_from_jax(ve.params["params"]))
     return jm, pm
 
@@ -77,6 +79,31 @@ def _samples(n=2):
     rng = np.random.default_rng(7)
     return {"image": rng.integers(0, 256, size=(n, 28, 28, 3), dtype=np.uint8),
             "scene": ["bottle", "cable"][:n], "question2": [QUESTION] * n}
+
+
+def test_from_config_spec_generate_matches_jax(pair):
+    """``llm_spec_k`` routes generate to speculative decoding, under the
+    reference's sampling kwargs too: tokens and spec_stats identical to the
+    JAX Myriad's, tokens identical to plain greedy."""
+    jm, pm = pair
+    spec = Myriad.from_config({"arch_preset": "tiny", "llm_weight_dtype": "int8",
+                               "llm_kv_dtype": "int8", "llm_spec_k": 3, "end_sym": "###"},
+                              policy=Policy.fp32(), device="cpu", class_names=SCENES)
+    assert (spec.spec_k, spec.end_sym) == (3, "###")
+    spec.load_state_dicts(pm.module.state_dict(), pm.vision_expert.module.state_dict())
+    kw = dict(max_new_tokens=10, stop_single=5, stop_pair=(7, 9), do_sample=True, top_p=0.01)
+    jm.spec_k, jm.end_sym = 3, "###"
+    try:
+        ref = jm.generate(_samples(), **kw)
+    finally:
+        jm.spec_k, jm.end_sym = 0, "\n"
+    out = spec.generate(_samples(), **kw)
+    np.testing.assert_array_equal(out["token_ids"].numpy(), np.asarray(ref["token_ids"]))
+    assert out["spec_stats"] == {n: int(v) for n, v in ref["spec_stats"].items()}
+    assert out["spec_stats"]["rounds"] > 0
+    greedy = pm.generate(_samples(), **kw)
+    assert "spec_stats" not in greedy
+    torch.testing.assert_close(out["token_ids"], greedy["token_ids"], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("staged", [False, True])
@@ -129,9 +156,13 @@ def test_bridge_loads_strictly_both_ways(pair):
 
 
 def test_copied_constants_equal_the_originals():
+    import yaml
+
+    from myriad_tpu.datasets import anomaly_detection as jad
     from myriad_tpu.datasets.anomaly_detection import QUESTION_PROMPTS
     from myriad_tpu.models import vision_expert as jve
     from myriad_tpu.processors.functional import CLIP_MEAN, CLIP_STD
+    from myriad_tpu_torch.models import myriad as tmyriad
     from myriad_tpu_torch.models import vision_expert as tve
     from myriad_tpu_torch.ops import preprocess
 
@@ -145,14 +176,41 @@ def test_copied_constants_equal_the_originals():
     import chip_smoke
 
     assert chip_smoke.AQA_QUESTION == "<Img><ImageHere></Img>" + QUESTION_PROMPTS[1]
+    for name in ("NORMAL_DESCRIBE", "ABNORMAL_DESCRIBE"):
+        assert getattr(tmyriad, name) == getattr(jad, name), name
+    with open(os.path.join(REPO, "eval_configs", "myriad.yaml")) as f:
+        eval_cfg = yaml.safe_load(f)["model"]
+    assert chip_smoke.SERVING["end_sym"] == eval_cfg["end_sym"] == "###"
+
+
+def test_byte_tokenizer_copy_is_the_jax_one():
+    from myriad_tpu.tokenization import ByteTokenizer as JaxByteTokenizer
+    from myriad_tpu_torch.tokenization import ByteTokenizer
+
+    ours, theirs = ByteTokenizer(), JaxByteTokenizer()
+    texts = ["###Human: <Img>", "défaut à gauche ###", "naïve 漢字 ✓", ""]
+    for s in texts:
+        for special in (False, True):
+            assert ours.encode(s, special) == theirs.encode(s, special)
+            assert ours(s, add_special_tokens=special) == theirs(s, add_special_tokens=special)
+        assert ours.decode(ours.encode(s)) == theirs.decode(theirs.encode(s)) == s
+    rows = [[0, 1, 2, 38, 38, 38, 3], [200, 2, 1], [262, 300]]  # ids < 3 and past 258
+    assert ours.batch_decode(rows) == theirs.batch_decode(rows)
+    assert ours(texts, max_length=4) == theirs(texts, max_length=4)
+    for name in ("vocab_size", "bos_token_id", "eos_token_id", "pad_token_id"):
+        assert getattr(ours, name) == getattr(theirs, name), name
 
 
 def test_hash_tokenizer_is_the_jax_one():
-    from myriad_tpu.models.clip_tokenizer import HashTokenizer
-    from myriad_tpu_torch.models.vision_expert import hash_tokenizer
+    from myriad_tpu.models.clip_tokenizer import HashTokenizer as JaxHashTokenizer
+    from myriad_tpu_torch.models.clip_tokenizer import HashTokenizer
 
-    for s in ("a photo of a damaged bottle.", "flawless metal nut"):
-        assert hash_tokenizer(49408).encode(s, 77) == HashTokenizer(49408).encode(s, 77)
+    long = " ".join(["flawless"] * 90)  # truncated to 77 with eot last
+    for s in ("a photo of a damaged bottle.", "flawless metal nut", "défaut ###", "", long):
+        for vocab in (49408, 1000):
+            assert HashTokenizer(vocab).encode(s, 77) == JaxHashTokenizer(vocab).encode(s, 77)
+            ids = JaxHashTokenizer(vocab).encode(s, 77)
+            assert HashTokenizer(vocab).decode(ids) == JaxHashTokenizer(vocab).decode(ids)
 
 
 def test_full_arch_prefix_is_297_positions():
@@ -174,19 +232,20 @@ def test_from_config_serving_knobs():
     pm = Myriad.from_config({"arch_preset": "tiny", "llm_weight_dtype": "int8",
                              "llm_kv_dtype": "int8", "llm_prefill_chunks": 3,
                              "llm_cache_granularity": 16},
-                            policy=Policy.fp32(), class_names=SCENES)
+                            policy=Policy.fp32(), device="cpu", class_names=SCENES)
     assert pm.arch.llama.weight_dtype == "int8" and pm.arch.llama.kv_cache_dtype == "int8"
     assert (pm.prefill_chunks, pm.staged_decode, pm.cache_granularity) == (3, True, 16)
     for unported in ({"llm_weight_dtype": "int4"}, {"k_shot": 1}):
         with pytest.raises(NotImplementedError):
-            Myriad.from_config({"arch_preset": "tiny", **unported}, policy=Policy.fp32())
+            Myriad.from_config({"arch_preset": "tiny", **unported}, policy=Policy.fp32(),
+                               device="cpu")
 
 
 def test_random_init_is_seeded_and_full():
     a = Myriad(MyriadArch.tiny(llama=LlamaConfig.tiny(weight_dtype="int8")),
-               policy=Policy.fp32(), class_names=SCENES)
+               policy=Policy.fp32(), device="cpu", class_names=SCENES)
     b = Myriad(MyriadArch.tiny(llama=LlamaConfig.tiny(weight_dtype="int8")),
-               policy=Policy.fp32(), class_names=SCENES)
+               policy=Policy.fp32(), device="cpu", class_names=SCENES)
     a.init_random(3)
     b.init_random(3)
     for (name, x), y in zip(a.module.state_dict().items(), b.module.state_dict().values()):
@@ -197,20 +256,89 @@ def test_random_init_is_seeded_and_full():
 
 
 def test_import_leaves_jax_out():
-    """The port imports no JAX, flax, nor the host libraries the card lacks."""
-    code = ("import sys, myriad_tpu_torch, myriad_tpu_torch.generation, "
+    """The port imports no JAX, flax, nor the host libraries the card lacks,
+    and no module of the JAX package, through every entry point and a tiny
+    (speculative) generate."""
+    code = ("import sys, numpy as np, myriad_tpu_torch, myriad_tpu_torch.generation, "
             "myriad_tpu_torch.convert_from_jax, myriad_tpu_torch.models.myriad, "
             "myriad_tpu_torch.ops.quant, myriad_tpu_torch.ops.attention, "
-            "myriad_tpu_torch.ops.decode_attention, myriad_tpu_torch.ops.prefill_attention\n"
-            "from myriad_tpu_torch.models.myriad import Myriad, MyriadArch\n"
-            "m = Myriad(MyriadArch.tiny(), class_names=['bottle'])\n"
+            "myriad_tpu_torch.ops.decode_attention, myriad_tpu_torch.ops.prefill_attention, "
+            "myriad_tpu_torch.ops.kv_write, myriad_tpu_torch.conversation, "
+            "myriad_tpu_torch.demo\n"
+            "from myriad_tpu_torch.models.myriad import Myriad\n"
+            "m = Myriad.from_config({'arch_preset': 'tiny', 'llm_weight_dtype': 'int8', "
+            "'llm_kv_dtype': 'int8', 'llm_spec_k': 2}, device='cpu', class_names=['bottle'])\n"
+            "m.init_random(0)\n"
+            "img = np.zeros((1, 28, 28, 3), np.uint8)\n"
+            "out = m.generate({'image': img, 'scene': ['bottle'], "
+            "'question': '<Img><ImageHere></Img>Any defect?'}, max_new_tokens=3)\n"
+            "assert out['token_ids'].shape == (1, 3) and 'spec_stats' in out\n"
             "bad = [n for n in ('jax', 'flax', 'yaml', 'PIL', 'cv2', 'transformers') "
             "if n in sys.modules]\n"
+            "bad += [n for n in sys.modules if n == 'myriad_tpu' or n.startswith('myriad_tpu.')]\n"
             "print('BAD', bad)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
+
+
+# calls whose string arguments would name a file or module to read or load
+_PATH_CALLS = {"open", "Path", "PurePath", "join", "exists", "isfile", "isdir", "listdir",
+               "glob", "rglob", "read_text", "read_bytes", "load", "fromfile",
+               "spec_from_file_location", "import_module", "__import__", "exec", "run",
+               "Popen", "check_output"}
+
+
+def _reaches_jax_package(text) -> bool:
+    return isinstance(text, str) and (text == "myriad_tpu" or text.startswith("myriad_tpu/")
+                                      or text.startswith("myriad_tpu."))
+
+
+def _call_name(func) -> str:
+    return func.id if isinstance(func, ast.Name) else getattr(func, "attr", "")
+
+
+def test_port_sources_reach_nothing_of_the_jax_package():
+    """Static check of every .py under myriad_tpu_torch/ and chip_smoke.py: no
+    import of ``myriad_tpu`` or its modules, no dynamic import machinery, and
+    no path into ``myriad_tpu/`` handed to a call that reads or loads."""
+    files = sorted(Path(REPO, "myriad_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+    assert len(files) > 20
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            where = f"{path.relative_to(REPO)}:{getattr(node, 'lineno', 0)}"
+            if isinstance(node, ast.Import):
+                found += [where for a in node.names if _reaches_jax_package(a.name)]
+            elif isinstance(node, ast.ImportFrom):
+                if _reaches_jax_package(node.module or "") or node.module == "importlib":
+                    found.append(where)
+            elif isinstance(node, ast.Call) and _call_name(node.func) in _PATH_CALLS:
+                args = node.args + [kw.value for kw in node.keywords]
+                if any(_reaches_jax_package(c.value) for a in args for c in ast.walk(a)
+                       if isinstance(c, ast.Constant)):
+                    found.append(where)
+            elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+                if any(_reaches_jax_package(getattr(side, "value", None))
+                       for side in (node.left, node.right)):
+                    found.append(where)
+            elif isinstance(node, ast.Constant) and node.value == "myriad_tpu":
+                found.append(where)
+            if isinstance(node, ast.Import) and any(a.name == "importlib" for a in node.names):
+                found.append(where)
+    assert not found, found
+
+
+def test_entry_points_default_to_the_card():
+    """Built with no device, the port goes to CUDA; without a card that raises
+    (torch's own error) and never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: building there would succeed")
+    with pytest.raises((RuntimeError, AssertionError)):
+        Myriad(MyriadArch.tiny())
+    with pytest.raises((RuntimeError, AssertionError)):
+        Myriad.from_config({"arch_preset": "tiny"})
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -57,7 +57,8 @@ def pair():
     ve_params = _perturb(jax.tree_util.tree_map(np.asarray, jm.vision_expert.params["params"]),
                          rng)
     jm.vision_expert.params = {"params": ve_params}
-    pm = Myriad(MyriadArch.tiny(), policy=Policy.fp32(), class_names=["bottle", "cable"])
+    pm = Myriad(MyriadArch.tiny(), policy=Policy.fp32(), device="cpu",
+                class_names=["bottle", "cable"])
     pm.load_state_dicts(state_dict_from_jax(params), state_dict_from_jax(ve_params))
     return jm, params, ve_params, pm
 
