@@ -8,13 +8,16 @@ Phases, each printing its own lines:
 1. build the CUDA kernels (myriad_tpu_torch/csrc, one nvcc per source, all
    started together, sm_90a) from the checkout and print the build time;
 2. hold each kernel of the paths (B1 int8 weight-only matmul, B2 decode
-   attention, B3 prefill attention, B4 KV-cache write) against its plain
-   PyTorch version on the card, at the paths' shapes, with the stated
-   tolerance, and time both, with one PyTorch library call that computes
-   the same function where there is one: device time (10 calls captured in
-   a CUDA graph, replayed under CUDA events, median of 21 replays), and the
-   kernel's eager time per call (CUDA events around 10 back-to-back calls,
-   median of 21), which is the host's time where that is the longer;
+   attention, B3 prefill attention, B4 KV-cache write, B5 int4 weight-only
+   matmul, B2' row decode attention, B6 uint8 normalise, B7 streaming sum)
+   against its plain PyTorch version on the card, at the paths' shapes, with
+   the stated tolerance, and time both, with one PyTorch library call that
+   computes the same function where there is one: device time (10 calls
+   captured in a CUDA graph, replayed under CUDA events, median of 21
+   replays), and the kernel's eager time per call (CUDA events around 10
+   back-to-back calls, median of 21), which is the host's time where that is
+   the longer; B7's times give the card's measured streaming bandwidth, and
+   every bound is printed again at that rate;
 3. build Myriad at full width (EVA-ViT-g, Q-Former, ImageBind-huge,
    Vicuna-7B with int8 weights and an int8 KV cache, towers in bf16) with
    random weights drawn from --seed on the card, and run ``generate``
@@ -30,7 +33,18 @@ Phases, each printing its own lines:
    with and without speculative decoding; gate turn 2's delta-prefill logits
    against a full re-prefill of the same prompt; then run one more
    speculative generate (prompt-lookup drafts) under ``torch.profiler`` and
-   print its device time by kernel and the device's busy share.
+   print its device time by kernel and the device's busy share;
+6. free that model and build Myriad with int4 LLM weights
+   (``llm_weight_dtype: int4``) at full width: greedy generate (batch 8, 90
+   tokens, median of 3), one speculative generate (K = 3, prompt-lookup
+   drafts) and one chat turn, each through kernel B5 and never B1; profile
+   one greedy generate and print the stage times; gate the first prefill's
+   logits against the plain path's;
+7. the opt-in entry points: ``MYRIAD_DECODE_ATTN=row`` greedy generate
+   (kernel B2', never B2; the first decode step's logits gated against the
+   plain path's), ``device_preprocess(use_pallas=True)`` on the batch's
+   images (kernel B6) and the bandwidth probe's CLI
+   (``myriad_tpu_torch.tools.bwprobe``, kernel B7, 4 GiB a pass).
 
 Each path is driven with every launch count set to 0 just before it and read
 just after.  The last two lines are a JSON summary of the kernels and the
@@ -65,6 +79,7 @@ SPEC_K = 3
 CHAT_QUESTIONS = ["Is there any defect in this image?", "Where is it?",
                   "How severe is it, and what caused it?"]
 CHAT_TOKENS = 32
+PROBE_GIB = 4  # B7's operand, GiB: well past the 50 MB L2
 # published H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_S = 989e12
@@ -137,11 +152,13 @@ def _card() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_S):
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_S,
+          bytes_s: float = PEAK_BYTES_S):
     """(ms, "bytes" or "operations"): the least time the card could take,
-    the larger of moving ``nbytes`` at the memory rate and doing ``ops`` at
-    the peak rate of their type."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
+    the larger of moving ``nbytes`` at the memory rate (the data sheet's,
+    unless ``bytes_s`` gives another) and doing ``ops`` at the peak rate of
+    their type."""
+    t_bytes, t_ops = nbytes / bytes_s * 1e3, ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -155,6 +172,8 @@ class Check:
         self.eager_ms = None
         self.launches = None
         self.by_path = {}
+        self.main = None  # (bytes, operations[, peak]) of the path's shape
+        self.bound_measured_ms = None  # bytes at B7's measured bandwidth
 
     def compare(self, label, kernel, plain, tol_of, *, outputs=None, main=None, library=None):
         """Check the kernel against its plain version and time both (and the
@@ -183,6 +202,7 @@ class Check:
         if main is not None:
             self.ms, self.plain_ms, self.library_ms = ms, plain_ms, lib_ms
             self.eager_ms = eager_ms
+            self.main = main
             self.bound_ms, self.bound_by = bound(*main)
             line += f" bound_ms={self.bound_ms:.6f} ({self.bound_by}) [path shape]"
         print(line + ("" if ok else "  FAILED"), flush=True)
@@ -194,6 +214,7 @@ class Check:
                 "max_abs_err": self.max_err, "ms": self.ms, "plain_ms": self.plain_ms,
                 "bound_ms": self.bound_ms, "bound_by": self.bound_by,
                 "library_ms": self.library_ms, "eager_ms": self.eager_ms,
+                "bound_ms_at_measured_bandwidth": self.bound_measured_ms,
                 "launches_by_path": self.by_path}
 
 
@@ -205,8 +226,10 @@ def kernel_checks(dev, seed):
     from myriad_tpu_torch.ops import decode_attention as da
     from myriad_tpu_torch.ops import kv_write as kw
     from myriad_tpu_torch.ops import prefill_attention as pa
+    from myriad_tpu_torch.ops import preprocess as pp
     from myriad_tpu_torch.ops import quant
     from myriad_tpu_torch.ops.attention import causal_mask
+    from myriad_tpu_torch.tools import bwprobe
 
     g = torch.Generator(device=dev).manual_seed(seed)
     bf16 = torch.bfloat16
@@ -222,6 +245,14 @@ def kernel_checks(dev, seed):
                "myriad_tpu/ops/prefill_attention.py:37", pa.counter)
     b4 = Check("B4 kv_write", "myriad_tpu_torch/csrc/kv_write.cu",
                "myriad_tpu/ops/kv_write.py:56", kw.counter)
+    b5 = Check("B5 int4_matmul", "myriad_tpu_torch/csrc/int4_matmul.cu",
+               "myriad_tpu/ops/quant.py:247", quant.counter4)
+    b2r = Check("B2' decode_attention_rows", "myriad_tpu_torch/csrc/decode_attention.cu",
+                "myriad_tpu/ops/decode_attention.py:56", da.counter_rows)
+    b6 = Check("B6 u8_normalize", "myriad_tpu_torch/csrc/preprocess.cu",
+               "myriad_tpu/ops/preprocess.py:69", pp.counter)
+    b7 = Check("B7 stream_sum", "myriad_tpu_torch/csrc/bwprobe.cu",
+               "tools/bwprobe.py:42", bwprobe.counter)
 
     # B1: a bf16 output differs by at most one rounding of its largest value
     print("B1: tolerance 2^-7 * max|plain| (one bf16 ulp at the largest output); library: "
@@ -339,7 +370,89 @@ def kernel_checks(dev, seed):
                                     torch.cat([x.flatten().float() for x in refs])),
                    # abs, max, divide, round per element, in fp32
                    main=(nbytes, 4 * 2 * b * h * tw_q * d, PEAK_FP32_S) if is_main else None)
-    return [b1, b2, b3, b4]
+
+    # B5: the int4 projections; group 128, K = 11008 ends in a half chunk
+    print("B5: tolerance 2^-7 * max|plain| (the same bf16 dequantized weight, fp32 sums in "
+          "another order, one bf16 rounding); library: torch.matmul on the int4 weight "
+          "dequantized to bf16 beforehand (it reads four times the weight bytes)")
+    for k, n in ((4096, 11008), (11008, 4096)):
+        w4, s4 = quant.quantize_int4_grouped(randn(k, n) * 0.02)
+        w_bf16 = quant.dequant_int4(w4, s4).to(bf16)
+        for m in (1, BATCH, BATCH * (SPEC_K + 1)):
+            x = randn(m, k, dtype=bf16)
+            is_main = m == BATCH and (k, n) == (4096, 11008)
+            b5.compare(f"M={m} {k}x{n}", lambda: quant.int4_weight_only_matmul(x, w4, s4),
+                       lambda: quant.int4_weight_only_matmul_plain(x, w4, s4),
+                       lambda ref: 2.0 ** -7 * ref.float().abs().max().item(),
+                       library=lambda: torch.matmul(x, w_bf16),
+                       main=(m * k * 2 + k * n // 2 + s4.numel() * 4 + m * n * 2, 2 * m * k * n)
+                       if is_main else None)
+        del w_bf16
+
+    # B2': B2's shapes through the one-block-per-row kernel
+    print("B2': tolerance 2e-2 absolute, as B2; library: scaled_dot_product_attention on the "
+          "cache dequantized to bf16")
+    for label, kk, vv, kss, vss in (("int8", k8, v8, ks, vs), ("bf16", kbf, vbf, None, None)):
+        args = dict(mask=mask, scale=d ** -0.5, k_scale=kss, v_scale=vss, kv_len=kv_len)
+        is_main = label == "int8"
+        nbytes = (2 * b * h * d * 2 + 2 * b * h * kv_len * d + 2 * b * h * kv_len * 2
+                  + b * kv_len * 4)
+        b2r.compare(f"{label} B={b} H={h} T={t} kv_len={kv_len} D={d}",
+                    lambda: da.decode_attention_rows(q1, kk, vv, **args),
+                    lambda: da.decode_attention_rows_plain(q1, kk, vv, **args),
+                    lambda ref: 2e-2,
+                    library=(lambda: F.scaled_dot_product_attention(
+                        q1, kdq_len, vdq_len, attn_mask=mask.to(bf16), scale=d ** -0.5))
+                    if is_main else None,
+                    main=(nbytes, 4 * b * h * kv_len * d) if is_main else None)
+    del kf, vf, kbf, vbf, kdq, vdq, k8, v8
+
+    # B6: the batch's images
+    print("B6: bit-exact (tolerance 0: IEEE divisions on both sides); no library call "
+          "computes it in one")
+    images = torch.randint(0, 256, (BATCH, 224, 224, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    n_el = images.numel()
+    for out_dtype, width in ((torch.float32, 4), (bf16, 2)):
+        b6.compare(f"{BATCH}x224x224x3 -> {str(out_dtype).split('.')[-1]}",
+                   lambda: pp.u8_normalize_rows(images, out_dtype=out_dtype),
+                   lambda: pp.u8_normalize_rows_plain(images, out_dtype=out_dtype), exact,
+                   # divide, subtract, divide per element, in fp32
+                   main=(n_el * (1 + width), 3 * n_el, PEAK_FP32_S)
+                   if out_dtype == torch.float32 else None)
+
+    # B7: a 4 GiB int8 operand of small integers, so that every sum is exact
+    print("B7: exact (tolerance 0: sums of integers in {-1, 0, 1}); library: torch.sum "
+          "(dtype float32) over the same operand")
+    rows = int(PROBE_GIB * (1 << 30)) // bwprobe.WIDTH // 1024 * 1024
+    big = torch.randint(-1, 2, (rows, bwprobe.WIDTH), generator=g, device=dev,
+                        dtype=torch.int8)
+    b7.compare(f"one operand {rows}x{bwprobe.WIDTH} int8 ({PROBE_GIB} GiB), block 512",
+               lambda: bwprobe.stream_sum(big, 1.0, 512),
+               lambda: bwprobe.stream_sum_plain(big, 1.0, 512), exact,
+               library=lambda: torch.sum(big, dtype=torch.float32),
+               main=(big.numel(), big.numel(), PEAK_FP32_S))
+    gbps = {"stream_sum (B7)": big.numel() / b7.ms / 1e6,
+            "torch.sum": big.numel() / b7.library_ms / 1e6}
+    half_x, half_y = big[:rows // 2], big[rows // 2:]
+    two_ms = _device_ms(lambda: bwprobe.stream_sum(half_x, 1.0, 512, half_y))
+    out2 = bwprobe.stream_sum(half_x, 1.0, 512, half_y)
+    check(out2.item() == bwprobe.stream_sum_plain(half_x, 1.0, 512, half_y).item(),
+          "B7 two-operand sum disagrees with its plain version")
+    gbps[f"stream_sum2 (B7, two {PROBE_GIB / 2:g} GiB operands)"] = big.numel() / two_ms / 1e6
+    del big, half_x, half_y
+    card = _card()
+    print("measured streaming bandwidth (device ms from CUDA-graph replay): "
+          + ", ".join(f"{k} {v:.1f} GB/s" for k, v in gbps.items()) + f"; card: {card}",
+          flush=True)
+    measured = max(gbps.values()) * 1e9
+    checks = [b1, b2, b3, b4, b5, b2r, b6, b7]
+    for c in checks:
+        c.bound_measured_ms = bound(*c.main, bytes_s=measured)[0]
+        print(f"  {c.name}: bound {c.bound_ms:.6f} ms at the data sheet's "
+              f"{PEAK_BYTES_S / 1e12:.2f} TB/s, {c.bound_measured_ms:.6f} ms at the measured "
+              f"{measured / 1e12:.4f} TB/s; kernel {c.ms:.4f} ms")
+    return checks
 
 
 class plain_path:
@@ -353,7 +466,9 @@ class plain_path:
         from myriad_tpu_torch.ops import quant
 
         swaps = [(quant, "int8_weight_only_matmul", quant.int8_weight_only_matmul_plain),
+                 (quant, "int4_weight_only_matmul", quant.int4_weight_only_matmul_plain),
                  (da, "decode_attention", da.decode_attention_plain),
+                 (da, "decode_attention_rows", da.decode_attention_rows_plain),
                  (pa, "prefill_attention", pa.prefill_attention_plain),
                  (kw, "kv_cache_write", kw.kv_cache_write_plain),
                  (kw, "kv_quantize_write", kw.kv_quantize_write_plain)]
@@ -456,20 +571,17 @@ def full_slice(dev, seed, checks, card):
     print(f"full-width Myriad built with random weights (seed {seed}) in "
           f"{time.time() - t0:.1f} s; text features for {SCENES}", flush=True)
 
-    rng = np.random.default_rng(seed)
-    size = model.arch.img_size
-    samples = {"image": rng.integers(0, 256, size=(BATCH, size, size, 3), dtype=np.uint8),
-               "scene": [SCENES[i % len(SCENES)] for i in range(BATCH)],
-               "question2": [AQA_QUESTION] * BATCH}
+    samples = _samples(seed, model.arch.img_size)
     model.generate(samples, max_new_tokens=4)  # warm-up (cuBLAS/cuDNN set-up)
 
     torch.cuda.reset_peak_memory_stats(dev)
-    names = [c.name for c in checks]
+    names = ["B1 int8_matmul", "B2 decode_attention", "B3 prefill_attention", "B4 kv_write"]
     out, wall0, launches = drive(checks, "aqa_greedy",
                                  lambda: model.generate(samples, max_new_tokens=NEW_TOKENS),
                                  names)
     for c in checks:
-        c.launches = c.counter.count
+        if c.name in names:
+            c.launches = c.counter.count
     walls = [wall0] + [timed(lambda: model.generate(samples, max_new_tokens=NEW_TOKENS))[1]
                        for _ in range(2)]
     peak = torch.cuda.max_memory_allocated(dev)
@@ -698,17 +810,17 @@ def _chat_delta_gate(chat, conv, img_list, llama, dev, seed):
 
 KERNEL_OF = {"int8_matmul": "B1", "decode_attention_kernel": "B2",
              "prefill_attention_kernel": "B3", "kv_write_kernel": "B4",
-             "kv_quantize_write_kernel": "B4"}
+             "kv_quantize_write_kernel": "B4", "int4_matmul": "B5",
+             "decode_attention_rows_kernel": "B2'"}
 
 
-def profile_spec(spec, samples, card, wall_unprofiled):
-    """One speculative generate under torch.profiler: device time by kernel,
+def profile_generate(model, samples, card, wall_unprofiled, label):
+    """One ``model.generate`` under torch.profiler: device time by kernel,
     and the device's busy share of an unprofiled run's wall time."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(lambda: spec.generate(samples, max_new_tokens=NEW_TOKENS))
+        _, wall = timed(lambda: model.generate(samples, max_new_tokens=NEW_TOKENS))
     rows = []
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -718,8 +830,8 @@ def profile_spec(spec, samples, card, wall_unprofiled):
             rows.append((us, e.count, e.key))
     total = sum(r[0] for r in rows)
     check(total > 0, "the profiler recorded no device time")
-    print(f"profile of one speculative generate (prompt-lookup drafts, {BATCH} images, "
-          f"{NEW_TOKENS} new tokens, K={SPEC_K}): device time {total / 1e3:.1f} ms in all; "
+    print(f"profile of one {label} ({BATCH} images, {NEW_TOKENS} new tokens): device time "
+          f"{total / 1e3:.1f} ms in all; "
           f"profiled wall {wall:.3f} s; device busy {total / 1e6 / wall_unprofiled:.3f} of the "
           f"unprofiled run's {wall_unprofiled:.3f} s; card: {card}")
     by_kernel = {}
@@ -730,6 +842,198 @@ def profile_spec(spec, samples, card, wall_unprofiled):
                                       for k, v in sorted(by_kernel.items())))
     for us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {us / 1e3:9.1f} ms {us / total:6.3f} {count:7d} calls  {key[:90]}")
+
+
+def _samples(seed, size):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"image": rng.integers(0, 256, size=(BATCH, size, size, 3), dtype=np.uint8),
+            "scene": [SCENES[i % len(SCENES)] for i in range(BATCH)],
+            "question2": [AQA_QUESTION] * BATCH}
+
+
+def int4_slice(dev, seed, checks, card):
+    """Phase 6: the int4 serving configuration at full width, through B5."""
+    import torch
+
+    from myriad_tpu_torch.conversation import CONV_VISION, Chat
+    from myriad_tpu_torch.generation import _prefill
+    from myriad_tpu_torch.models.llama import init_cache, serving_cache_dtype
+    from myriad_tpu_torch.models.myriad import Myriad
+
+    int4 = {**SERVING, "llm_weight_dtype": "int4"}
+    t0 = time.time()
+    model = Myriad.from_config(int4, device=dev, class_names=SCENES)
+    check(model.arch.llama.weight_dtype == "int4", "from_config did not read int4")
+    model.init_random(seed)
+    model.vision_expert.build_text_features()
+    torch.cuda.synchronize()
+    print(f"full-width Myriad with int4 LLM weights built (seed {seed}) in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    samples = _samples(seed, model.arch.img_size)
+    model.generate(samples, max_new_tokens=4)  # warm-up
+    vocab = model.arch.llama.vocab_size
+    b5, b1 = "B5 int4_matmul", "B1 int8_matmul"
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, wall0, launches = drive(
+        checks, "int4_greedy", lambda: model.generate(samples, max_new_tokens=NEW_TOKENS),
+        [b5, "B2 decode_attention", "B3 prefill_attention", "B4 kv_write"])
+    check(launches[b1] == 0, f"the int4 greedy path launched B1 {launches[b1]} times")
+    for c in checks:
+        if c.name == b5:
+            c.launches = launches[b5]
+    walls = [wall0] + [timed(lambda: model.generate(samples, max_new_tokens=NEW_TOKENS))[1]
+                       for _ in range(2)]
+    wall = statistics.median(walls)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_tokens(out["token_ids"], BATCH, NEW_TOKENS, vocab)
+    print(f"int4 generate: launches {launches}")
+    profile_generate(model, samples, card, wall0, "int4 greedy generate")
+    print(f"int4 throughput: {BATCH / wall:.4f} images/s, median of 3 runs ({BATCH} images, "
+          f"{NEW_TOKENS} new tokens; wall s {', '.join(f'{w:.3f}' for w in walls)}, host clock "
+          f"after synchronize); peak device memory {peak / 2**30:.2f} GiB; card: {card}",
+          flush=True)
+
+    with torch.inference_mode():
+        image = torch.as_tensor(samples["image"], device=dev)
+        ve = model.vision_expert
+        (maps, _), t_ve = timed(lambda: ve.module.zero_shot(
+            image, ve._text_feats[ve.scene_ids(samples["scene"])]))
+        before, after = model.split_prompt(AQA_QUESTION)
+        embeds, t_enc = timed(lambda: model.module.prefill_embeds(
+            image, maps, before, after, 1, add_bos=False))
+        p = embeds.shape[1]
+        llama = model.module.llama
+        cache_dtype = serving_cache_dtype(model.arch.llama, model.policy.compute_dtype)
+        cache = init_cache(llama.config, BATCH, p + NEW_TOKENS, cache_dtype, dev)
+        _, t_pre = timed(lambda: _prefill(llama, embeds, cache, 1))
+        del cache
+        print(f"int4 stage times (host clock, synchronized, one run each): VE maps {t_ve:.4f} s, "
+              f"encode_img + prefix {t_enc:.4f} s, prefill {t_pre:.4f} s (one chunk of "
+              f"{BATCH * p} rows: every projection requantized to int8, then W8A8), decode "
+              f"loop (the rest of the median generate) ~{wall - t_ve - t_enc - t_pre:.4f} s",
+              flush=True)
+
+        def prefill(chunks):
+            def run(x):
+                cache = init_cache(llama.config, BATCH, p + NEW_TOKENS, cache_dtype, dev)
+                return _prefill(llama, x, cache, chunks)[:, -1].float()
+            return run
+
+        # one chunk: 2376 rows take the requantize + W8A8 route; ten chunks of
+        # <= 240 rows take B5
+        for label, chunks in (("1 chunk", 1), ("10 chunks", 10)):
+            sensitivity_gate(f"int4 prefill logits ({p} positions, {label})",
+                             prefill(chunks)(embeds), prefill(chunks), embeds, seed)
+
+    spec = Myriad.from_config({**int4, "llm_spec_k": SPEC_K}, device=dev, class_names=SCENES)
+    spec.load_state_dicts(model.module.state_dict(), model.vision_expert.module.state_dict())
+    spec.vision_expert.build_text_features()
+    spec.generate(samples, max_new_tokens=4)  # warm-up
+    out, wall, launches = drive(checks, "int4_spec_lookup",
+                                lambda: spec.generate(samples, max_new_tokens=NEW_TOKENS),
+                                [b5, "B3 prefill_attention", "B4 kv_write"])
+    check(launches[b1] == 0, f"the int4 speculative path launched B1 {launches[b1]} times")
+    check_tokens(out["token_ids"], BATCH, NEW_TOKENS, vocab)
+    stats = out["spec_stats"]
+    print(f"int4 speculative generate, prompt-lookup drafts: {BATCH / wall:.4f} images/s "
+          f"({wall:.3f} s, one run; K={SPEC_K}); spec_stats {stats}; launches {launches}; "
+          f"card: {card}", flush=True)
+    del spec
+
+    import numpy as np
+
+    chat = Chat(model, incremental=True)
+    conv = CONV_VISION.copy()
+    img_list = []
+    chat.upload_img(np.random.default_rng(seed + 2).integers(
+        0, 256, size=(model.arch.img_size, model.arch.img_size, 3), dtype=np.uint8),
+        conv, img_list)
+    chat.ask(CHAT_QUESTIONS[0], conv)
+    (text, tokens), wall, launches = drive(
+        checks, "int4_chat_turn1",
+        lambda: chat.answer(conv, img_list, max_new_tokens=CHAT_TOKENS),
+        [b5, "B2 decode_attention", "B3 prefill_attention", "B4 kv_write"])
+    check(launches[b1] == 0, f"the int4 chat turn launched B1 {launches[b1]} times")
+    check_tokens(torch.as_tensor(tokens), 1, CHAT_TOKENS, vocab)
+    print(f"int4 chat turn 1: {wall:.4f} s (batch 1, prefill of {chat._delta_log[-1]} "
+          f"positions, {CHAT_TOKENS} new tokens); launches {launches}; card: {card}", flush=True)
+    del chat
+    return model, samples
+
+
+def entry_point_slice(dev, seed, checks, card, model, samples):
+    """Phase 7: row decode (B2'), device_preprocess (B6) and the bandwidth
+    probe (B7), each through the entry point a user calls."""
+    import torch
+
+    from myriad_tpu_torch.generation import _prefill
+    from myriad_tpu_torch.models.llama import init_cache, serving_cache_dtype
+    from myriad_tpu_torch.ops.preprocess import device_preprocess, u8_normalize_rows_plain
+    from myriad_tpu_torch.tools import bwprobe
+
+    names = {c.name: c for c in checks}
+    b2r, b2 = "B2' decode_attention_rows", "B2 decode_attention"
+    os.environ["MYRIAD_DECODE_ATTN"] = "row"
+    try:
+        out, wall, launches = drive(
+            checks, "row_greedy", lambda: model.generate(samples, max_new_tokens=NEW_TOKENS),
+            [b2r])
+        check(launches[b2] == 0, f"the row-decode path launched B2 {launches[b2]} times")
+        names[b2r].launches = launches[b2r]
+        check_tokens(out["token_ids"], BATCH, NEW_TOKENS, model.arch.llama.vocab_size)
+        print(f"MYRIAD_DECODE_ATTN=row greedy generate (int4 model): {BATCH / wall:.4f} "
+              f"images/s ({wall:.3f} s, one run); launches {launches}; card: {card}",
+              flush=True)
+
+        with torch.inference_mode():
+            image = torch.as_tensor(samples["image"], device=dev)
+            ve = model.vision_expert
+            maps, _ = ve.module.zero_shot(image, ve._text_feats[ve.scene_ids(samples["scene"])])
+            before, after = model.split_prompt(AQA_QUESTION)
+            embeds = model.module.prefill_embeds(image, maps, before, after, 1, add_bos=False)
+            p = embeds.shape[1]
+            llama = model.module.llama
+            cache_dtype = serving_cache_dtype(model.arch.llama, model.policy.compute_dtype)
+            bucket = -(-(p + NEW_TOKENS) // 32) * 32
+            cache = init_cache(llama.config, BATCH, bucket, cache_dtype, dev)
+            first = _prefill(llama, embeds, cache, 1)[:, -1].float().argmax(-1)
+
+            def step(x):
+                cache = init_cache(llama.config, BATCH, bucket, cache_dtype, dev)
+                _prefill(llama, x, cache, 1)
+                return llama(llama.embed(first[:, None]), cache)[:, -1].float()
+
+            sensitivity_gate(f"first row-decode step logits (kv_len {bucket}, B2' vs plain)",
+                             step(embeds), step, embeds, seed)
+    finally:
+        del os.environ["MYRIAD_DECODE_ATTN"]
+
+    image = torch.as_tensor(samples["image"], device=dev)
+    normed, wall, launches = drive(
+        checks, "device_preprocess",
+        lambda: device_preprocess(image, use_pallas=True, out_dtype=torch.bfloat16),
+        ["B6 u8_normalize"])
+    names["B6 u8_normalize"].launches = launches["B6 u8_normalize"]
+    check(torch.equal(normed, u8_normalize_rows_plain(image, out_dtype=torch.bfloat16)),
+          "device_preprocess disagrees with the plain normalisation")
+    print(f"device_preprocess(use_pallas=True) on {tuple(image.shape)}: {wall * 1e3:.3f} ms "
+          f"(host clock, one call); launches {launches}", flush=True)
+
+    def probe():
+        return [bwprobe.probe(PROBE_GIB, "int8", 8, impl, 512, dev)
+                for impl in ("cuda", "cuda2", "torch")]
+
+    results, wall, launches = drive(checks, "bwprobe", probe, ["B7 stream_sum"])
+    names["B7 stream_sum"].launches = launches["B7 stream_sum"]
+    for r in results:  # the probe streams ones: every pass sums to a positive total
+        check(all(s > 0 for s in r["sums"]), f"bwprobe {r['impl']}: bad sums")
+    print(f"bandwidth probe (python -m myriad_tpu_torch.tools.bwprobe, CUDA events over 8 "
+          f"passes of {PROBE_GIB} GiB): " + ", ".join(f"{r['impl']} {r['gb_per_s']:.1f} GB/s"
+                                          for r in results) + f"; launches {launches}",
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -776,7 +1080,14 @@ def main(argv=None) -> int:
     del model
     print("phase 5: full-width chat on the resident cache", flush=True)
     chat_slice(dev, args.seed, spec, checks, card)
-    profile_spec(spec, samples, card, spec_wall)
+    profile_generate(spec, samples, card, spec_wall,
+                     f"speculative generate (prompt-lookup drafts, K={SPEC_K})")
+    del spec
+    torch.cuda.empty_cache()
+    print("phase 6: full-width Myriad with int4 LLM weights", flush=True)
+    model4, samples4 = int4_slice(dev, args.seed, checks, card)
+    print("phase 7: row decode, device_preprocess and the bandwidth probe", flush=True)
+    entry_point_slice(dev, args.seed, checks, card, model4, samples4)
     print(card)
     print(json.dumps({"kernels": [c.record() for c in checks]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,6 +12,10 @@ The port's modules mirror the JAX package's module names, so the bridge only:
   conv kernels (kh, kw, in, out) into (out, in, kh, kw);
 * renames LayerNorm ``scale`` to ``weight`` (an int8 layer's ``scale``, beside
   its ``w_int8``, stays: int8 weights keep the (in, out) layout).
+
+An int4 layer's ``w_int4`` (in/2, out) and ``scale4`` (in/group, out) pass
+through as they are: neither is a ``kernel`` nor a ``scale``, and kernel B5
+reads the JAX package's layout.
 """
 
 from __future__ import annotations

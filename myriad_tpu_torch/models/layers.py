@@ -6,7 +6,8 @@ Parameters are stored in ``Policy.param_dtype``; products run in
 in fp32.  Modules allocate their parameters uninitialised on an explicit
 device: a state dict (``convert_from_jax``) or ``init_random_`` fills them.
 Dense weights are stored (out, in) as torch's; int8 weights stay (in, out)
-with a per-column scale, the layout kernel B1 reads.
+with a per-column scale, the layout kernel B1 reads; int4 weights stay
+packed (in/2, out) with (in/group, out) scales, the layout kernel B5 reads.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from myriad_tpu_torch.ops.quant import int8_matmul, quantize_per_channel
+from myriad_tpu_torch.ops.quant import (int4_group, int4_matmul, int8_matmul,
+                                        quantize_int4_grouped, quantize_per_channel)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +32,11 @@ class Policy:
     @staticmethod
     def fp32() -> "Policy":
         return Policy(torch.float32, torch.float32)
+
+    @staticmethod
+    def bf16() -> "Policy":
+        """fp32 storage, bf16 compute: the JAX package's default policy."""
+        return Policy(torch.float32, torch.bfloat16)
 
     @staticmethod
     def bf16_params() -> "Policy":
@@ -72,11 +79,31 @@ class QuantDense(nn.Module):
         return int8_matmul(x.to(self.dtype), self.w_int8, self.scale, out_dtype=self.dtype)
 
 
+class Quant4Dense(nn.Module):
+    """Int4 group-wise weight-only Dense with no bias: w_int4 (in/2, out)
+    uint8 and scale4 (in/group, out) fp32, named as the JAX package's."""
+
+    def __init__(self, in_features: int, features: int, *, policy: Policy, device):
+        super().__init__()
+        self.dtype = policy.compute_dtype
+        self.register_buffer("w_int4", torch.empty((in_features // 2, features),
+                                                   dtype=torch.uint8, device=device))
+        self.register_buffer("scale4", torch.empty((in_features // int4_group(in_features),
+                                                    features), dtype=torch.float32,
+                                                   device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int4_matmul(x.to(self.dtype), self.w_int4, self.scale4, out_dtype=self.dtype)
+
+
 def maybe_quant_dense(weight_dtype: str, in_features: int, features: int, *,
                       policy: Policy, device) -> nn.Module:
-    """A bias-free Dense, or its int8 serving twin, switched by ``weight_dtype``."""
+    """A bias-free Dense, or its int8 or int4 serving twin, switched by
+    ``weight_dtype``."""
     if weight_dtype == "int8":
         return QuantDense(in_features, features, policy=policy, device=device)
+    if weight_dtype == "int4":
+        return Quant4Dense(in_features, features, policy=policy, device=device)
     if weight_dtype != "bf16":
         raise NotImplementedError(f"weight_dtype {weight_dtype!r} is not ported")
     return Dense(in_features, features, use_bias=False, policy=policy, device=device)
@@ -173,7 +200,8 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 def init_random_(module: nn.Module, generator: torch.Generator, std: float = 0.02) -> None:
     """Fill every parameter and buffer from ``generator`` (on the module's
     device): norms get ones/zeros, other floats N(0, std), int8 weights the
-    per-column quantisation of N(0, std) draws as in ``quantize_per_channel``."""
+    per-column quantisation of N(0, std) draws as in ``quantize_per_channel``,
+    int4 weights the group-wise one of ``quantize_int4_grouped``."""
     for mod in module.modules():
         if isinstance(mod, LayerNorm):
             mod.weight.fill_(1.0)
@@ -185,6 +213,14 @@ def init_random_(module: nn.Module, generator: torch.Generator, std: float = 0.0
             w8, scale = quantize_per_channel(w)
             mod.w_int8.copy_(w8)
             mod.scale.copy_(scale)
+            del w
+        if isinstance(mod, Quant4Dense):
+            shape = (mod.w_int4.shape[0] * 2, mod.w_int4.shape[1])
+            w = torch.empty(shape, dtype=torch.float32, device=mod.w_int4.device)
+            w.normal_(0.0, std, generator=generator)
+            w4, scale4 = quantize_int4_grouped(w)
+            mod.w_int4.copy_(w4)
+            mod.scale4.copy_(scale4)
             del w
         for name, p in mod.named_parameters(recurse=False):
             if name in ("bias", "q_bias", "v_bias"):

@@ -2,7 +2,9 @@
 ``myriad_tpu/models/llama.py``), for serving.
 
 The frozen projections are int8 weight-only (``QuantDense``: kernel B1 at
-decode) or plain Dense; q_proj/v_proj carry the LoRA pair when
+decode), int4 group-wise weight-only (``Quant4Dense``: kernel B5 at decode)
+or plain Dense (k/o/gate/up/down, and the q/v bases; ``lm_head`` stays
+float); q_proj/v_proj carry the LoRA pair when
 ``use_lora`` (the parameters load; LoRA dropout is a training matter).
 Attention goes through ``ops.attention.mha``: prefill chunks attend
 causally by absolute position (kernel B3), decode steps attend over the
@@ -50,7 +52,7 @@ class LlamaConfig:
     use_lora: bool = False
     lora_rank: int = 8
     lora_alpha: int = 16
-    weight_dtype: str = "bf16"   # "bf16" or "int8" (weight-only)
+    weight_dtype: str = "bf16"   # "bf16", "int8" or "int4" (weight-only)
     kv_cache_dtype: str = "bf16"  # "bf16" or "int8" (fp16 per-position scales)
 
     @property

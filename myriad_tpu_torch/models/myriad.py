@@ -134,12 +134,42 @@ class MyriadModule(nn.Module):
         return torch.cat(pieces, dim=1)
 
 
+def _bf16_or_unset(value) -> bool:
+    return not value or value == "bf16"
+
+
+# config keys whose other values the port does not serve: the int8 towers,
+# one-shot maps and a model without the vision expert
+UNSERVED_KEYS = {
+    "qformer_weight_dtype": _bf16_or_unset,
+    "vit_weight_dtype": _bf16_or_unset,
+    "ve_weight_dtype": _bf16_or_unset,
+    "k_shot": lambda v: not v,
+    "use_ve": lambda v: bool(v),
+}
+
+
+def policy_from_config(cfg: Mapping) -> Optional[Policy]:
+    """``param_policy`` ("fp32", "bf16" or "bf16_params") or, without it,
+    ``vit_precision`` ("fp32" -> fp32, any other value -> bf16), as the JAX
+    package reads them; None when the config has neither."""
+    name = cfg.get("param_policy")
+    if name:
+        if name not in ("fp32", "bf16", "bf16_params"):
+            raise ValueError(f"param_policy {name!r}: expected fp32, bf16 or bf16_params")
+        return getattr(Policy, name)()
+    if "vit_precision" in cfg:
+        return Policy.fp32() if cfg["vit_precision"] == "fp32" else Policy.bf16()
+    return None
+
+
 class Myriad:
     """Host class: the module, the vision expert, prompt ids and ``generate``."""
 
     def __init__(self, arch: Optional[MyriadArch] = None, *, policy: Optional[Policy] = None,
                  device="cuda", prefill_chunks: int = 1, staged_decode: bool = False,
                  cache_granularity: int = 32, spec_k: int = 0, end_sym: str = "\n",
+                 bos_at_generate: bool = False,
                  class_names: Optional[Sequence[str]] = None):
         self.arch = arch or MyriadArch.full()
         self.policy = policy or Policy.bf16_params()
@@ -151,6 +181,8 @@ class Myriad:
         # (transcript-exact); 0 = plain greedy
         self.spec_k = int(spec_k)
         self.end_sym = end_sym
+        # the reference generates with no bos embedding; True prepends one
+        self.bos_at_generate = bool(bos_at_generate)
         self.module = MyriadModule(self.arch, policy=self.policy, device=self.device)
         self.llama_tokenizer = ByteTokenizer()
         ve_module = AnomalyExpertModule(self.arch.imagebind, map_size=self.arch.map_size,
@@ -163,23 +195,47 @@ class Myriad:
     @classmethod
     def from_config(cls, cfg: Mapping, *, device="cuda", policy: Optional[Policy] = None,
                     class_names: Optional[Sequence[str]] = None) -> "Myriad":
-        """Build from the JAX package's config keys that the serving profile
-        reads: arch_preset, llm_weight_dtype, llm_kv_dtype,
-        llm_prefill_chunks, llm_staged_decode, llm_cache_granularity,
-        llm_spec_k, end_sym."""
-        if cfg.get("k_shot", 0) > 0:
-            raise NotImplementedError("one-shot anomaly maps (k_shot > 0) are not ported")
-        arch = MyriadArch.tiny() if cfg.get("arch_preset", "full") == "tiny" else MyriadArch.full()
+        """Build from the JAX package's config keys, read as ``Myriad.from_config``
+        there reads them: arch_preset, image_size, num_query_token (full
+        preset only), llm_vocab_size, llm_weight_dtype (int8 when unset and
+        low_resource), llm_kv_dtype or its alias kv_cache_dtype, use_lora
+        (the q/v LoRA pair), llm_prefill_chunks, llm_staged_decode, llm_cache_granularity,
+        llm_spec_k, end_sym, bos_at_generate, and param_policy or
+        vit_precision (``policy`` wins when given; with none of the three the
+        port serves bf16 storage, ``Policy.bf16_params``).  Keys the port
+        cannot serve raise ``NotImplementedError``; the reference's dead
+        knobs (noise_level, ...) and the training keys are accepted and
+        inactive."""
+        for key, ok in UNSERVED_KEYS.items():
+            if key in cfg and not ok(cfg[key]):
+                raise NotImplementedError(f"config {key}={cfg[key]!r} is not ported")
+        preset = cfg.get("arch_preset", "full")
+        arch = MyriadArch.tiny() if preset == "tiny" else MyriadArch.full()
+        if cfg.get("image_size"):
+            arch = dataclasses.replace(arch, img_size=int(cfg["image_size"]))
+        if cfg.get("num_query_token") and preset == "full":
+            arch = dataclasses.replace(arch, num_query_token=int(cfg["num_query_token"]))
         llama = arch.llama
-        if cfg.get("llm_weight_dtype"):
-            llama = dataclasses.replace(llama, weight_dtype=cfg["llm_weight_dtype"])
-        if cfg.get("llm_kv_dtype"):
-            llama = dataclasses.replace(llama, kv_cache_dtype=cfg["llm_kv_dtype"])
-        return cls(dataclasses.replace(arch, llama=llama), policy=policy, device=device,
+        if cfg.get("llm_vocab_size"):
+            llama = dataclasses.replace(llama, vocab_size=int(cfg["llm_vocab_size"]))
+        weight_dtype = cfg.get("llm_weight_dtype")
+        if cfg.get("low_resource") and not weight_dtype:
+            # the reference's 8-bit knob maps to int8 weight-only serving
+            weight_dtype = "int8"
+        if weight_dtype:
+            llama = dataclasses.replace(llama, weight_dtype=weight_dtype)
+        kv_dtype = cfg.get("llm_kv_dtype") or cfg.get("kv_cache_dtype")
+        if kv_dtype:
+            llama = dataclasses.replace(llama, kv_cache_dtype=kv_dtype)
+        if cfg.get("use_lora"):
+            llama = dataclasses.replace(llama, use_lora=True)
+        return cls(dataclasses.replace(arch, llama=llama),
+                   policy=policy or policy_from_config(cfg), device=device,
                    prefill_chunks=cfg.get("llm_prefill_chunks", 1),
                    staged_decode=cfg.get("llm_staged_decode", True),
                    cache_granularity=cfg.get("llm_cache_granularity", 32),
                    spec_k=cfg.get("llm_spec_k", 0), end_sym=cfg.get("end_sym", "\n"),
+                   bos_at_generate=cfg.get("bos_at_generate", False),
                    class_names=class_names)
 
     # -- weights --------------------------------------------------------------
@@ -290,8 +346,10 @@ class Myriad:
         """VE zero-shot maps + encode_img + prefill + decode."""
         image, question, _, maps, _ = self.prepare_sample(samples, stage)
         before, after = self.split_prompt(question)
-        # served with no bos embedding, as the reference generates
-        embeds = self.module.prefill_embeds(image, maps, before, after, stage, add_bos=False)
+        # served with no bos embedding, as the reference generates, unless
+        # bos_at_generate
+        embeds = self.module.prefill_embeds(image, maps, before, after, stage,
+                                            add_bos=self.bos_at_generate)
         cache_dtype = serving_cache_dtype(self.arch.llama, self.policy.compute_dtype)
         lookup = self._spec_lookup_ids(after) if self.spec_k > 0 else None
         tokens, stats = self._decode_fn(gen_cfg, cache_dtype, lookup)(embeds)

@@ -1,18 +1,31 @@
 """Attention dispatch for the LLM (counterpart of ``myriad_tpu/ops/attention.py``).
 
-``mha`` routes by shape, with no switches: a single query row (a decode
-step) goes to ``decode_attention`` (kernel B2 on the card), a chunk of rows
-with absolute ``positions`` against a cache (prefill) to
-``prefill_attention`` (kernel B3 on the card).  Each of those takes its
-plain version for CPU tensors.  ``plain_mha`` is the twin of the JAX
-package's ``_xla_mha`` and the plain version both kernels are held to.
+``mha`` routes by shape: a single query row (a decode step) goes to
+``decode_attention`` (kernel B2 on the card), a chunk of rows with absolute
+``positions`` against a cache (prefill) to ``prefill_attention`` (kernel B3
+on the card).  Each of those takes its plain version for CPU tensors.
+``plain_mha`` is the twin of the JAX package's ``_xla_mha`` and the plain
+version the kernels are held to.
+
+``MYRIAD_DECODE_ATTN`` is read as the JAX package reads it: ``row`` sends a
+decode step to ``decode_attention_rows`` (kernel B2') and raises where that
+kernel cannot take the shape (the JAX package warns and falls back);
+``auto`` (the default) and ``bh`` keep B2.  ``xla`` and any other value
+raise ``ValueError``: the plain attention is the tests' oracle, not a
+serving path on the card.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
+
+
+# MYRIAD_DECODE_ATTN values the port serves ("xla", the JAX package's forced
+# XLA path, is not one of them)
+DECODE_ATTN_MODES = ("auto", "bh", "row")
 
 
 def causal_mask(positions: torch.Tensor, kv_len: int) -> torch.Tensor:
@@ -51,13 +64,18 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     additive ``mask`` (B, 1, 1, kv_len); prefill attends causally by
     ``positions`` (B, Tq).  k_scale/v_scale (B, H, T, 1) carry an int8
     cache's per-position scales."""
-    from myriad_tpu_torch.ops.decode_attention import decode_attention
+    from myriad_tpu_torch.ops import decode_attention as da
     from myriad_tpu_torch.ops.prefill_attention import prefill_attention
 
+    mode = os.environ.get("MYRIAD_DECODE_ATTN", "auto")
+    if mode not in DECODE_ATTN_MODES:
+        raise ValueError(f"MYRIAD_DECODE_ATTN={mode!r}: the port serves "
+                         f"{', '.join(DECODE_ATTN_MODES)}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.shape[2] == 1:
-        return decode_attention(q, k, v, mask=mask, scale=scale, k_scale=k_scale,
-                                v_scale=v_scale, kv_len=kv_len)
+        decode = da.decode_attention_rows if mode == "row" else da.decode_attention
+        return decode(q, k, v, mask=mask, scale=scale, k_scale=k_scale, v_scale=v_scale,
+                      kv_len=kv_len)
     if positions is None:
         raise ValueError("mha: a multi-row query needs absolute positions")
     return prefill_attention(q, k, v, positions, scale=scale, k_scale=k_scale,

@@ -1,10 +1,14 @@
 """Single-query attention over the KV cache (counterpart of
 ``myriad_tpu/ops/decode_attention.py``).
 
-``decode_attention`` launches kernel B2 (``csrc/decode_attention.cu``) for a
-CUDA tensor and takes ``decode_attention_plain`` for a CPU tensor.  Both read
-only the first ``kv_len`` cache positions, which is how a staged decode step
-skips the cache's unwritten tail without a slice copy.
+``decode_attention`` launches kernel B2 (``csrc/decode_attention.cu``, one
+block per (batch row, head)) for a CUDA tensor and takes
+``decode_attention_plain`` for a CPU tensor.  ``decode_attention_rows`` is
+the same function through kernel B2' (one block per batch row, all heads in
+it), the opt-in ``MYRIAD_DECODE_ATTN=row`` dispatch of ``ops/attention.py``;
+its plain version is ``decode_attention_rows_plain``.  All read only the
+first ``kv_len`` cache positions, which is how a staged decode step skips
+the cache's unwritten tail without a slice copy.
 
 Where the two agree: the plain version is the ``_xla_mha`` twin (softmax,
 then v_scale, then probabilities cast to q's dtype before p.V); the kernel
@@ -24,7 +28,10 @@ from myriad_tpu_torch.ops import _cuda
 from myriad_tpu_torch.ops.attention import plain_mha
 
 counter = _cuda.LaunchCounter("decode_attention")
+counter_rows = _cuda.LaunchCounter("decode_attention_rows")
 MAX_HEAD_DIM = 128
+ROWS_WARPS = 8  # warps of a B2' block (csrc/decode_attention.cu kThreads / 32)
+MAX_SHARED = 232448  # shared memory a block can use on sm_90, bytes
 
 
 def decode_attention_plain(q, k, v, *, mask=None, scale=None, k_scale=None,
@@ -43,12 +50,40 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_len: Optional[int] = None) -> torch.Tensor:
     """q (B, H, 1, D); k/v (B, H, T, D) bf16 or int8 with per-position scales
     (B, H, T, 1); additive mask broadcastable to (B, 1, 1, kv_len) -> (B, H, 1, D)."""
+    return _decode(q, k, v, mask, scale, k_scale, v_scale, kv_len, rows=False)
+
+
+# B2' computes B2's function, so its plain version is B2's
+decode_attention_rows_plain = decode_attention_plain
+
+
+def rows_supported(kv_len: int, d: int) -> bool:
+    """Whether kernel B2' takes this width: each of its 8 warps keeps
+    kv_len scores and a query row in shared memory (at most 227 KB a
+    block), and D is at most 128 and a multiple of 4, as for B2."""
+    return d % 4 == 0 and d <= MAX_HEAD_DIM and 4 * ROWS_WARPS * (kv_len + d) <= MAX_SHARED
+
+
+def decode_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          mask: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None,
+                          kv_len: Optional[int] = None) -> torch.Tensor:
+    """``decode_attention`` through kernel B2' (one block per batch row) on
+    the card; raises where ``rows_supported`` is False, on the CPU too."""
+    return _decode(q, k, v, mask, scale, k_scale, v_scale, kv_len, rows=True)
+
+
+def _decode(q, k, v, mask, scale, k_scale, v_scale, kv_len, rows: bool) -> torch.Tensor:
     b, h, tq, d = q.shape
     _cuda.require(tq == 1, f"decode_attention takes one query row, got {tq}")
     _cuda.require((k_scale is None) == (v_scale is None),
                   "an int8 cache needs both k_scale and v_scale")
     t = kv_len if kv_len is not None else k.shape[2]
     _cuda.require(1 <= t <= k.shape[2], f"kv_len {t} outside the cache's {k.shape[2]}")
+    _cuda.require(not rows or rows_supported(t, d),
+                  f"kernel B2' takes D <= {MAX_HEAD_DIM}, a multiple of 4, and at most "
+                  f"{MAX_SHARED // (4 * ROWS_WARPS) - d} positions; got kv_len={t}, D={d}")
     scale = scale if scale is not None else d ** -0.5
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, mask=mask, scale=scale, k_scale=k_scale,
@@ -85,12 +120,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     sc = k_scale.stride() if quant else (0, 0, 0, 0)
     lib = _cuda.library()
-    err = lib.myriad_decode_attention(
+    launch = lib.myriad_decode_attention_rows if rows else lib.myriad_decode_attention
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
         mask.data_ptr(), out.data_ptr(), b, h, d, t,
         k.stride(0), k.stride(1), k.stride(2), sc[0], sc[1], sc[2],
         int(quant), float(scale), _cuda.stream_ptr(q.device))
-    _cuda.check(err, "decode_attention")
-    counter.count += 1
+    _cuda.check(err, "decode_attention_rows" if rows else "decode_attention")
+    (counter_rows if rows else counter).count += 1
     return out

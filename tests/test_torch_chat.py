@@ -7,11 +7,12 @@ Gates: over three scripted turns, the transcripts (text and token ids) are
 identical, and so is the incremental path's ``_delta_log`` (the prefill width
 of each turn).  The port prefills each delta at its exact width where the JAX
 package pads it to a multiple of 64; identical transcripts show the padding
-changes nothing.  The port's full re-prefill (``incremental=False``) is held
-to the JAX incremental transcript, which the JAX package's own tests hold to
-its full re-prefill (tests/test_conversation.py); that saves the JAX side a
-compile per turn.  The upload's normalisation equals the JAX processor's bit
-for bit.
+changes nothing.  The port's full re-prefill (``incremental=False``) and its
+speculative chat (``spec_k=3``) are held to the JAX incremental greedy
+transcript, which the JAX package's own tests hold to its full re-prefill
+and to its speculative chat (tests/test_conversation.py); that saves the JAX
+side a compile per turn.  The upload's normalisation equals the JAX
+processor's bit for bit.
 """
 
 import numpy as np
@@ -59,20 +60,17 @@ def _assert_same(out, ref):
 
 
 @pytest.fixture(scope="module")
-def jax_chats(pair):  # noqa: F811
-    """The JAX Chat's incremental runs, spec_k 0 and 3, once per module."""
+def jax_chat(pair):  # noqa: F811
+    """The JAX Chat's incremental greedy run, once per module."""
     jm, _ = pair
-    runs = {}
-    for spec_k in (0, 3):
-        jchat = JaxChat(jm, LocImageTrainProcessor(identity=True), spec_k=spec_k)
-        runs[spec_k] = (jchat, _run(jchat, JAX_CONV_VISION, QUESTIONS, _image(1))[0])
-    return runs
+    jchat = JaxChat(jm, LocImageTrainProcessor(identity=True))
+    return jchat, _run(jchat, JAX_CONV_VISION, QUESTIONS, _image(1))[0]
 
 
 @pytest.mark.parametrize("incremental,spec_k", [(True, 0), (True, 3), (False, 0)])
-def test_chat_matches_jax(pair, jax_chats, incremental, spec_k):  # noqa: F811
+def test_chat_matches_jax(pair, jax_chat, incremental, spec_k):  # noqa: F811
     _, pm = pair
-    jchat, ref = jax_chats[spec_k]
+    jchat, ref = jax_chat
     chat = Chat(pm, incremental=incremental, spec_k=spec_k)
     out, _ = _run(chat, CONV_VISION, QUESTIONS, _image(1))
     _assert_same(out, ref)

@@ -1,15 +1,16 @@
-"""The port's CUDA kernels (B1, B2, B3, B4) against their plain PyTorch
-versions, on the card.  Every test here needs a CUDA device and skips without
-one.
+"""The port's CUDA kernels (B1-B7) against their plain PyTorch versions, on
+the card.  Every test here needs a CUDA device and skips without one.
 
 This file imports no JAX (the card has none), so it runs there without the
 suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 
-Tolerances: B1 one bf16 rounding of the largest output (2^-7 * max|plain|);
-B2/B3 2e-2 absolute (bf16 probabilities and outputs, |out| of a few units);
-B4 none: its writes, quantized or copied, are bit-exact.
+Tolerances: B1 and B5 one bf16 rounding of the largest output (2^-7 *
+max|plain|: the same dequantized weight, fp32 sums in another order, one
+rounding to bf16); B2, B2' and B3 2e-2 absolute (bf16 probabilities and
+outputs, |out| of a few units); B4, B6 and B7 none: B4's writes, B6's IEEE
+divisions and B7's sums of small integers are exact.
 """
 
 import pytest
@@ -18,7 +19,9 @@ import torch
 from myriad_tpu_torch.ops import decode_attention as da
 from myriad_tpu_torch.ops import kv_write as kw
 from myriad_tpu_torch.ops import prefill_attention as pa
+from myriad_tpu_torch.ops import preprocess as pp
 from myriad_tpu_torch.ops import quant
+from myriad_tpu_torch.tools import bwprobe
 
 pytestmark = pytest.mark.cuda
 BF16_ATOL = 2e-2
@@ -190,3 +193,109 @@ def test_kv_write_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):  # fp32 K/V
         kw.kv_quantize_write(k8, k8.clone(), sc, sc.clone(), torch.zeros(2, 4, 1, 8, device=dev),
                              torch.zeros(2, 4, 1, 8, device=dev), 0)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 11008), (8, 4096, 11008), (32, 11008, 4096),
+                                   (8, 4096, 4096), (256, 4096, 4096), (3, 64, 40),
+                                   (5, 1000, 36)])
+def test_int4_matmul_kernel_matches_plain(dev, m, k, n):
+    """Vicuna-7B's projections at M = 1, 8, 32; K = 11008 ends in a half
+    chunk; K = 64 and 1000 are one group of the whole dim (g != 128)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    w4, s4 = quant.quantize_int4_grouped(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    before = quant.counter4.count
+    out = quant.int4_weight_only_matmul(x, w4, s4)
+    assert quant.counter4.count == before + 1
+    ref = quant.int4_weight_only_matmul_plain(x, w4, s4)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    assert (out.float() - ref.float()).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
+
+
+def test_int4_matmul_row_rule_on_card(dev):
+    """Rows <= 256 take kernel B5; more rows requantize and take W8A8."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    w4, s4 = quant.quantize_int4_grouped(torch.randn(512, 256, generator=g, device=dev))
+    before8, before4 = quant.counter.count, quant.counter4.count
+    quant.int4_matmul(torch.randn(2, 128, 512, generator=g, device=dev).bfloat16(), w4, s4)
+    assert quant.counter4.count == before4 + 1
+    x = torch.randn(300, 512, generator=g, device=dev)
+    y = quant.int4_matmul(x.bfloat16(), w4, s4)
+    assert (quant.counter.count, quant.counter4.count) == (before8, before4 + 1)
+    w8, s_col = quant.requantize_int4_to_int8(w4.cpu(), s4.cpu())
+    ref = quant.w8a8_matmul(x.bfloat16().float().cpu(), w8, s_col)
+    torch.testing.assert_close(y.float().cpu(), ref.bfloat16().float(), rtol=2 ** -7, atol=1e-3)
+
+
+def test_int4_matmul_refuses_what_it_does_not_take(dev):
+    w4 = torch.zeros(32, 40, dtype=torch.uint8, device=dev)
+    s4 = torch.ones(1, 40, device=dev)
+    with pytest.raises(ValueError):  # fp32 activations
+        quant.int4_weight_only_matmul(torch.zeros(4, 64, device=dev), w4, s4)
+    with pytest.raises(ValueError):  # more rows than the kernel serves
+        quant.int4_weight_only_matmul(torch.zeros(300, 64, dtype=torch.bfloat16, device=dev),
+                                      w4, s4)
+    with pytest.raises(ValueError):  # N not a multiple of 4
+        quant.int4_weight_only_matmul(torch.zeros(4, 64, dtype=torch.bfloat16, device=dev),
+                                      w4[:, :38].contiguous(), s4[:, :38].contiguous())
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("kv_len", [320, 416, 37])
+def test_decode_attention_rows_kernel_matches_plain(dev, int8, kv_len):
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, h, t, d = 8, 32, 416, 128
+    q = torch.randn(b, h, 1, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v, ks, vs = _cache(dev, g, b, h, t, d, int8)
+    mask = torch.where(torch.arange(kv_len, device=dev) <= min(300, kv_len - 5), 0.0, -1e9)
+    mask = mask[None, None, None].expand(b, 1, 1, kv_len)
+    args = dict(mask=mask, k_scale=ks, v_scale=vs, kv_len=kv_len)
+    before = da.counter_rows.count
+    out = da.decode_attention_rows(q, k, v, **args)
+    assert da.counter_rows.count == before + 1
+    ref = da.decode_attention_rows_plain(q, k, v, **args)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_ATOL
+    with pytest.raises(ValueError):  # more scores than a block's shared memory holds
+        da.decode_attention_rows(q, torch.zeros(b, h, 8192, d, dtype=k.dtype, device=dev),
+                                 torch.zeros(b, h, 8192, d, dtype=k.dtype, device=dev),
+                                 k_scale=None if ks is None else torch.zeros(
+                                     b, h, 8192, 1, dtype=ks.dtype, device=dev),
+                                 v_scale=None if vs is None else torch.zeros(
+                                     b, h, 8192, 1, dtype=vs.dtype, device=dev))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 224, 224, 3), (1, 5, 7, 3)])
+def test_u8_normalize_kernel_bit_exact(dev, out_dtype, shape):
+    g = torch.Generator(device=dev).manual_seed(6)
+    img = torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+    before = pp.counter.count
+    out = pp.u8_normalize_rows(img, out_dtype=out_dtype)
+    assert pp.counter.count == before + 1
+    ref = pp.u8_normalize_rows_plain(img, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and torch.equal(out, ref)
+    assert torch.equal(pp.device_preprocess(img, use_pallas=True, out_dtype=out_dtype), ref)
+    assert pp.counter.count == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("two", [False, True])
+def test_stream_sum_kernel_exact(dev, dtype, two):
+    """Small integers: every fp32 partial sum is exact, in any order."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    block, rows = 64, 64 * 37
+    x = torch.randint(-3, 4, (rows, bwprobe.WIDTH), generator=g, device=dev).to(dtype)
+    y = torch.randint(-3, 4, (rows, bwprobe.WIDTH), generator=g, device=dev).to(dtype) \
+        if two else None
+    before = bwprobe.counter.count
+    out = bwprobe.stream_sum(x, 2.5, block, y)
+    assert bwprobe.counter.count == before + 1
+    assert out.item() == bwprobe.stream_sum_plain(x, 2.5, block, y).item()
+    with pytest.raises(ValueError):  # rows not a multiple of the block
+        bwprobe.stream_sum(x[:rows - 1], 2.5, block)
+
+
+def test_bwprobe_cli_on_the_card(dev):
+    assert bwprobe.main(["--gb", "0.25", "--iters", "2", "--impl", "cuda"]) == 0
+    res = bwprobe.probe(0.25, "int8", 2, "cuda2", 512, "cuda")
+    assert res["gb_per_s"] > 0 and res["bytes"] == 2 * 64 * 512 * bwprobe.WIDTH

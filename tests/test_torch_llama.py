@@ -3,7 +3,10 @@ myriad_tpu_torch/generation.py) against the JAX package's, on the CPU, at
 ``LlamaConfig.tiny`` with the same random weights on both sides (fp32 compute).
 
 Tolerances: prefill logits within 1e-4 (fp32 sums in another order); greedy
-token ids identical.
+token ids identical.  The JAX parameters' initialiser is traced, not
+compiled (``_float_params``), and the port's prefill-chunk and staged-decode
+variants are held to one JAX transcript: both are token-exact in the JAX
+package by construction (tests/test_generation_invariance.py pins it).
 """
 
 import dataclasses
@@ -40,11 +43,37 @@ def _perturb(tree, rng, std=0.2):
     return out
 
 
+def _init_like(shapes, rng):
+    """Values for a parameter tree known by its shapes (``jax.eval_shape`` of
+    an initialiser: traced, never compiled, which saves the tests a compile
+    per model): ones for norm and quantization scales, zeros for biases and
+    integer payloads, log(1/0.07) for a logit scale, N(0, 0.02) elsewhere.
+    The tests perturb every float leaf afterwards."""
+    def leaf(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if np.dtype(s.dtype).kind in "iu":
+            return np.zeros(s.shape, s.dtype)
+        if name in ("scale", "scale4", "weight"):
+            return np.ones(s.shape, s.dtype)
+        if "bias" in name:
+            return np.zeros(s.shape, s.dtype)
+        if name == "log_logit_scale":
+            return np.full(s.shape, np.log(1 / 0.07), s.dtype)
+        return (rng.normal(size=s.shape) * 0.02).astype(s.dtype)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def _float_params(seed):
+    """Perturbed float parameters of the tiny LLaMA (any KV cache dtype)."""
+    model = JaxLlama(JaxLlamaConfig.tiny(), jnp.float32, jnp.float32)
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(model.init_params, jax.random.PRNGKey(seed))
+    return _perturb(_init_like(shapes, rng)["params"], rng)
+
+
 def _models(weight_dtype, kv_dtype, seed=0):
     jcfg = JaxLlamaConfig.tiny(kv_cache_dtype=kv_dtype)
-    params = JaxLlama(jcfg, jnp.float32, jnp.float32).init_params(jax.random.PRNGKey(seed))
-    params = _perturb(jax.tree_util.tree_map(np.asarray, params["params"]),
-                      np.random.default_rng(seed))
+    params = _float_params(seed)
     if weight_dtype == "int8":
         params = quantize_tree(params)
         jcfg = dataclasses.replace(jcfg, weight_dtype="int8")
@@ -83,18 +112,25 @@ def test_prefill_logits_match(kv):
         assert cache[0]["k_scale"].dtype == torch.float16
 
 
+@pytest.fixture(scope="module")
+def jax_greedy(int8_models):
+    """The JAX transcript at one prefill chunk, no staging."""
+    jmodel, params, _ = int8_models
+    kw = dict(max_new_tokens=12, cache_granularity=8, **STOPS)
+    return np.asarray(jgen.greedy_generate(jmodel, params, jnp.asarray(_embeds()),
+                                           config=jgen.GenerationConfig(**kw),
+                                           cache_dtype="int8"))
+
+
 @pytest.mark.parametrize("staged", [False, True])
 @pytest.mark.parametrize("chunks", [1, 3])
-def test_greedy_generate_token_ids_identical(int8_models, chunks, staged):
-    jmodel, params, tmodel = int8_models
-    x = _embeds()
+def test_greedy_generate_token_ids_identical(int8_models, jax_greedy, chunks, staged):
+    _, _, tmodel = int8_models
     kw = dict(max_new_tokens=12, prefill_chunks=chunks, staged_decode=staged,
               cache_granularity=8, **STOPS)
-    ref = jgen.greedy_generate(jmodel, params, jnp.asarray(x),
-                               config=jgen.GenerationConfig(**kw), cache_dtype="int8")
-    out = gen.greedy_generate(tmodel, torch.from_numpy(x),
+    out = gen.greedy_generate(tmodel, torch.from_numpy(_embeds()),
                               config=gen.GenerationConfig(**kw), cache_dtype="int8")
-    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(out.numpy(), jax_greedy)
 
 
 def test_greedy_generate_float_weights_float_cache():

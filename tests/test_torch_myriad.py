@@ -4,10 +4,15 @@ the JAX package's ``Myriad.generate``, and the port's package rules, on the CPU.
 The slice runs zero-shot VE maps -> encode_img -> int8-weight, int8-KV tiny
 Vicuna greedy decode at ``MyriadArch.tiny`` in fp32 with the same random
 weights on both sides.  Gates: token ids identical; maps within 1e-5 (the
-gate of tests/test_myriad_model.py).
+gate of tests/test_myriad_model.py).  The JAX side's variants (int4 weights,
+a larger vocab, a bos embedding) are copies of the one JAX model with the
+changed arch and parameters swapped in, so that none of them pays for a
+second JAX initialisation.
 """
 
 import ast
+import copy
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -23,14 +28,15 @@ import torch
 from myriad_tpu import checkpoint as ckpt_lib
 from myriad_tpu.models.layers import Policy as JaxPolicy
 from myriad_tpu.models.llama import LlamaConfig as JaxLlamaConfig
-from myriad_tpu.models.llama import LlamaForCausalLM as JaxLlama
 from myriad_tpu.models.myriad import Myriad as JaxMyriad
 from myriad_tpu.models.myriad import MyriadArch as JaxArch
+from myriad_tpu.models.myriad import MyriadModule as JaxMyriadModule
 from myriad_tpu.ops.quant import quantize_tree
 from myriad_tpu_torch.convert_from_jax import state_dict_from_jax
 from myriad_tpu_torch.models.layers import Policy
 from myriad_tpu_torch.models.llama import LlamaConfig
 from myriad_tpu_torch.models.myriad import Myriad, MyriadArch
+from test_torch_llama import _float_params, _init_like
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUESTION = "<Img><ImageHere></Img>find out if there are defects in this image."
@@ -48,20 +54,33 @@ def _perturb(tree, rng, std=0.2):
     return out
 
 
+class TracedInitMyriad(JaxMyriad):
+    """The JAX Myriad with its two initialisers traced (``jax.eval_shape``)
+    and filled by ``_init_like``, not compiled: the tests overwrite every
+    parameter anyway, and each compiled init costs tens of seconds."""
+
+    def _init_params(self, rng):
+        return _init_like(jax.eval_shape(lambda r: JaxMyriad._init_params(self, r), rng),
+                          np.random.default_rng(100))
+
+    def _init_ve_params(self, ve_module, rng):
+        return _init_like(
+            jax.eval_shape(lambda r: JaxMyriad._init_ve_params(self, ve_module, r), rng),
+            np.random.default_rng(101))
+
+
 @pytest.fixture(scope="module")
 def pair():
     """Tiny JAX Myriad (int8 LLM weights, int8 KV) with perturbed weights, and
     the port loaded from the same weights through the bridge."""
     jcfg = JaxLlamaConfig.tiny(weight_dtype="int8", kv_cache_dtype="int8")
-    jm = JaxMyriad(arch=JaxArch.tiny(llama=jcfg), use_ve=True, policy=JaxPolicy.fp32(),
-                   max_txt_len=16)
+    jm = TracedInitMyriad(arch=JaxArch.tiny(llama=jcfg), use_ve=True, policy=JaxPolicy.fp32(),
+                          max_txt_len=16)
     rng = np.random.default_rng(0)
     params = _perturb(jax.tree_util.tree_map(np.asarray, jm.params), rng)
     # the int8 LLM leaves come from quantizing perturbed float weights (the
     # int8 model initialises its payloads to zeros)
-    flat = JaxLlama(JaxLlamaConfig.tiny(), jnp.float32, jnp.float32).init_params(
-        jax.random.PRNGKey(1))["params"]
-    params["llama"] = quantize_tree(_perturb(jax.tree_util.tree_map(np.asarray, flat), rng))
+    params["llama"] = quantize_tree(_float_params(1))
     jm.trainable, jm.frozen = ckpt_lib.split_by_predicate(params, jm._trainable_predicate())
     ve = jm.vision_expert
     ve.params = {"params": _perturb(jax.tree_util.tree_map(np.asarray, ve.params["params"]),
@@ -79,6 +98,54 @@ def _samples(n=2):
     rng = np.random.default_rng(7)
     return {"image": rng.integers(0, 256, size=(n, 28, 28, 3), dtype=np.uint8),
             "scene": ["bottle", "cable"][:n], "question2": [QUESTION] * n}
+
+
+GEN_KW = dict(max_new_tokens=10, cache_granularity=16, stop_single=5, stop_pair=(7, 9))
+TINY = {"arch_preset": "tiny", "llm_weight_dtype": "int8", "llm_kv_dtype": "int8",
+        "param_policy": "fp32"}
+
+
+@pytest.fixture(scope="module")
+def jax_greedy(pair):
+    """The JAX Myriad's tokens and maps at one prefill chunk, no staging:
+    prefill chunks and staged decode are token-exact in the JAX package by
+    construction (tests/test_generation_invariance.py pins it), so every
+    port variant is held to this one JAX compile."""
+    jm, _ = pair
+    return jm.generate(_samples(), **GEN_KW)
+
+
+def _jax_variant(jm, llama=None, params=None, **attrs):
+    """A copy of the JAX Myriad with another LLaMA config and parameters (no
+    re-initialisation) or other host attributes, and its own compile cache."""
+    v = copy.copy(jm)
+    v._jit_cache, v._prompt_cache = {}, {}
+    if llama is not None:
+        v.arch = dataclasses.replace(jm.arch, llama=llama)
+        v.module = JaxMyriadModule(v.arch, dtype=jm.policy.compute_dtype,
+                                   param_dtype=jm.policy.param_dtype)
+    if params is not None:
+        v.trainable, v.frozen = ckpt_lib.split_by_predicate(params, v._trainable_predicate())
+    for name, value in attrs.items():
+        setattr(v, name, value)
+    return v
+
+
+def _port(cfg, jax_params, ve_state):
+    """The port built by ``from_config`` (no policy argument) and loaded,
+    strictly, from a JAX parameter tree."""
+    pm = Myriad.from_config(cfg, device="cpu", class_names=SCENES)
+    pm.load_state_dicts(state_dict_from_jax(jax_params), ve_state)
+    return pm
+
+
+def _int8_to_float(tree):
+    """int8 {w_int8, scale} leaves back to float {kernel} (their dequantization)."""
+    if not isinstance(tree, dict):
+        return tree
+    if "w_int8" in tree:
+        return {"kernel": np.asarray(tree["w_int8"], np.float32) * np.asarray(tree["scale"])}
+    return {k: _int8_to_float(v) for k, v in tree.items()}
 
 
 def test_from_config_spec_generate_matches_jax(pair):
@@ -108,15 +175,161 @@ def test_from_config_spec_generate_matches_jax(pair):
 
 @pytest.mark.parametrize("staged", [False, True])
 @pytest.mark.parametrize("chunks", [1, 3])
-def test_generate_matches_jax(pair, chunks, staged):
-    jm, pm = pair
-    kw = dict(max_new_tokens=10, prefill_chunks=chunks, staged_decode=staged,
-              cache_granularity=16, stop_single=5, stop_pair=(7, 9))
-    ref = jm.generate(_samples(), **kw)
-    out = pm.generate(_samples(), **kw)
-    np.testing.assert_array_equal(out["token_ids"].numpy(), np.asarray(ref["token_ids"]))
+def test_generate_matches_jax(pair, jax_greedy, chunks, staged):
+    _, pm = pair
+    out = pm.generate(_samples(), prefill_chunks=chunks, staged_decode=staged, **GEN_KW)
+    np.testing.assert_array_equal(out["token_ids"].numpy(),
+                                  np.asarray(jax_greedy["token_ids"]))
     np.testing.assert_allclose(out["ve_anomaly_maps"].numpy(),
-                               np.asarray(ref["ve_anomaly_maps"]), rtol=1e-5, atol=1e-5)
+                               np.asarray(jax_greedy["ve_anomaly_maps"]), rtol=1e-5, atol=1e-5)
+
+
+class _JaxResolved(JaxMyriad):
+    """``JaxMyriad.from_config`` up to its constructor: what it resolves."""
+
+    def __init__(self, arch=None, **kw):
+        self.kw = dict(kw, arch=arch)
+
+
+class _Resolved(Myriad):
+    """``Myriad.from_config`` up to its constructor: what it resolves."""
+
+    def __init__(self, arch, **kw):
+        self.kw = dict(kw, arch=arch)
+
+
+def _resolved(cfg):
+    """(JAX, port) settings that decide what the model computes."""
+    j = _JaxResolved.from_config(dict(cfg)).kw
+    p = _Resolved.from_config(dict(cfg), device="cpu").kw
+    ja, pa = j["arch"], p["arch"]
+    jpol, ppol = j["policy"], p["policy"] or Policy.bf16_params()
+    jax_side = (ja.img_size, ja.num_query_token, ja.llama.vocab_size, ja.llama.weight_dtype,
+                ja.llama.kv_cache_dtype, bool(j["use_lora"]), j["bos_at_generate"],
+                jnp.dtype(jpol.param_dtype).name, jnp.dtype(jpol.compute_dtype).name)
+    port_side = (pa.img_size, pa.num_query_token, pa.llama.vocab_size, pa.llama.weight_dtype,
+                 pa.llama.kv_cache_dtype, pa.llama.use_lora, p["bos_at_generate"],
+                 str(ppol.param_dtype).split(".")[-1], str(ppol.compute_dtype).split(".")[-1])
+    return jax_side, port_side
+
+
+WIRED = {
+    "low_resource": {"low_resource": True},
+    "low_resource_under_llm_weight_dtype": {"low_resource": True, "llm_weight_dtype": "int4"},
+    "kv_cache_dtype": {"kv_cache_dtype": "int8"},
+    "image_size": {"image_size": 42},
+    "num_query_token": {"arch_preset": "full", "num_query_token": 16},
+    "num_query_token_tiny_ignored": {"arch_preset": "tiny", "num_query_token": 16},
+    "llm_vocab_size": {"llm_vocab_size": 300},
+    "bos_at_generate": {"bos_at_generate": True},
+    "param_policy_bf16": {"param_policy": "bf16"},
+    "param_policy_bf16_params": {"param_policy": "bf16_params"},
+    "param_policy_fp32": {"param_policy": "fp32"},
+    "vit_precision_fp32": {"vit_precision": "fp32"},
+    "vit_precision_fp16": {"vit_precision": "fp16"},
+    "use_lora": {"use_lora": True},
+    "dead_knobs": {"noise_level": 0.15, "use_ref": True, "vit_model": "eva_clip_g"},
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIRED))
+def test_from_config_resolves_keys_as_jax(case):
+    """Every key the JAX ``from_config`` reads and the port serves resolves to
+    the same arch, LLaMA config, bos rule and dtype policy on both sides (the
+    port's policy when the config names none is its serving bf16 storage,
+    where JAX's is fp32 storage: the same bf16 compute)."""
+    cfg = {"arch_preset": "tiny", **WIRED[case]}
+    jax_side, port_side = _resolved(cfg)
+    if not any(k in cfg for k in ("param_policy", "vit_precision")):
+        jax_side, port_side = jax_side[:-2], port_side[:-2]
+    assert port_side == jax_side
+
+
+@pytest.mark.parametrize("case,cfg", [
+    ("low_resource", {"low_resource": True, "llm_kv_dtype": "int8", "param_policy": "fp32"}),
+    ("kv_cache_dtype", {"llm_weight_dtype": "int8", "kv_cache_dtype": "int8",
+                        "param_policy": "fp32"}),
+    ("param_policy", {"llm_weight_dtype": "int8", "llm_kv_dtype": "int8",
+                      "param_policy": "fp32"}),
+    ("vit_precision", {"llm_weight_dtype": "int8", "llm_kv_dtype": "int8",
+                       "vit_precision": "fp32"}),
+])
+def test_from_config_key_generates_as_jax(pair, jax_greedy, case, cfg):
+    """Each wired key, built by ``from_config`` with no policy argument, gives
+    the JAX model's tokens: these resolve to the JAX pair's own settings (int8
+    weights, int8 KV, fp32), so its one compile is the reference.  A key
+    dropped would change the weights' layout (the strict load fails) or the
+    numerics (bf16 storage, a bf16 cache)."""
+    jm, pm = pair
+    out = _port({"arch_preset": "tiny", **cfg}, jm.params,
+                pm.vision_expert.module.state_dict()).generate(_samples(), **GEN_KW)
+    np.testing.assert_array_equal(out["token_ids"].numpy(), np.asarray(jax_greedy["token_ids"]))
+
+
+def test_from_config_bos_at_generate_as_jax(pair):
+    jm, pm = pair
+    ref = _jax_variant(jm, bos_at_generate=True).generate(_samples(), **GEN_KW)
+    port = _port({**TINY, "bos_at_generate": True}, jm.params,
+                 pm.vision_expert.module.state_dict())
+    assert port.bos_at_generate
+    out = port.generate(_samples(), **GEN_KW)
+    np.testing.assert_array_equal(out["token_ids"].numpy(), np.asarray(ref["token_ids"]))
+
+
+def test_from_config_llm_vocab_size_as_jax(pair):
+    """A 300-token vocab (the byte tokenizer's ids reach 258): the embedding
+    and the head grow on both sides, the extra rows drawn from a seed."""
+    jm, pm = pair
+    rng = np.random.default_rng(11)
+    params = jax.tree_util.tree_map(np.asarray, jm.params)
+    emb = params["llama"]["model"]["embed_tokens"]["embedding"]
+    head = params["llama"]["lm_head"]
+    params["llama"]["model"]["embed_tokens"]["embedding"] = np.concatenate(
+        [emb, rng.normal(size=(300 - emb.shape[0], emb.shape[1])).astype(np.float32)])
+    params["llama"]["lm_head"] = np.concatenate(
+        [head, rng.normal(size=(head.shape[0], 300 - head.shape[1])).astype(np.float32)], axis=1)
+    variant = _jax_variant(jm, llama=dataclasses.replace(jm.arch.llama, vocab_size=300),
+                           params=params)
+    ref = variant.generate(_samples(), **GEN_KW)
+    port = _port({**TINY, "llm_vocab_size": 300}, params, pm.vision_expert.module.state_dict())
+    assert port.arch.llama.vocab_size == 300
+    out = port.generate(_samples(), **GEN_KW)
+    np.testing.assert_array_equal(out["token_ids"].numpy(), np.asarray(ref["token_ids"]))
+    assert int(np.asarray(ref["token_ids"]).max()) < 300
+
+
+@pytest.mark.parametrize("cfg", [{"qformer_weight_dtype": "int8"}, {"vit_weight_dtype": "int8"},
+                                 {"ve_weight_dtype": "int8"}, {"use_ve": False},
+                                 {"k_shot": 1}])
+def test_from_config_unserved_keys_raise(cfg):
+    """Keys the port does not serve raise, naming the key and the value."""
+    (key, value), = cfg.items()
+    with pytest.raises(NotImplementedError, match=f"{key}={value!r}"):
+        Myriad.from_config({"arch_preset": "tiny", **cfg}, device="cpu")
+
+
+def test_from_config_int4_generate_and_spec_match_jax(pair):
+    """``llm_weight_dtype: int4``: tokens, and K = 2 tokens and spec_stats,
+    identical to the JAX Myriad's.  The int4 leaves quantize the pair's
+    dequantized int8 weights (``quantize_tree(mode="int4")``), so no
+    projection is zero on either side."""
+    jm, pm = pair
+    params = jax.tree_util.tree_map(np.asarray, jm.params)
+    params["llama"] = quantize_tree(_int8_to_float(params["llama"]), mode="int4")
+    llama4 = dataclasses.replace(jm.arch.llama, weight_dtype="int4")
+    ve_state = pm.vision_expert.module.state_dict()
+    kw = dict(GEN_KW, prefill_chunks=1)
+    for spec_k in (0, 2):
+        ref = _jax_variant(jm, llama=llama4, params=params, spec_k=spec_k).generate(
+            _samples(), **kw)
+        port = _port({**TINY, "llm_weight_dtype": "int4", "llm_spec_k": spec_k}, params,
+                     ve_state)
+        out = port.generate(_samples(), **kw)
+        np.testing.assert_array_equal(out["token_ids"].numpy(), np.asarray(ref["token_ids"]),
+                                      err_msg=f"spec_k={spec_k}")
+        if spec_k:
+            assert out["spec_stats"] == {n: int(v) for n, v in ref["spec_stats"].items()}
+            assert out["spec_stats"]["rounds"] > 0
 
 
 def test_reference_sampling_kwargs_route_to_greedy(pair):
@@ -235,10 +448,13 @@ def test_from_config_serving_knobs():
                             policy=Policy.fp32(), device="cpu", class_names=SCENES)
     assert pm.arch.llama.weight_dtype == "int8" and pm.arch.llama.kv_cache_dtype == "int8"
     assert (pm.prefill_chunks, pm.staged_decode, pm.cache_granularity) == (3, True, 16)
-    for unported in ({"llm_weight_dtype": "int4"}, {"k_shot": 1}):
-        with pytest.raises(NotImplementedError):
-            Myriad.from_config({"arch_preset": "tiny", **unported}, policy=Policy.fp32(),
-                               device="cpu")
+    int4 = Myriad.from_config({"arch_preset": "tiny", "llm_weight_dtype": "int4"},
+                              policy=Policy.fp32(), device="cpu")
+    assert int4.arch.llama.weight_dtype == "int4"
+    assert "llama.model.layers.0.mlp.up_proj.w_int4" in int4.module.state_dict()
+    with pytest.raises(NotImplementedError):
+        Myriad.from_config({"arch_preset": "tiny", "k_shot": 1}, policy=Policy.fp32(),
+                           device="cpu")
 
 
 def test_random_init_is_seeded_and_full():
@@ -263,7 +479,8 @@ def test_import_leaves_jax_out():
             "myriad_tpu_torch.convert_from_jax, myriad_tpu_torch.models.myriad, "
             "myriad_tpu_torch.ops.quant, myriad_tpu_torch.ops.attention, "
             "myriad_tpu_torch.ops.decode_attention, myriad_tpu_torch.ops.prefill_attention, "
-            "myriad_tpu_torch.ops.kv_write, myriad_tpu_torch.conversation, "
+            "myriad_tpu_torch.ops.kv_write, myriad_tpu_torch.ops.preprocess, "
+            "myriad_tpu_torch.tools.bwprobe, myriad_tpu_torch.conversation, "
             "myriad_tpu_torch.demo\n"
             "from myriad_tpu_torch.models.myriad import Myriad\n"
             "m = Myriad.from_config({'arch_preset': 'tiny', 'llm_weight_dtype': 'int8', "
@@ -305,6 +522,8 @@ def test_port_sources_reach_nothing_of_the_jax_package():
     no path into ``myriad_tpu/`` handed to a call that reads or loads."""
     files = sorted(Path(REPO, "myriad_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
     assert len(files) > 20
+    # every subpackage is walked, tools/ included
+    assert Path(REPO, "myriad_tpu_torch", "tools", "bwprobe.py") in files
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

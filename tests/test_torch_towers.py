@@ -17,7 +17,6 @@ import torch
 from myriad_tpu import checkpoint as ckpt_lib
 from myriad_tpu.models.eva_vit import EvaViT as JaxEvaViT
 from myriad_tpu.models.layers import Policy as JaxPolicy
-from myriad_tpu.models.myriad import Myriad as JaxMyriad
 from myriad_tpu.models.myriad import MyriadArch as JaxArch
 from myriad_tpu.models.myriad import MyriadModule as JaxMyriadModule
 from myriad_tpu.models.networks import LoraAdaptorV2 as JaxLoraAdaptorV2
@@ -32,6 +31,7 @@ from myriad_tpu_torch.models.layers import Policy
 from myriad_tpu_torch.models.myriad import Myriad, MyriadArch
 from myriad_tpu_torch.models.vision_expert import upsample_align_corners
 from myriad_tpu_torch.ops.preprocess import u8_normalize
+from test_torch_myriad import TracedInitMyriad
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -50,7 +50,8 @@ def _perturb(tree, rng, std=0.05):
 @pytest.fixture(scope="module")
 def pair():
     """A tiny JAX Myriad with perturbed weights and the port loaded from it."""
-    jm = JaxMyriad(arch=JaxArch.tiny(), use_ve=True, policy=JaxPolicy.fp32(), max_txt_len=16)
+    jm = TracedInitMyriad(arch=JaxArch.tiny(), use_ve=True, policy=JaxPolicy.fp32(),
+                          max_txt_len=16)
     rng = np.random.default_rng(0)
     params = _perturb(jax.tree_util.tree_map(np.asarray, jm.params), rng)
     jm.trainable, jm.frozen = ckpt_lib.split_by_predicate(params, jm._trainable_predicate())
