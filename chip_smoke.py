@@ -6,18 +6,24 @@
 Phases, each printing its own lines:
 
 1. build the CUDA kernels (myriad_tpu_torch/csrc, one nvcc per source, all
-   started together, sm_90a) from the checkout and print the build time;
+   started together, sm_90a) from the checkout, print the build time and
+   each kernel's registers, and count the tensor-core instructions (HMMA)
+   in B3's tensor-core kernel with ``cuobjdump -sass``;
 2. hold each kernel of the paths (B1 int8 weight-only matmul, B2 decode
    attention, B3 prefill attention, B4 KV-cache write, B5 int4 weight-only
    matmul, B2' row decode attention, B6 uint8 normalise, B7 streaming sum)
    against its plain PyTorch version on the card, at the paths' shapes, with
-   the stated tolerance, and time both, with one PyTorch library call that
+   the stated tolerance (B2' also at kv_len 333 and 8192; B2' and B3 run
+   twice and must give the same bits), and time both, with one PyTorch
+   library call that
    computes the same function where there is one: device time (10 calls
    captured in a CUDA graph, replayed under CUDA events, median of 21
    replays), and the kernel's eager time per call (CUDA events around 10
    back-to-back calls, median of 21), which is the host's time where that is
    the longer; B7's times give the card's measured streaming bandwidth, and
-   every bound is printed again at that rate;
+   every bound is printed again at that rate.  B3's speculative verify chunk
+   (4 rows, ragged positions) and B2' at kv_len 8192 are path shapes of their
+   own, with their times and bounds under ``shapes`` in the summary;
 3. build Myriad at full width (EVA-ViT-g, Q-Former, ImageBind-huge,
    Vicuna-7B with int8 weights and an int8 KV cache, towers in bf16) with
    random weights drawn from --seed on the card, and run ``generate``
@@ -152,6 +158,26 @@ def _card() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def sass_count(lib_path, kernel: str, opcode: str):
+    """(count, first line) of ``opcode`` in the SASS of every instantiation
+    of ``kernel`` in the built library, from ``cuobjdump -sass``."""
+    from myriad_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {res.stderr.strip()}")
+    fn, count, first = "", 0, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[-1].strip()
+        elif kernel in fn and opcode in line:
+            count += 1
+            first = first or " ".join(line.split())
+    return count, first
+
+
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_S,
           bytes_s: float = PEAK_BYTES_S):
     """(ms, "bytes" or "operations"): the least time the card could take,
@@ -174,13 +200,18 @@ class Check:
         self.by_path = {}
         self.main = None  # (bytes, operations[, peak]) of the path's shape
         self.bound_measured_ms = None  # bytes at B7's measured bandwidth
+        self.shapes = []  # every path shape: its times and bound
 
-    def compare(self, label, kernel, plain, tol_of, *, outputs=None, main=None, library=None):
+    def compare(self, label, kernel, plain, tol_of, *, outputs=None, main=None, library=None,
+                shape=None, deterministic=False):
         """Check the kernel against its plain version and time both (and the
         library call, where given).  ``outputs`` returns the (kernel, plain)
         tensors to compare when the calls write in place; ``main`` =
         (bytes, operations[, peak]) marks the path's shape, which supplies
-        the JSON summary's times and bound."""
+        the JSON summary's times and bound; ``shape`` = (name, (bytes,
+        operations[, peak])) records a further path shape under ``shapes``.
+        ``deterministic``: a second call on the same inputs must give the
+        same bits."""
         import torch
 
         out, ref = kernel(), plain()
@@ -190,6 +221,7 @@ class Check:
         err = (out.float() - ref.float()).abs().max().item()
         tol = tol_of(ref)
         ok = bool(torch.isfinite(out.float()).all()) and err <= tol
+        same = torch.equal(out, kernel()) if deterministic else None
         self.max_err = max(self.max_err, err)
         eager_ms = _time_ms(kernel)
         ms, plain_ms = _device_ms(kernel), _device_ms(plain)
@@ -205,8 +237,20 @@ class Check:
             self.main = main
             self.bound_ms, self.bound_by = bound(*main)
             line += f" bound_ms={self.bound_ms:.6f} ({self.bound_by}) [path shape]"
+        name, work = shape if shape is not None else ("main", main)
+        if work is not None:
+            bms, by = bound(*work)
+            if shape is not None:
+                line += f" bound_ms={bms:.6f} ({by}) [path shape: {name}]"
+            self.shapes.append({"shape": name, "label": label, "ms": ms, "plain_ms": plain_ms,
+                                "library_ms": lib_ms, "eager_ms": eager_ms, "bound_ms": bms,
+                                "bound_by": by, "max_abs_err": err, "work": work})
+        if deterministic:
+            line += f" bit-identical across two runs: {same}"
+            ok = ok and same
         print(line + ("" if ok else "  FAILED"), flush=True)
-        check(ok, f"{self.name} {label}: kernel disagrees with its plain version")
+        check(ok, f"{self.name} {label}: kernel disagrees with its plain version"
+              + (" or with itself" if deterministic else ""))
 
     def record(self):
         return {"name": self.name, "route": "cuda", "source": self.source,
@@ -215,7 +259,8 @@ class Check:
                 "bound_ms": self.bound_ms, "bound_by": self.bound_by,
                 "library_ms": self.library_ms, "eager_ms": self.eager_ms,
                 "bound_ms_at_measured_bandwidth": self.bound_measured_ms,
-                "launches_by_path": self.by_path}
+                "launches_by_path": self.by_path,
+                "shapes": [{k: v for k, v in sh.items() if k != "work"} for sh in self.shapes]}
 
 
 def kernel_checks(dev, seed):
@@ -303,6 +348,8 @@ def kernel_checks(dev, seed):
 
     ragged = torch.tensor([297, 300, 310, 299, 305, 301, 296, 320], device=dev,
                           dtype=torch.int32)
+    print("B3: 16 rows or more on the tensor cores, fewer with the keys split over blocks; "
+          "the 4-row verify chunk with ragged positions is a path shape of its own")
     for tq, offset in ((297, 0), (33, 264), (7, 290), (SPEC_K + 1, None)):
         qq = randn(b, h, tq, d, dtype=bf16)
         start = ragged if offset is None else torch.full((b,), offset, device=dev,
@@ -310,23 +357,27 @@ def kernel_checks(dev, seed):
         pos = (start[:, None] + torch.arange(tq, device=dev, dtype=torch.int32)[None]
                ).contiguous()
         where = "ragged per-row positions" if offset is None else f"offset={offset}"
+        # what this run's data needs: each batch row's keys up to its last
+        # position, and each query's keys up to its own
+        row_keys = int((pos.max(dim=1).values.long() + 1).clamp(max=t).sum())
+        pairs = int((pos.long() + 1).clamp(max=t).sum()) * h
+        nbytes = 2 * b * h * tq * d * 2 + h * row_keys * (2 * d + 2 * 2) + b * tq * 4
+        cmask = causal_mask(pos, t).to(bf16)
         for label, kk, vv, kss, vss in (("int8", k8, v8, ks, vs),
                                         ("bf16", kbf, vbf, None, None)):
             args = dict(scale=d ** -0.5, k_scale=kss, v_scale=vss)
             is_main = label == "int8" and tq == 297
-            # what this run's data needs: each query sees keys <= its position
-            n_keys = min(t, int(pos.max()) + 1)
-            pairs = int((pos.long() + 1).clamp(max=t).sum()) * h
-            nbytes = (2 * b * h * tq * d * 2 + 2 * b * h * n_keys * d
-                      + 2 * b * h * n_keys * 2 + b * tq * 4)
-            cmask = causal_mask(pos, t).to(bf16)
+            is_verify = label == "int8" and offset is None
             b3.compare(f"{label} tq={tq} {where} Tk={t}",
                        lambda: pa.prefill_attention(qq, kk, vv, pos, **args),
                        lambda: pa.prefill_attention_plain(qq, kk, vv, pos, **args),
                        lambda ref: 2e-2,
                        library=(lambda: F.scaled_dot_product_attention(
-                           qq, kdq, vdq, attn_mask=cmask, scale=d ** -0.5)) if is_main else None,
-                       main=(nbytes, 4 * d * pairs) if is_main else None)
+                           qq, kdq, vdq, attn_mask=cmask, scale=d ** -0.5))
+                       if is_main or is_verify else None,
+                       main=(nbytes, 4 * d * pairs) if is_main else None,
+                       shape=("verify", (nbytes, 4 * d * pairs)) if is_verify else None,
+                       deterministic=True)
 
     # B4: per-row starts include two that clamp (413 and 1000 -> T - t)
     print("B4: bit-exact (tolerance 0): copy mode on an int8 payload, fp16 scales (D=1) "
@@ -389,14 +440,17 @@ def kernel_checks(dev, seed):
                        if is_main else None)
         del w_bf16
 
-    # B2': B2's shapes through the one-block-per-row kernel
+    # B2': B2's shapes, a kv_len that ends inside a key tile and a split, and
+    # a cache of 8192 positions
     print("B2': tolerance 2e-2 absolute, as B2; library: scaled_dot_product_attention on the "
           "cache dequantized to bf16")
+
+    def rows_bytes(n):
+        return 2 * b * h * d * 2 + 2 * b * h * n * d + 2 * b * h * n * 2 + b * n * 4
+
     for label, kk, vv, kss, vss in (("int8", k8, v8, ks, vs), ("bf16", kbf, vbf, None, None)):
         args = dict(mask=mask, scale=d ** -0.5, k_scale=kss, v_scale=vss, kv_len=kv_len)
         is_main = label == "int8"
-        nbytes = (2 * b * h * d * 2 + 2 * b * h * kv_len * d + 2 * b * h * kv_len * 2
-                  + b * kv_len * 4)
         b2r.compare(f"{label} B={b} H={h} T={t} kv_len={kv_len} D={d}",
                     lambda: da.decode_attention_rows(q1, kk, vv, **args),
                     lambda: da.decode_attention_rows_plain(q1, kk, vv, **args),
@@ -404,8 +458,31 @@ def kernel_checks(dev, seed):
                     library=(lambda: F.scaled_dot_product_attention(
                         q1, kdq_len, vdq_len, attn_mask=mask.to(bf16), scale=d ** -0.5))
                     if is_main else None,
-                    main=(nbytes, 4 * b * h * kv_len * d) if is_main else None)
+                    main=(rows_bytes(kv_len), 4 * b * h * kv_len * d) if is_main else None,
+                    deterministic=True)
+    n = 333
+    args = dict(mask=mask[..., :1].expand(b, 1, 1, n).contiguous(), scale=d ** -0.5,
+                k_scale=ks, v_scale=vs, kv_len=n)
+    b2r.compare(f"int8 B={b} H={h} T={t} kv_len={n} D={d}",
+                lambda: da.decode_attention_rows(q1, k8, v8, **args),
+                lambda: da.decode_attention_rows_plain(q1, k8, v8, **args),
+                lambda ref: 2e-2, deterministic=True)
     del kf, vf, kbf, vbf, kdq, vdq, k8, v8
+    n = 8192
+    kl8, kls = kw.quantize_kv(randn(b, h, n, d))
+    vl8, vls = kw.quantize_kv(randn(b, h, n, d))
+    kls, vls = kls.half(), vls.half()
+    kldq, vldq = (kl8.float() * kls.float()).to(bf16), (vl8.float() * vls.float()).to(bf16)
+    lmask = torch.zeros(b, 1, 1, n, device=dev)
+    args = dict(mask=lmask, scale=d ** -0.5, k_scale=kls, v_scale=vls, kv_len=n)
+    b2r.compare(f"int8 B={b} H={h} T={n} kv_len={n} D={d}",
+                lambda: da.decode_attention_rows(q1, kl8, vl8, **args),
+                lambda: da.decode_attention_rows_plain(q1, kl8, vl8, **args),
+                lambda ref: 2e-2,
+                library=lambda: F.scaled_dot_product_attention(
+                    q1, kldq, vldq, attn_mask=lmask.to(bf16), scale=d ** -0.5),
+                shape=(f"kv_len {n}", (rows_bytes(n), 4 * b * h * n * d)), deterministic=True)
+    del kl8, vl8, kldq, vldq
 
     # B6: the batch's images
     print("B6: bit-exact (tolerance 0: IEEE divisions on both sides); no library call "
@@ -449,6 +526,8 @@ def kernel_checks(dev, seed):
     checks = [b1, b2, b3, b4, b5, b2r, b6, b7]
     for c in checks:
         c.bound_measured_ms = bound(*c.main, bytes_s=measured)[0]
+        for sh in c.shapes:
+            sh["bound_ms_at_measured_bandwidth"] = bound(*sh["work"], bytes_s=measured)[0]
         print(f"  {c.name}: bound {c.bound_ms:.6f} ms at the data sheet's "
               f"{PEAK_BYTES_S / 1e12:.2f} TB/s, {c.bound_measured_ms:.6f} ms at the measured "
               f"{measured / 1e12:.4f} TB/s; kernel {c.ms:.4f} ms")
@@ -809,9 +888,11 @@ def _chat_delta_gate(chat, conv, img_list, llama, dev, seed):
 
 
 KERNEL_OF = {"int8_matmul": "B1", "decode_attention_kernel": "B2",
-             "prefill_attention_kernel": "B3", "kv_write_kernel": "B4",
+             "prefill_attention_tc_kernel": "B3", "prefill_attention_split_kernel": "B3",
+             "prefill_attention_merge_kernel": "B3", "kv_write_kernel": "B4",
              "kv_quantize_write_kernel": "B4", "int4_matmul": "B5",
-             "decode_attention_rows_kernel": "B2'"}
+             "decode_attention_rows_split_kernel": "B2'",
+             "decode_attention_rows_merge_kernel": "B2'"}
 
 
 def profile_generate(model, samples, card, wall_unprofiled, label):
@@ -1069,6 +1150,10 @@ def main(argv=None) -> int:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas: " + line.split("ptxas info    : ")[-1].strip())
+    hmma, first = sass_count(lib_path, "prefill_attention_tc_kernel", "HMMA")
+    print(f"  sass (cuobjdump -sass): {hmma} HMMA instructions in B3's "
+          f"prefill_attention_tc_kernel, all instantiations; first: {first}", flush=True)
+    check(hmma > 0, "B3's tensor-core kernel has no HMMA instruction")
 
     print("phase 2: kernels against their plain versions", flush=True)
     checks = kernel_checks(dev, args.seed)

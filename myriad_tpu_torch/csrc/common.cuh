@@ -58,4 +58,54 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float out[4]) {
   out[3] = __high2float(hi);
 }
 
+// 16-byte asynchronous copy from global to shared memory; with `valid`
+// false nothing is read and the 16 bytes are zero-filled.  Both addresses
+// must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+// Wait until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Combines the partial results of `splits` key splits of one attention row,
+// in split order, so that the result does not depend on how the blocks that
+// wrote them were scheduled.  Split s left m[s * stride] (its running max
+// score), l[s * stride] (the sum of exp(score - m)) and o + s * o_stride (its
+// unnormalised output row, D floats).  Writes
+//   out[d] = bf16(sum_s o_s[d] e^(m_s - M) / sum_s l_s e^(m_s - M)),  M = max_s m_s;
+// a split that saw no key has m = -inf and weighs nothing, and a row that saw
+// no key at all gets zeros when `zero_empty`.  The block's threads take the
+// dims.
+__device__ __forceinline__ void merge_splits(const float* m, const float* l, const float* o,
+                                             int splits, int stride, long long o_stride, int D,
+                                             bool zero_empty, __nv_bfloat16* out) {
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, m[s * stride]);
+  float den = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float ms = m[s * stride];
+    if (ms != -INFINITY) den += l[s * stride] * expf(ms - mx);
+  }
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float ms = m[s * stride];
+      if (ms != -INFINITY) acc += o[s * o_stride + d] * expf(ms - mx);
+    }
+    out[d] = __float2bfloat16(zero_empty && !(den > 0.f) ? 0.f : acc / den);
+  }
+}
+
 }  // namespace myriad

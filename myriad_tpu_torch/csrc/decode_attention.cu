@@ -1,5 +1,6 @@
 // Single-query attention over the KV cache for one decode step: kernel B2,
-// one block per (batch row, head), and kernel B2', one block per batch row.
+// one block per (batch row, head), and kernel B2', the same function split
+// over the cache positions (flash-decoding).
 //
 // Replaces myriad_tpu/ops/decode_attention.py::_decode_kernel, reached
 // through decode_attention -> _decode_attention_padded (pallas_call).  One
@@ -21,19 +22,23 @@
 // Kernel B2' replaces myriad_tpu/ops/decode_attention.py::_decode_rows_kernel
 // (decode_attention_rows -> _rows_local_call, pallas_call): the same math
 // with one program per batch row and all heads resident, which the TPU used
-// to turn many small per-(b, h) DMAs into two large ones.  On the card the
-// grid is one block per batch row: at batch 8 it fills 8 of 132 SMs, so it
-// is expected to be slower than B2; it is an opt-in dispatch
-// (MYRIAD_DECODE_ATTN=row), not the default.  Inside the block, warps take
-// heads in turn.  A warp's lanes each score their own positions (a whole K
-// row each, q broadcast from shared memory), so the scores need no
-// shuffles; the max and the denominator are warp reductions; for p.V each
-// lane owns 4 output dims and walks the positions, so a warp reads one V
-// row (128 bytes at int8, D = 128) per load.  Each warp keeps its kv_len
-// scores in shared memory: 8 warps x (kv_len + D) floats, which bounds
-// kv_len at about 7,000 (the wrapper refuses more).
+// to turn many small per-(b, h) DMAs into two large ones.  That reason does
+// not exist on the card, and one block per batch row left 124 of 132 SMs
+// idle at batch 8.  B2' is flash-decoding instead (split_attention.cuh):
+// the heads and the cache positions of each batch row are spread over
+// (split, head, batch row) blocks, enough of them to give every SM eight; each
+// block streams its positions through a two-stage shared-memory ring with
+// 16-byte cp.async loads (a whole int8 K row, D = 128, is 8 of them), keeps a
+// running max and sum, and writes its partial (m, l, o); a second launch
+// merges the splits in split order (myriad::merge_splits).  Bytes bound it,
+// as B2: 2 * kv_len * D cache bytes per (b, h).  A block keeps at most two
+// tiles in flight, which is what limits a long cache's streaming rate.
+// Shared memory holds two 64-position tiles, not the scores of the whole
+// cache, so B2' takes any kv_len.  It stays an opt-in dispatch
+// (MYRIAD_DECODE_ATTN=row).
 
 #include "common.cuh"
+#include "split_attention.cuh"
 
 namespace {
 
@@ -138,109 +143,56 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename KV>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_rows_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
-                             const KV* __restrict__ v, const __half* __restrict__ k_scale,
-                             const __half* __restrict__ v_scale, const float* __restrict__ mask,
-                             __nv_bfloat16* __restrict__ out, int H, int D, int kv_len,
-                             long long kv_sb, long long kv_sh, long long kv_st, long long sc_sb,
-                             long long sc_sh, long long sc_st, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* s = smem + (size_t)warp * (kv_len + D);  // this warp's scores
-  float* qs = s + kv_len;                          // and its query row
-  const float* mp = mask + (size_t)b * kv_len;
+// Blocks a B2' launch aims at, eight for each SM: one query row leaves a
+// block little work a tile, and on an H100 eight a SM ran faster than four
+// at batch 8 for kv_len 320 and 8192.
+constexpr int kRowsTargetBlocks = 8 * myriad::kSMs;
 
-  for (int h = warp; h < H; h += kWarps) {
-    const size_t row = (size_t)b * H + h;
-    for (int d = lane; d < D; d += 32) qs[d] = __bfloat162float(q[row * D + d]);
-    __syncwarp();
-    const KV* kp = k + b * kv_sb + h * kv_sh;
-    const KV* vp = v + b * kv_sb + h * kv_sh;
-    const __half* ksp = k_scale ? k_scale + b * sc_sb + h * sc_sh : nullptr;
-    const __half* vsp = v_scale ? v_scale + b * sc_sb + h * sc_sh : nullptr;
+template <typename KV, bool kVec>
+__global__ void __launch_bounds__(myriad::kSplitThreads)
+decode_attention_rows_split_kernel(const myriad::SplitArgs a) {
+  myriad::split_attention<KV, 1, false, kVec>(a);
+}
 
-    float mx = -INFINITY;
-    for (int t = lane; t < kv_len; t += 32) {
-      const KV* kr = kp + t * kv_st;
-      float acc = 0.f;
-      for (int d = 0; d < D; d += 4) {
-        float kv4[4];
-        myriad::load4(kr + d, kv4);
-        acc += qs[d] * kv4[0] + qs[d + 1] * kv4[1] + qs[d + 2] * kv4[2] + qs[d + 3] * kv4[3];
-      }
-      if (ksp) acc *= __half2float(ksp[t * sc_st]);
-      const float sv = acc * scale + mp[t];
-      s[t] = sv;
-      mx = fmaxf(mx, sv);
-    }
-    mx = myriad::warp_max(mx);
-
-    float denom = 0.f;
-    for (int t = lane; t < kv_len; t += 32) {
-      const float p = expf(s[t] - mx);
-      denom += p;
-      s[t] = vsp ? p * __half2float(vsp[t * sc_st]) : p;
-    }
-    denom = myriad::warp_sum(denom);
-    __syncwarp();  // every lane's probabilities are in s[]
-
-    const int d0 = lane * 4;
-    if (d0 < D) {
-      float o[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int t = 0; t < kv_len; ++t) {
-        const float p = s[t];
-        float vv[4];
-        myriad::load4(vp + t * kv_st + d0, vv);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[j] += p * vv[j];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[row * D + d0 + j] = __float2bfloat16(o[j] / denom);
-    }
-    __syncwarp();  // s[] and qs[] are rewritten for the warp's next head
-  }
+__global__ void __launch_bounds__(myriad::kSplitThreads)
+decode_attention_rows_merge_kernel(const myriad::SplitArgs a) {
+  myriad::merge_split_rows(a, false);
 }
 
 template <typename KV>
-int launch_rows(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                const void* mask, void* out, int B, int H, int D, int kv_len, long long kv_sb,
-                long long kv_sh, long long kv_st, long long sc_sb, long long sc_sh,
-                long long sc_st, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)kWarps * ((size_t)kv_len + D);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attention_rows_kernel<KV>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  decode_attention_rows_kernel<KV><<<B, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
-      static_cast<const __half*>(ks), static_cast<const __half*>(vs),
-      static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(out), H, D, kv_len, kv_sb,
-      kv_sh, kv_st, sc_sb, sc_sh, sc_st, scale);
-  return static_cast<int>(cudaGetLastError());
+int launch_rows(myriad::SplitArgs a, cudaStream_t stream) {
+  constexpr size_t smem = myriad::split_smem_bytes<KV, 1>();
+  const bool vec = myriad::vec_ok<KV>(a.k, a.v, a.D, a.kv_sb, a.kv_sh, a.kv_st);
+  return myriad::launch_split(vec ? &decode_attention_rows_split_kernel<KV, true>
+                                  : &decode_attention_rows_split_kernel<KV, false>,
+                              &decode_attention_rows_merge_kernel, smem, a, stream);
 }
 
 }  // namespace
 
-// Kernel B2': the arguments of myriad_decode_attention below, one block per
-// batch row; kWarps * (kv_len + D) floats of shared memory.
+// Floats of scratch kernel B2' needs for these widths (0: none).
+extern "C" long long myriad_decode_attention_rows_scratch(int B, int H, int D, int kv_len) {
+  return myriad::split_scratch_floats(B, H, 1, D, kv_len, kRowsTargetBlocks);
+}
+
+// Kernel B2': the arguments of myriad_decode_attention below, plus `scratch`
+// of myriad_decode_attention_rows_scratch floats (null when that is 0).
 extern "C" int myriad_decode_attention_rows(const void* q, const void* k, const void* v,
                                             const void* k_scale, const void* v_scale,
                                             const void* mask, void* out, int B, int H, int D,
                                             int kv_len, long long kv_sb, long long kv_sh,
                                             long long kv_st, long long sc_sb, long long sc_sh,
                                             long long sc_st, int kv_int8, float scale,
-                                            void* stream) {
+                                            void* scratch, void* stream) {
+  const myriad::SplitPlan plan = myriad::split_plan(B * H, kv_len, kRowsTargetBlocks);
+  myriad::SplitArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
+                      static_cast<const __half*>(k_scale), static_cast<const __half*>(v_scale),
+                      static_cast<const float*>(mask), nullptr,
+                      static_cast<__nv_bfloat16*>(out), static_cast<float*>(scratch),
+                      B, H, 1, D, kv_len, plan.splits, plan.keys_per_split,
+                      kv_sb, kv_sh, kv_st, sc_sb, sc_sh, sc_st, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_int8)
-    return launch_rows<int8_t>(q, k, v, k_scale, v_scale, mask, out, B, H, D, kv_len, kv_sb,
-                               kv_sh, kv_st, sc_sb, sc_sh, sc_st, scale, s);
-  return launch_rows<__nv_bfloat16>(q, k, v, k_scale, v_scale, mask, out, B, H, D, kv_len,
-                                    kv_sb, kv_sh, kv_st, sc_sb, sc_sh, sc_st, scale, s);
+  return kv_int8 ? launch_rows<int8_t>(a, s) : launch_rows<__nv_bfloat16>(a, s);
 }
 
 // q (B, H, 1, D) bf16 contiguous; k, v (B, H, T, D) int8 or bf16 with element

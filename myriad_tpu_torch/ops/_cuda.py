@@ -12,6 +12,7 @@ tests import every module, and only a CUDA tensor reaches ``library()``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,10 +40,12 @@ _SIGNATURES = {
     "myriad_int4_matmul": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "myriad_decode_attention": (
         [_P] * 7 + [_I] * 4 + [_L] * 6 + [_I, _F, _P], _I),
+    "myriad_decode_attention_rows_scratch": ([_I] * 4, _L),
     "myriad_decode_attention_rows": (
-        [_P] * 7 + [_I] * 4 + [_L] * 6 + [_I, _F, _P], _I),
+        [_P] * 7 + [_I] * 4 + [_L] * 6 + [_I, _F, _P, _P], _I),
+    "myriad_prefill_attention_scratch": ([_I] * 5, _L),
     "myriad_prefill_attention": (
-        [_P] * 7 + [_I] * 5 + [_L] * 6 + [_I, _F, _P], _I),
+        [_P] * 7 + [_I] * 5 + [_L] * 6 + [_I, _F, _P, _P], _I),
     "myriad_kv_write": ([_P] * 3 + [_I] * 6 + [_L] * 6 + [_P], _I),
     "myriad_kv_quantize_write": ([_P] * 7 + [_I] * 6 + [_L] * 9 + [_P], _I),
     "myriad_u8_normalize": ([_P, _P, _L, _F, _F, _F, _F, _F, _F, _I, _P], _I),
@@ -127,6 +130,13 @@ def library() -> ctypes.CDLL:
                 fn.restype = res
             _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=256)
+def scratch_floats(entry: str, *widths: int) -> int:
+    """Floats of scratch a kernel's C entry point asks for at these widths
+    (cached: a decode loop asks for the same widths every step)."""
+    return getattr(library(), entry)(*widths)
 
 
 def check(err: int, what: str) -> None:

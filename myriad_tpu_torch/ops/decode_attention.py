@@ -4,9 +4,10 @@
 ``decode_attention`` launches kernel B2 (``csrc/decode_attention.cu``, one
 block per (batch row, head)) for a CUDA tensor and takes
 ``decode_attention_plain`` for a CPU tensor.  ``decode_attention_rows`` is
-the same function through kernel B2' (one block per batch row, all heads in
-it), the opt-in ``MYRIAD_DECODE_ATTN=row`` dispatch of ``ops/attention.py``;
-its plain version is ``decode_attention_rows_plain``.  All read only the
+the same function through kernel B2' (the cache positions of every (batch
+row, head) split over blocks, then a fixed-order merge; any cache length),
+the opt-in ``MYRIAD_DECODE_ATTN=row`` dispatch of ``ops/attention.py``; its
+plain version is ``decode_attention_rows_plain``.  All read only the
 first ``kv_len`` cache positions, which is how a staged decode step skips
 the cache's unwritten tail without a slice copy.
 
@@ -30,8 +31,6 @@ from myriad_tpu_torch.ops.attention import plain_mha
 counter = _cuda.LaunchCounter("decode_attention")
 counter_rows = _cuda.LaunchCounter("decode_attention_rows")
 MAX_HEAD_DIM = 128
-ROWS_WARPS = 8  # warps of a B2' block (csrc/decode_attention.cu kThreads / 32)
-MAX_SHARED = 232448  # shared memory a block can use on sm_90, bytes
 
 
 def decode_attention_plain(q, k, v, *, mask=None, scale=None, k_scale=None,
@@ -58,10 +57,10 @@ decode_attention_rows_plain = decode_attention_plain
 
 
 def rows_supported(kv_len: int, d: int) -> bool:
-    """Whether kernel B2' takes this width: each of its 8 warps keeps
-    kv_len scores and a query row in shared memory (at most 227 KB a
-    block), and D is at most 128 and a multiple of 4, as for B2."""
-    return d % 4 == 0 and d <= MAX_HEAD_DIM and 4 * ROWS_WARPS * (kv_len + d) <= MAX_SHARED
+    """Whether kernel B2' takes this width: D at most 128 and a multiple of
+    4, as for B2.  Any ``kv_len``: the kernel streams the cache through
+    fixed-size tiles."""
+    return d % 4 == 0 and d <= MAX_HEAD_DIM
 
 
 def decode_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -69,8 +68,8 @@ def decode_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           k_scale: Optional[torch.Tensor] = None,
                           v_scale: Optional[torch.Tensor] = None,
                           kv_len: Optional[int] = None) -> torch.Tensor:
-    """``decode_attention`` through kernel B2' (one block per batch row) on
-    the card; raises where ``rows_supported`` is False, on the CPU too."""
+    """``decode_attention`` through kernel B2' (positions split over blocks)
+    on the card; raises where ``rows_supported`` is False, on the CPU too."""
     return _decode(q, k, v, mask, scale, k_scale, v_scale, kv_len, rows=True)
 
 
@@ -82,8 +81,7 @@ def _decode(q, k, v, mask, scale, k_scale, v_scale, kv_len, rows: bool) -> torch
     t = kv_len if kv_len is not None else k.shape[2]
     _cuda.require(1 <= t <= k.shape[2], f"kv_len {t} outside the cache's {k.shape[2]}")
     _cuda.require(not rows or rows_supported(t, d),
-                  f"kernel B2' takes D <= {MAX_HEAD_DIM}, a multiple of 4, and at most "
-                  f"{MAX_SHARED // (4 * ROWS_WARPS) - d} positions; got kv_len={t}, D={d}")
+                  f"kernel B2' takes D <= {MAX_HEAD_DIM}, a multiple of 4; got D={d}")
     scale = scale if scale is not None else d ** -0.5
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, mask=mask, scale=scale, k_scale=k_scale,
@@ -120,13 +118,18 @@ def _decode(q, k, v, mask, scale, k_scale, v_scale, kv_len, rows: bool) -> torch
     out = torch.empty_like(q)
     sc = k_scale.stride() if quant else (0, 0, 0, 0)
     lib = _cuda.library()
-    launch = lib.myriad_decode_attention_rows if rows else lib.myriad_decode_attention
-    err = launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-        mask.data_ptr(), out.data_ptr(), b, h, d, t,
-        k.stride(0), k.stride(1), k.stride(2), sc[0], sc[1], sc[2],
-        int(quant), float(scale), _cuda.stream_ptr(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+            mask.data_ptr(), out.data_ptr(), b, h, d, t,
+            k.stride(0), k.stride(1), k.stride(2), sc[0], sc[1], sc[2],
+            int(quant), float(scale))
+    if rows:  # the splits' partial rows
+        n = _cuda.scratch_floats("myriad_decode_attention_rows_scratch", b, h, d, t)
+        scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+        err = lib.myriad_decode_attention_rows(
+            *args, scratch.data_ptr() if n else None, _cuda.stream_ptr(q.device))
+    else:
+        err = lib.myriad_decode_attention(*args, _cuda.stream_ptr(q.device))
     _cuda.check(err, "decode_attention_rows" if rows else "decode_attention")
     (counter_rows if rows else counter).count += 1
     return out

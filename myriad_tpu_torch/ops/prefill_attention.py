@@ -1,8 +1,10 @@
 """Causal attention of a prefill chunk over the KV cache (counterpart of
 ``myriad_tpu/ops/prefill_attention.py``).
 
-``prefill_attention`` launches kernel B3 (``csrc/prefill_attention.cu``) for
-a CUDA tensor and takes ``prefill_attention_plain`` for a CPU tensor.
+``prefill_attention`` launches kernel B3 (``csrc/prefill_attention.cu``: on
+the tensor cores for a chunk of 16 rows or more, keys split over blocks and
+merged in a fixed order below that) for a CUDA tensor and takes
+``prefill_attention_plain`` for a CPU tensor.
 Causality comes from absolute query ``positions`` (key <= position), so a
 later chunk sees the earlier chunks in the cache and slots at or past the
 write frontier are excluded.  The kernel serves any chunk length and any
@@ -69,12 +71,16 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     sc = k_scale.stride() if quant else (0, 0, 0, 0)
     lib = _cuda.library()
+    # a short chunk's key splits
+    n = _cuda.scratch_floats("myriad_prefill_attention_scratch", b, h, tq, tk, d)
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     err = lib.myriad_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
         pos.data_ptr(), out.data_ptr(), b, h, tq, tk, d,
         k.stride(0), k.stride(1), k.stride(2), sc[0], sc[1], sc[2],
-        int(quant), float(scale), _cuda.stream_ptr(q.device))
+        int(quant), float(scale), scratch.data_ptr() if n else None,
+        _cuda.stream_ptr(q.device))
     _cuda.check(err, "prefill_attention")
     counter.count += 1
     return out

@@ -117,8 +117,11 @@ def test_mha_routes_by_decode_attn_mode(monkeypatch):
         attention.mha(wide, torch.randn(b, h, t, 256), torch.randn(b, h, t, 256))
 
 
-def test_rows_supported_bounds_shared_memory():
-    """8 warps x (kv_len + D) fp32 scores and query in at most 227 KB."""
+def test_rows_supported_takes_any_length():
+    """B2' streams the cache through fixed-size tiles, so only the head dim
+    gates it (at most 128, a multiple of 4), as for B2."""
     assert da.rows_supported(416, 128) and da.rows_supported(4096, 128)
-    assert da.rows_supported(7136, 128) and not da.rows_supported(7137, 128)
+    assert da.rows_supported(7137, 128) and da.rows_supported(65536, 128)
+    assert da.rows_supported(1, 4) and da.rows_supported(8192, 40)
     assert not da.rows_supported(416, 130) and not da.rows_supported(416, 256)
+    assert not da.rows_supported(416, 42)

@@ -240,28 +240,86 @@ def test_int4_matmul_refuses_what_it_does_not_take(dev):
                                       w4[:, :38].contiguous(), s4[:, :38].contiguous())
 
 
-@pytest.mark.parametrize("int8", [True, False])
-@pytest.mark.parametrize("kv_len", [320, 416, 37])
-def test_decode_attention_rows_kernel_matches_plain(dev, int8, kv_len):
-    g = torch.Generator(device=dev).manual_seed(5)
-    b, h, t, d = 8, 32, 416, 128
+def _rows_case(dev, int8, kv_len, seed=5, d=128):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, t = 8, 32, max(416, kv_len)
     q = torch.randn(b, h, 1, d, generator=g, device=dev).to(torch.bfloat16)
     k, v, ks, vs = _cache(dev, g, b, h, t, d, int8)
-    mask = torch.where(torch.arange(kv_len, device=dev) <= min(300, kv_len - 5), 0.0, -1e9)
+    frontier = max(0, min(300, kv_len - 5))
+    mask = torch.where(torch.arange(kv_len, device=dev) <= frontier, 0.0, -1e9)
     mask = mask[None, None, None].expand(b, 1, 1, kv_len)
-    args = dict(mask=mask, k_scale=ks, v_scale=vs, kv_len=kv_len)
+    return q, k, v, dict(mask=mask, k_scale=ks, v_scale=vs, kv_len=kv_len)
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("kv_len", [1, 37, 320, 416, 8192])
+def test_decode_attention_rows_kernel_matches_plain(dev, int8, kv_len):
+    """Any cache length: 8192 is past what the one-block-per-row design held
+    in shared memory; 37 and 320 end inside a key tile and a split."""
+    q, k, v, args = _rows_case(dev, int8, kv_len)
     before = da.counter_rows.count
     out = da.decode_attention_rows(q, k, v, **args)
     assert da.counter_rows.count == before + 1
     ref = da.decode_attention_rows_plain(q, k, v, **args)
     assert (out.float() - ref.float()).abs().max().item() <= BF16_ATOL
-    with pytest.raises(ValueError):  # more scores than a block's shared memory holds
-        da.decode_attention_rows(q, torch.zeros(b, h, 8192, d, dtype=k.dtype, device=dev),
-                                 torch.zeros(b, h, 8192, d, dtype=k.dtype, device=dev),
-                                 k_scale=None if ks is None else torch.zeros(
-                                     b, h, 8192, 1, dtype=ks.dtype, device=dev),
-                                 v_scale=None if vs is None else torch.zeros(
-                                     b, h, 8192, 1, dtype=vs.dtype, device=dev))
+
+
+@pytest.mark.parametrize("kv_len", [320, 8192])
+def test_decode_attention_rows_kernel_deterministic(dev, kv_len):
+    """The splits merge in a fixed order: two runs give the same bits."""
+    q, k, v, args = _rows_case(dev, True, kv_len)
+    first = da.decode_attention_rows(q, k, v, **args)
+    assert torch.equal(first, da.decode_attention_rows(q, k, v, **args))
+
+
+def _chunk_case(dev, tq, tk, int8, seed=8, d=128):
+    """Ragged per-row positions: row 0 starts at position 0 (its first query
+    sees one key), the others end inside a key tile or at the cache's end."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h = 4, 8
+    q = torch.randn(b, h, tq, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v, ks, vs = _cache(dev, g, b, h, tk, d, int8)
+    starts = torch.tensor([0, 61, min(130, tk - tq), tk - tq], device=dev, dtype=torch.int32)
+    pos = starts[:, None] + torch.arange(tq, device=dev, dtype=torch.int32)[None, :]
+    return q, k, v, pos, dict(scale=d ** -0.5, k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("tk", [416, 1024])
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("tq", [1, 4, 7, 15, 16, 17, 33, 64, 65, 297])
+def test_prefill_attention_kernel_any_chunk(dev, tq, int8, tk):
+    """Both regimes of B3 (key splits below 16 rows, tensor cores from 16)
+    at the chunk lengths around their edges."""
+    q, k, v, pos, args = _chunk_case(dev, tq, tk, int8)
+    before = pa.counter.count
+    out = pa.prefill_attention(q, k, v, pos, **args)
+    assert pa.counter.count == before + 1
+    ref = pa.prefill_attention_plain(q, k, v, pos, **args)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_ATOL
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("d", [40, 72])
+def test_attention_kernels_narrow_heads(dev, d, int8):
+    """Head dims below 128, the columns past D read as zeros: int8 rows of 40
+    and 72 bytes take the element-wise staging, bf16 rows of 80 and 144
+    bytes the 16-byte copies."""
+    for tq in (4, 33):
+        q, k, v, pos, args = _chunk_case(dev, tq, 416, int8, d=d)
+        out = pa.prefill_attention(q, k, v, pos, **args)
+        ref = pa.prefill_attention_plain(q, k, v, pos, **args)
+        assert (out.float() - ref.float()).abs().max().item() <= BF16_ATOL, tq
+    q, k, v, args = _rows_case(dev, int8, 333, d=d)
+    out = da.decode_attention_rows(q, k, v, **args)
+    ref = da.decode_attention_rows_plain(q, k, v, **args)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_ATOL
+
+
+@pytest.mark.parametrize("tq", [4, 297])
+def test_prefill_attention_kernel_deterministic(dev, tq):
+    q, k, v, pos, args = _chunk_case(dev, tq, 416, True)
+    first = pa.prefill_attention(q, k, v, pos, **args)
+    assert torch.equal(first, pa.prefill_attention(q, k, v, pos, **args))
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
