@@ -7,29 +7,34 @@ Phases, each printing its own lines:
 
 1. build the CUDA kernels (myriad_tpu_torch/csrc, one nvcc per source, all
    started together, sm_90a) from the checkout, print the build time and
-   each kernel's registers, and count the tensor-core instructions (HMMA)
-   in B3's tensor-core kernel with ``cuobjdump -sass``;
+   each kernel's registers, count the tensor-core instructions (HMMA)
+   in B3's tensor-core kernel with ``cuobjdump -sass``, and report B2's
+   cluster launch at the paths' shapes (registers, splits, shared memory,
+   and how many clusters the card holds at once);
 2. hold each kernel of the paths (B1 int8 weight-only matmul, B2 decode
    attention, B3 prefill attention, B4 KV-cache write, B5 int4 weight-only
    matmul, B2' row decode attention, B6 uint8 normalise, B7 streaming sum)
    against its plain PyTorch version on the card, at the paths' shapes, with
-   the stated tolerance (B2' also at kv_len 333 and 8192; B2' and B3 run
-   twice and must give the same bits), and time both, with one PyTorch
-   library call that
-   computes the same function where there is one: device time (10 calls
+   the stated tolerance (B2 also at kv_len 333, at batch 1 at a chat turn's
+   kv_len, and at kv_len 8192 at batch 8 and 1; B2' also at kv_len 333 and
+   8192; B2, B2' and B3 run twice and must give the same bits), and time
+   both, with one PyTorch library call that computes the same function
+   where there is one: device time (10 calls
    captured in a CUDA graph, replayed under CUDA events, median of 21
    replays), and the kernel's eager time per call (CUDA events around 10
    back-to-back calls, median of 21), which is the host's time where that is
    the longer; B7's times give the card's measured streaming bandwidth, and
    every bound is printed again at that rate.  B3's speculative verify chunk
-   (4 rows, ragged positions) and B2' at kv_len 8192 are path shapes of their
-   own, with their times and bounds under ``shapes`` in the summary;
+   (4 rows, ragged positions), B1 and B5 at the verify round's 32 rows, and
+   B2 and B2' at kv_len 8192 are path shapes of their own, with their times
+   and bounds under ``shapes`` in the summary;
 3. build Myriad at full width (EVA-ViT-g, Q-Former, ImageBind-huge,
    Vicuna-7B with int8 weights and an int8 KV cache, towers in bf16) with
    random weights drawn from --seed on the card, and run ``generate``
    (zero-shot maps, greedy, 90 new tokens) on 8 uint8 224x224 images and the
    AQA question; check the tokens, the maps and that every kernel of the path
-   was launched; compare the prefill logits with the plain path's;
+   was launched; compare the prefill logits with the plain path's; profile
+   one more generate (device time by kernel, the device's busy share);
 4. speculative generate at full width (``llm_spec_k`` = 3, batch 8, 90 new
    tokens): with the prompt-lookup drafts through ``Myriad.generate``, with
    the greedy transcript of phase 3 as oracle drafts, and with the lookup
@@ -82,6 +87,8 @@ NEW_TOKENS = 90
 SERVING = {"arch_preset": "full", "llm_weight_dtype": "int8", "llm_kv_dtype": "int8",
            "end_sym": "###"}
 SPEC_K = 3
+VERIFY_ROWS = BATCH * (SPEC_K + 1)  # rows of a verify round's projections
+CHAT_KV_LEN = 512  # a chat turn's decode reads its 256-position cache bucket
 CHAT_QUESTIONS = ["Is there any defect in this image?", "Where is it?",
                   "How severe is it, and what caused it?"]
 CHAT_TOKENS = 32
@@ -176,6 +183,30 @@ def sass_count(lib_path, kernel: str, opcode: str):
             count += 1
             first = first or " ".join(line.split())
     return count, first
+
+
+def cluster_launch_report(lib_path) -> None:
+    """Phase 1's lines on B2's cluster launch: ptxas's report (registers,
+    barriers) of each instantiation, and at the paths' shapes the splits
+    (blocks of a cluster), a block's dynamic shared memory and how many such
+    clusters the card holds at once."""
+    from myriad_tpu_torch.ops import decode_attention as da
+
+    entry = ""
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif "Used" in line and "decode_attention_cluster_kernel" in entry:
+            print(f"  B2 {entry.split(chr(39))[1]}: {line.split('ptxas info    : ')[-1].strip()}")
+    for rows, kv_len in ((BATCH, 320), (1, CHAT_KV_LEN), (BATCH, 8192), (1, 8192), (BATCH, 64)):
+        plan = da.cluster_launch(rows, 32, kv_len)
+        blocks = plan["splits"] * 32 * rows
+        print(f"  B2 launch at B={rows} H=32 kv_len={kv_len} int8: grid ({plan['splits']}, 32, "
+              f"{rows}) = {blocks} blocks of 128 threads, cluster ({plan['splits']}, 1, 1); "
+              f"dynamic shared memory {plan['smem']} B a block; the card holds "
+              f"{plan['clusters']} such clusters at once", flush=True)
+        check(plan["splits"] == 1 or plan["clusters"] > 0,
+              f"the card holds no cluster of B2 at B={rows}, kv_len={kv_len}")
 
 
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_S,
@@ -309,12 +340,14 @@ def kernel_checks(dev, seed):
         for m in (1, 8, 32, 48):
             x = randn(m, k, dtype=bf16)
             is_main = m == BATCH and (k, n) == (4096, 11008)
+            is_verify = m == VERIFY_ROWS and (k, n) == (4096, 11008)
+            work = (m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n)
             b1.compare(f"M={m} {k}x{n}", lambda: quant.int8_weight_only_matmul(x, w8, scale),
                        lambda: quant.int8_weight_only_matmul_plain(x, w8, scale),
                        lambda ref: 2.0 ** -7 * ref.float().abs().max().item(),
                        library=lambda: torch.matmul(x, w_bf16),
-                       main=(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n)
-                       if is_main else None)
+                       main=work if is_main else None,
+                       shape=(f"M={m} (verify rows)", work) if is_verify else None)
 
     b, h, t, d = BATCH, 32, 416, 128
     kv_len, frontier = 320, 300
@@ -332,11 +365,17 @@ def kernel_checks(dev, seed):
     mask = torch.where(kpos <= frontier, 0.0, -1e9).float()[None, None, None].expand(
         b, 1, 1, kv_len).contiguous()
     kdq_len, vdq_len = kdq[:, :, :kv_len].contiguous(), vdq[:, :, :kv_len].contiguous()
+
+    def decode_bytes(rows, n):
+        """Bytes of one int8 decode call: q and out, K and V of n positions
+        with their fp16 scales, and the fp32 mask, for `rows` batch rows."""
+        return 2 * rows * h * d * 2 + 2 * rows * h * n * d + 2 * rows * h * n * 2 + rows * n * 4
+
+    print("B2: one launch, the splits of each (b, h) one thread-block cluster merged in "
+          "distributed shared memory; runs twice and must give the same bits")
     for label, kk, vv, kss, vss in (("int8", k8, v8, ks, vs), ("bf16", kbf, vbf, None, None)):
         args = dict(mask=mask, scale=d ** -0.5, k_scale=kss, v_scale=vss, kv_len=kv_len)
         is_main = label == "int8"
-        nbytes = (2 * b * h * d * 2 + 2 * b * h * kv_len * d + 2 * b * h * kv_len * 2
-                  + b * kv_len * 4)
         b2.compare(f"{label} B={b} H={h} T={t} kv_len={kv_len} D={d}",
                    lambda: da.decode_attention(q1, kk, vv, **args),
                    lambda: da.decode_attention_plain(q1, kk, vv, **args),
@@ -344,7 +383,15 @@ def kernel_checks(dev, seed):
                    library=(lambda: F.scaled_dot_product_attention(
                        q1, kdq_len, vdq_len, attn_mask=mask.to(bf16), scale=d ** -0.5))
                    if is_main else None,
-                   main=(nbytes, 4 * b * h * kv_len * d) if is_main else None)
+                   main=(decode_bytes(b, kv_len), 4 * b * h * kv_len * d) if is_main else None,
+                   deterministic=True)
+    n = 333  # ends inside a key tile and inside a split
+    args = dict(mask=mask[..., :1].expand(b, 1, 1, n).contiguous(), scale=d ** -0.5,
+                k_scale=ks, v_scale=vs, kv_len=n)
+    b2.compare(f"int8 B={b} H={h} T={t} kv_len={n} D={d}",
+               lambda: da.decode_attention(q1, k8, v8, **args),
+               lambda: da.decode_attention_plain(q1, k8, v8, **args),
+               lambda ref: 2e-2, deterministic=True)
 
     ragged = torch.tensor([297, 300, 310, 299, 305, 301, 296, 320], device=dev,
                           dtype=torch.int32)
@@ -429,24 +476,23 @@ def kernel_checks(dev, seed):
     for k, n in ((4096, 11008), (11008, 4096)):
         w4, s4 = quant.quantize_int4_grouped(randn(k, n) * 0.02)
         w_bf16 = quant.dequant_int4(w4, s4).to(bf16)
-        for m in (1, BATCH, BATCH * (SPEC_K + 1)):
+        for m in (1, BATCH, VERIFY_ROWS):
             x = randn(m, k, dtype=bf16)
             is_main = m == BATCH and (k, n) == (4096, 11008)
+            is_verify = m == VERIFY_ROWS and (k, n) == (4096, 11008)
+            work = (m * k * 2 + k * n // 2 + s4.numel() * 4 + m * n * 2, 2 * m * k * n)
             b5.compare(f"M={m} {k}x{n}", lambda: quant.int4_weight_only_matmul(x, w4, s4),
                        lambda: quant.int4_weight_only_matmul_plain(x, w4, s4),
                        lambda ref: 2.0 ** -7 * ref.float().abs().max().item(),
                        library=lambda: torch.matmul(x, w_bf16),
-                       main=(m * k * 2 + k * n // 2 + s4.numel() * 4 + m * n * 2, 2 * m * k * n)
-                       if is_main else None)
+                       main=work if is_main else None,
+                       shape=(f"M={m} (verify rows)", work) if is_verify else None)
         del w_bf16
 
     # B2': B2's shapes, a kv_len that ends inside a key tile and a split, and
     # a cache of 8192 positions
     print("B2': tolerance 2e-2 absolute, as B2; library: scaled_dot_product_attention on the "
           "cache dequantized to bf16")
-
-    def rows_bytes(n):
-        return 2 * b * h * d * 2 + 2 * b * h * n * d + 2 * b * h * n * 2 + b * n * 4
 
     for label, kk, vv, kss, vss in (("int8", k8, v8, ks, vs), ("bf16", kbf, vbf, None, None)):
         args = dict(mask=mask, scale=d ** -0.5, k_scale=kss, v_scale=vss, kv_len=kv_len)
@@ -458,7 +504,7 @@ def kernel_checks(dev, seed):
                     library=(lambda: F.scaled_dot_product_attention(
                         q1, kdq_len, vdq_len, attn_mask=mask.to(bf16), scale=d ** -0.5))
                     if is_main else None,
-                    main=(rows_bytes(kv_len), 4 * b * h * kv_len * d) if is_main else None,
+                    main=(decode_bytes(b, kv_len), 4 * b * h * kv_len * d) if is_main else None,
                     deterministic=True)
     n = 333
     args = dict(mask=mask[..., :1].expand(b, 1, 1, n).contiguous(), scale=d ** -0.5,
@@ -481,7 +527,34 @@ def kernel_checks(dev, seed):
                 lambda ref: 2e-2,
                 library=lambda: F.scaled_dot_product_attention(
                     q1, kldq, vldq, attn_mask=lmask.to(bf16), scale=d ** -0.5),
-                shape=(f"kv_len {n}", (rows_bytes(n), 4 * b * h * n * d)), deterministic=True)
+                shape=(f"kv_len {n}", (decode_bytes(b, n), 4 * b * h * n * d)),
+                deterministic=True)
+    # B2 on the same long cache, at batch 8 and at batch 1 (where the cluster
+    # caps the splits at 8; B2' beside it), and at batch 1 at a chat turn's
+    # kv_len, the positions read through the cache's strides
+    print("B2 on a cache of 8192 positions, at batch 8 and 1, and at batch 1 at a chat "
+          "turn's kv_len; B2' beside it at batch 1, 8192; library: SDPA on the cache "
+          "dequantized to bf16")
+    for rows, kv in ((b, n), (1, n), (1, CHAT_KV_LEN)):
+        qq, kk, vv, kss, vss = q1[:rows], kl8[:rows], vl8[:rows], kls[:rows], vls[:rows]
+        mk = lmask[:rows, ..., :kv].contiguous()
+        kdq_kv, vdq_kv = kldq[:rows, :, :kv].contiguous(), vldq[:rows, :, :kv].contiguous()
+        args = dict(mask=mk, scale=d ** -0.5, k_scale=kss, v_scale=vss, kv_len=kv)
+        work = (decode_bytes(rows, kv), 4 * rows * h * kv * d)
+        where = "chat turn" if kv == CHAT_KV_LEN else f"kv_len {kv}"
+        b2.compare(f"int8 B={rows} H={h} T={n} kv_len={kv} D={d}",
+                   lambda: da.decode_attention(qq, kk, vv, **args),
+                   lambda: da.decode_attention_plain(qq, kk, vv, **args),
+                   lambda ref: 2e-2,
+                   library=lambda: F.scaled_dot_product_attention(
+                       qq, kdq_kv, vdq_kv, attn_mask=mk.to(bf16), scale=d ** -0.5),
+                   shape=(f"batch {rows}, {where}", work), deterministic=True)
+        if rows == 1 and kv == n:
+            b2r.compare(f"int8 B=1 H={h} T={n} kv_len={n} D={d}",
+                        lambda: da.decode_attention_rows(qq, kk, vv, **args),
+                        lambda: da.decode_attention_rows_plain(qq, kk, vv, **args),
+                        lambda ref: 2e-2, shape=(f"batch 1, kv_len {n}", work),
+                        deterministic=True)
     del kl8, vl8, kldq, vldq
 
     # B6: the batch's images
@@ -716,6 +789,7 @@ def full_slice(dev, seed, checks, card):
           f"one run) against the kernels' {BATCH / wall:.4f}")
     print(f"greedy tokens identical to the plain path's: {same:.4f} of {tokens.numel()} "
           f"(reported, not required: random weights leave thin argmax margins)")
+    profile_generate(model, samples, card, wall, "greedy generate (int8)")
     return model, samples, tokens, embeds
 
 
@@ -887,7 +961,7 @@ def _chat_delta_gate(chat, conv, img_list, llama, dev, seed):
         check(err <= 2.0 * floor, "chat turn 2: delta prefill disagrees with a full re-prefill")
 
 
-KERNEL_OF = {"int8_matmul": "B1", "decode_attention_kernel": "B2",
+KERNEL_OF = {"int8_matmul": "B1", "decode_attention_cluster_kernel": "B2",
              "prefill_attention_tc_kernel": "B3", "prefill_attention_split_kernel": "B3",
              "prefill_attention_merge_kernel": "B3", "kv_write_kernel": "B4",
              "kv_quantize_write_kernel": "B4", "int4_matmul": "B5",
@@ -1154,6 +1228,7 @@ def main(argv=None) -> int:
     print(f"  sass (cuobjdump -sass): {hmma} HMMA instructions in B3's "
           f"prefill_attention_tc_kernel, all instantiations; first: {first}", flush=True)
     check(hmma > 0, "B3's tensor-core kernel has no HMMA instruction")
+    cluster_launch_report(lib_path)
 
     print("phase 2: kernels against their plain versions", flush=True)
     checks = kernel_checks(dev, args.seed)

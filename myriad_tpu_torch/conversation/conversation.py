@@ -196,11 +196,14 @@ class Chat:
 
     def _spec_k(self, cfg: GenerationConfig) -> int:
         """This turn's speculation depth: the Chat's override or the model's
-        knob, on greedy turns only."""
+        knob, on greedy turns only.  As in the JAX package, a turn that
+        samples with ``top_p <= 0.01`` counts as greedy here, whatever its
+        temperature."""
         k = self.spec_k
         if k is None:
             k = int(getattr(self.model, "spec_k", 0) or 0)
-        return k if k >= 1 and not cfg.do_sample else 0
+        greedy = (not cfg.do_sample) or cfg.top_p <= 0.01
+        return k if k >= 1 and greedy else 0
 
     @torch.inference_mode()
     def answer(self, conv: Conversation, img_list: List, max_new_tokens: int = 300,
@@ -210,11 +213,8 @@ class Chat:
                                do_sample=kwargs.get("do_sample", False),
                                top_p=kwargs.get("top_p", 0.9),
                                temperature=kwargs.get("temperature", 1.0))
-        if cfg.do_sample and cfg.top_p <= 0.01 and cfg.temperature <= 1.0:
-            # the reference's shipped kwargs are greedy in effect (as in
-            # Myriad.generate)
-            cfg = dataclasses.replace(cfg, do_sample=False)
-        if cfg.do_sample:
+        if cfg.do_sample and not (self.incremental and self._spec_k(cfg)):
+            # only speculation turns a sampled turn greedy (_spec_k)
             raise NotImplementedError("top-p sampling is not ported; greedy only")
         if self.incremental:
             units, _ = self._context_units(conv, img_list)
@@ -264,7 +264,8 @@ class Chat:
             lookup = torch.tensor([text_ids + [-3] * (width - len(text_ids))],
                                   dtype=torch.int64, device=self.model.device)
             tokens, self._cache = speculative_generate(
-                llama, delta, config=cfg, spec_k=spec_k, lookup_ids=lookup,
+                llama, delta, config=dataclasses.replace(cfg, do_sample=False),
+                spec_k=spec_k, lookup_ids=lookup,
                 cache=self._cache, return_cache=True)
         else:
             tokens, self._cache = continue_generate(llama, delta, self._cache, config=cfg)

@@ -15,9 +15,13 @@
 //   p.V      warp w takes 16 keys of the tile, each lane 4 output dims, for
 //            every row; the rows' accumulators stay in registers.
 // At the end the four warps' rows are summed in a fixed order.  With one
-// split the block writes bf16(o / l); with more it writes its partial (m, l,
-// o) to a scratch tensor, and a second launch combines the splits in split
-// order (myriad::merge_splits), so a result does not depend on scheduling.
+// split the block writes bf16(o / l).  With more, the splits combine in split
+// order (myriad::merge_splits), so a result does not depend on scheduling:
+// either each block writes its partial (m, l, o) to a scratch tensor and a
+// second launch merges them (B2', B3), or the splits of one (b, h) form a
+// thread-block cluster, each block writes its partial into the shared memory
+// of the cluster's rank 0 (distributed shared memory), and rank 0 merges
+// them after a cluster barrier (kClusterMerge, B2; merge_cluster_splits).
 //
 // kCausal selects the function:
 //   false (B2'): s = (q . k) * k_scale * scale + mask[b, t];  p * v_scale in
@@ -27,6 +31,8 @@
 //                sees no key writes zeros.
 
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <algorithm>
 
@@ -38,6 +44,7 @@ constexpr int kSplitThreads = 128;  // 4 warps
 constexpr int kKeyTile = 64;        // keys a tile
 constexpr int kHeadDim = 128;       // the widest head the kernels take
 constexpr int kSMs = 132;  // an H100's streaming multiprocessors
+constexpr int kMaxClusterSplits = 8;  // the portable cluster size
 
 // Shared-memory row of a K or V tile: the row's bytes plus 16, so that
 // consecutive rows start in different bank groups.
@@ -51,10 +58,11 @@ struct SplitPlan {
 };
 
 // How many blocks share the n_keys of one (b, h) when bh such pairs run:
-// enough to reach `target` blocks, at least one tile each, in whole tiles.
-inline SplitPlan split_plan(int bh, int n_keys, int target) {
+// enough to reach `target` blocks, at least one tile each, in whole tiles,
+// and at most `max_splits`.
+inline SplitPlan split_plan(int bh, int n_keys, int target, int max_splits = 1 << 30) {
   const int tiles = std::max(1, (n_keys + kKeyTile - 1) / kKeyTile);
-  const int want = std::max(1, std::min(tiles, (target + bh - 1) / bh));
+  const int want = std::max(1, std::min({tiles, (target + bh - 1) / bh, max_splits}));
   const int per = (tiles + want - 1) / want;
   return {(tiles + per - 1) / per, per * kKeyTile};
 }
@@ -65,10 +73,10 @@ struct SplitArgs {
   const void* v;
   const __half* k_scale;  // (B, H, T, 1) or null
   const __half* v_scale;
-  const float* mask;     // (B, n_keys) additive (kCausal false)
+  const float* mask;     // (B, n_keys) additive (kCausal false), or null: none
   const int* positions;  // (B, R) absolute (kCausal true)
   __nv_bfloat16* out;    // (B, H, R, D)
-  float* part;           // scratch of (m, l, o) partials, null with one split
+  float* part;           // scratch of (m, l, o) partials, null with one split or a cluster
   int B, H, R, D, n_keys, splits, keys_per_split;
   long long kv_sb, kv_sh, kv_st, sc_sb, sc_sh, sc_st;
   float scale;
@@ -157,16 +165,38 @@ __device__ __forceinline__ void load4_tile(const int8_t* p, float out[4]) {
 __device__ __forceinline__ void load4_tile(const __nv_bfloat16* p, float out[4]) { load4(p, out); }
 
 template <typename KV, int kMaxR>
-constexpr int split_smem_bytes() {
-  return 4 * kKeyTile * tile_row_bytes<KV>()  // two stages of K and V
-         + 4 * (kMaxR * kHeadDim              // q rows, fp32
-                + kMaxR * kKeyTile            // scores, then probabilities
-                + 6 * kKeyTile                // k_scale, v_scale, mask of two tiles
-                + 3 * kMaxR                   // per row: correction, m, l
-                + kMaxR);                     // positions
+__host__ __device__ constexpr int split_smem_bytes() {
+  return (4 * kKeyTile * tile_row_bytes<KV>()  // two stages of K and V
+          + 4 * (kMaxR * kHeadDim              // q rows, fp32
+                 + kMaxR * kKeyTile            // scores, then probabilities
+                 + 6 * kKeyTile                // k_scale, v_scale, mask of two tiles
+                 + 3 * kMaxR                   // per row: correction, m, l
+                 + kMaxR)                      // positions
+          + 15) / 16 * 16;
 }
 
-template <typename KV, int kMaxR, bool kCausal, bool kVec>
+// A cluster merge's inbox, in the shared memory of rank 0 past what
+// split_attention uses: one slot a split of its partial rows, o (kMaxR,
+// kHeadDim), then m (kMaxR) and l (kMaxR), padded to 16 bytes.
+template <int kMaxR>
+__host__ __device__ constexpr int inbox_slot_floats() {
+  return kMaxR * kHeadDim + (2 * kMaxR + 3) / 4 * 4;
+}
+
+template <int kMaxR>
+__host__ __device__ constexpr int inbox_bytes() {
+  return 4 * kMaxClusterSplits * inbox_slot_floats<kMaxR>();
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+template <typename KV, int kMaxR, bool kCausal, bool kVec, bool kClusterMerge = false>
 __device__ __forceinline__ void split_attention(const SplitArgs& a) {
   constexpr int kRow = tile_row_bytes<KV>();
   constexpr int kStage = 2 * kKeyTile * kRow;  // K tile, then V tile
@@ -194,7 +224,13 @@ __device__ __forceinline__ void split_attention(const SplitArgs& a) {
   const KV* vp = static_cast<const KV*>(a.v) + b * a.kv_sb + h * a.kv_sh;
   const __half* ksp = a.k_scale ? a.k_scale + b * a.sc_sb + h * a.sc_sh : nullptr;
   const __half* vsp = a.v_scale ? a.v_scale + b * a.sc_sb + h * a.sc_sh : nullptr;
-  const float* mp = kCausal ? nullptr : a.mask + static_cast<long long>(b) * a.n_keys;
+  const float* mp =
+      kCausal || !a.mask ? nullptr : a.mask + static_cast<long long>(b) * a.n_keys;
+
+  // a cluster merge writes into rank 0's shared memory, which exists once
+  // every block of the cluster has started: arrive now, wait before writing
+  const bool keep = kClusterMerge && a.splits > 1;
+  if (keep) cluster_arrive_relaxed();
 
   const int begin = split * a.keys_per_split;
   const int stop = min(a.n_keys, begin + a.keys_per_split);  // this split's keys
@@ -203,7 +239,7 @@ __device__ __forceinline__ void split_attention(const SplitArgs& a) {
     const int t = t0 + tid;
     nks = ksp && t < stop ? __half2float(ksp[t * a.sc_st]) : 1.f;
     nvs = vsp && t < stop ? __half2float(vsp[t * a.sc_st]) : 1.f;
-    if constexpr (!kCausal) nmk = t < stop ? mp[t] : 0.f;
+    if constexpr (!kCausal) nmk = mp && t < stop ? mp[t] : 0.f;
   };
   auto store_scales = [&](int stage) {
     ksc[stage * kKeyTile + tid] = nks;
@@ -392,17 +428,30 @@ __device__ __forceinline__ void split_attention(const SplitArgs& a) {
   }
   __syncthreads();
   const long long row0 = (bh * a.splits + split) * R;  // this split's first partial row
+  float* kept = nullptr;  // this split's slot in rank 0's inbox
+  if (keep) {
+    cluster_wait();
+    float* inbox = reinterpret_cast<float*>(smem + split_smem_bytes<KV, kMaxR>());
+    kept = cooperative_groups::this_cluster().map_shared_rank(inbox, 0) +
+           split * inbox_slot_floats<kMaxR>();
+  }
   for (int i = tid; i < R * D; i += kSplitThreads) {
     const int r = i / D, d = i - r * D;
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < 4; ++w) s += red[(w * kMaxR + r) * kHeadDim + d];
-    if (a.part) {
+    if (keep) {
+      kept[i] = s;
+    } else if (a.part) {
       a.part[2LL * a.B * a.H * a.splits * R + (row0 + r) * D + d] = s;
     } else {
       const float l = l_s[r];
       a.out[(bh * R + r) * D + d] = __float2bfloat16(kCausal && !(l > 0.f) ? 0.f : s / l);
     }
+  }
+  if (keep && tid < R) {
+    kept[kMaxR * kHeadDim + tid] = m_s[tid];
+    kept[kMaxR * kHeadDim + kMaxR + tid] = l_s[tid];
   }
   if (a.part && tid < R) {
     a.part[row0 + tid] = m_s[tid];
@@ -419,6 +468,27 @@ __device__ __forceinline__ void merge_split_rows(const SplitArgs& a, bool zero_e
     merge_splits(a.part + row, a.part + n + row, a.part + 2 * n + row * a.D, a.splits, a.R,
                  static_cast<long long>(a.R) * a.D, a.D, zero_empty, a.out + (bh * a.R + r) * a.D);
   }
+}
+
+// The merge of a cluster launch, called by every block after
+// split_attention<KV, kMaxR, ..., kClusterMerge = true> when a.splits > 1:
+// the cluster is the a.splits blocks of one (b, h), block rank = split, and
+// each block has written its partial rows into its slot of rank 0's inbox.
+// After the cluster barrier (which makes those writes visible to rank 0)
+// every block but rank 0 exits, and rank 0 merges the slots in rank order
+// as merge_split_rows does.
+template <typename KV, int kMaxR>
+__device__ __forceinline__ void merge_cluster_splits(const SplitArgs& a, bool zero_empty) {
+  extern __shared__ __align__(16) char smem[];
+  cooperative_groups::this_cluster().sync();
+  if (blockIdx.x != 0) return;
+  constexpr int kSlot = inbox_slot_floats<kMaxR>();
+  const float* inbox = reinterpret_cast<const float*>(smem + split_smem_bytes<KV, kMaxR>());
+  const long long bh = static_cast<long long>(blockIdx.z) * a.H + blockIdx.y;
+  for (int r = 0; r < a.R; ++r)
+    merge_splits(inbox + kMaxR * kHeadDim + r, inbox + kMaxR * kHeadDim + kMaxR + r,
+                 inbox + r * a.D, a.splits, kSlot, kSlot, a.D, zero_empty,
+                 a.out + (bh * a.R + r) * a.D);
 }
 
 // Whether the 16-byte loads apply: D * sizeof(KV) and every cache stride a

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "myriad_int4_matmul": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "myriad_decode_attention": (
         [_P] * 7 + [_I] * 4 + [_L] * 6 + [_I, _F, _P], _I),
+    "myriad_decode_attention_launch_info": ([_I] * 4 + [_P], _I),
     "myriad_decode_attention_rows_scratch": ([_I] * 4, _L),
     "myriad_decode_attention_rows": (
         [_P] * 7 + [_I] * 4 + [_L] * 6 + [_I, _F, _P, _P], _I),
@@ -121,6 +122,8 @@ def build() -> Path:
 
 def library() -> ctypes.CDLL:
     global _lib
+    if _lib is not None:  # every launch asks: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -147,9 +150,12 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The handle of PyTorch's current stream on ``device`` (a tensor's
+    device, which carries its index), read without building a
+    ``torch.cuda.Stream``: a decode step asks for it at every launch."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def require(cond: bool, what: str) -> None:

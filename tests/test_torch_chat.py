@@ -13,11 +13,18 @@ transcript, which the JAX package's own tests hold to its full re-prefill
 and to its speculative chat (tests/test_conversation.py); that saves the JAX
 side a compile per turn.  The upload's normalisation equals the JAX
 processor's bit for bit.
+
+A sampled turn (``do_sample=True, top_p=0.01``) on flat logits: without
+speculation the port raises (top-p sampling is not ported), where it used to
+return the greedy transcript; with speculation both sides decode greedily at
+any temperature, and the transcripts are identical.
 """
 
 import numpy as np
 import pytest
 import torch
+
+from myriad_tpu import checkpoint as ckpt_lib
 
 from myriad_tpu.conversation import CONV_VISION as JAX_CONV_VISION
 from myriad_tpu.conversation import Chat as JaxChat
@@ -34,9 +41,10 @@ def _image(seed):
     return np.random.default_rng(seed).integers(0, 255, (28, 28, 3), dtype=np.uint8)
 
 
-def _run(chat, conv_vision, questions, image, swap_to=None):
+def _run(chat, conv_vision, questions, image, swap_to=None, new=NEW, **answer_kw):
     """Upload, then one answer per question; ``swap_to`` replaces the image
-    embedding (same prompt text) before the second turn."""
+    embedding (same prompt text) before the second turn; ``answer_kw`` goes
+    to every ``answer``."""
     conv = conv_vision.copy()
     img_list = []
     chat.upload_img(image, conv, img_list)
@@ -48,7 +56,7 @@ def _run(chat, conv_vision, questions, image, swap_to=None):
             conv.messages.pop()  # upload_img's prompt line: keep the text equal
             img_list[0] = stash[0]
         chat.ask(q, conv)
-        text, tokens = chat.answer(conv, img_list, max_new_tokens=NEW)
+        text, tokens = chat.answer(conv, img_list, max_new_tokens=new, **answer_kw)
         out.append((text, np.asarray(tokens)))
     return out, img_list
 
@@ -128,3 +136,51 @@ def test_demo_chats_over_stdin_on_the_cpu(tmp_path):
         timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.count("myriad>") == 2 and "Received." in res.stdout
+
+
+SAMPLED = dict(do_sample=True, top_p=0.01)
+
+
+@pytest.fixture
+def flat_pair(pair):  # noqa: F811
+    """``pair`` with ``lm_head`` scaled by 0.02 on both sides, so the top
+    token's probability falls below 0.01 and a top-p 0.01 sampler departs
+    from greedy; the weights are restored afterwards."""
+    jm, pm = pair
+    saved = jm.trainable, jm.frozen
+    params = jm.params
+    head = np.asarray(params["llama"]["lm_head"])
+    flat = head * np.asarray(0.02, head.dtype)
+    params["llama"] = dict(params["llama"], lm_head=flat)
+    jm.trainable, jm.frozen = ckpt_lib.split_by_predicate(params, jm._trainable_predicate())
+    lm_head = pm.module.llama.lm_head
+    assert tuple(lm_head.shape) == flat.shape
+    kept = lm_head.detach().clone()
+    with torch.no_grad():
+        lm_head.copy_(torch.from_numpy(flat))
+    yield jm, pm
+    jm.trainable, jm.frozen = saved
+    with torch.no_grad():
+        lm_head.copy_(kept)
+
+
+@pytest.mark.parametrize("incremental", [True, False])
+def test_chat_sampled_turn_without_speculation_raises(flat_pair, incremental):
+    _, pm = flat_pair
+    chat = Chat(pm, incremental=incremental, spec_k=0)
+    with pytest.raises(NotImplementedError):
+        _run(chat, CONV_VISION, QUESTIONS[:1], _image(1), new=12, temperature=1.0, **SAMPLED)
+
+
+@pytest.mark.parametrize("seed,temperature", [(1, 1.0), (1, 1.5), (2, 1.0), (2, 1.5)])
+def test_chat_sampled_turn_with_speculation_matches_jax(flat_pair, seed, temperature):
+    """``top_p <= 0.01`` makes a speculative turn greedy on both sides, at
+    any temperature."""
+    jm, pm = flat_pair
+    kw = dict(new=12, temperature=temperature, **SAMPLED)
+    jchat = JaxChat(jm, LocImageTrainProcessor(identity=True), spec_k=3)
+    ref, _ = _run(jchat, JAX_CONV_VISION, QUESTIONS, _image(seed), **kw)
+    chat = Chat(pm, spec_k=3)
+    out, _ = _run(chat, CONV_VISION, QUESTIONS, _image(seed), **kw)
+    _assert_same(out, ref)
+    assert chat._delta_log == jchat._delta_log

@@ -86,21 +86,78 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         da.decode_attention(q, kv, kv)
 
 
-@pytest.mark.parametrize("int8", [True, False])
-@pytest.mark.parametrize("kv_len", [320, 416])
-def test_decode_attention_kernel_matches_plain(dev, int8, kv_len):
-    g = torch.Generator(device=dev).manual_seed(0)
-    b, h, t, d = 8, 32, 416, 128
+def _decode_case(dev, b, kv_len, int8, masked, seed=0, d=128):
+    """A cache of at least 416 positions, of which the first ``kv_len`` are
+    read; the caller's mask hides the positions past 300 (or past kv_len - 5
+    on a short cache), or there is no mask."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, t = 32, max(416, kv_len)
     q = torch.randn(b, h, 1, d, generator=g, device=dev).to(torch.bfloat16)
     k, v, ks, vs = _cache(dev, g, b, h, t, d, int8)
-    mask = torch.where(torch.arange(kv_len, device=dev) <= 300, 0.0, -1e9)
-    mask = mask[None, None, None].expand(b, 1, 1, kv_len)
-    args = dict(mask=mask, k_scale=ks, v_scale=vs, kv_len=kv_len)
+    mask = None
+    if masked:
+        frontier = max(0, min(300, kv_len - 5))
+        mask = torch.where(torch.arange(kv_len, device=dev) <= frontier, 0.0, -1e9)
+        mask = mask[None, None, None].expand(b, 1, 1, kv_len)
+    return q, k, v, dict(mask=mask, k_scale=ks, v_scale=vs, kv_len=kv_len)
+
+
+# (batch, kv_len): the greedy path's shapes; 333 ends inside a key tile and
+# inside a split; 37 and 64 take one split (no cluster); at batch 1, 8192
+# positions ask for 9 splits and take the cluster's cap of 8
+DECODE_CASES = [(8, 320), (8, 416), (8, 333), (8, 64), (1, 37), (1, 512), (1, 8192),
+                (8, 8192)]
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("b,kv_len", DECODE_CASES)
+def test_decode_attention_kernel_matches_plain(dev, b, kv_len, int8, masked):
+    q, k, v, args = _decode_case(dev, b, kv_len, int8, masked)
     before = da.counter.count
     out = da.decode_attention(q, k, v, **args)
     assert da.counter.count == before + 1
     ref = da.decode_attention_plain(q, k, v, **args)
     assert (out.float() - ref.float()).abs().max().item() <= BF16_ATOL
+
+
+def test_decode_attention_cluster_plan(dev):
+    """The splits of one (b, h) form one cluster: 2 at the greedy path's
+    shape (512 blocks, all resident at once), capped at 8 (the portable
+    cluster size) at batch 1 on a long cache, and one split, with no cluster
+    and no inbox for the merge, up to 64 positions."""
+    main = da.cluster_launch(8, 32, 320)
+    assert main["splits"] == 2 and main["clusters"] * 2 >= 8 * 32 * 2
+    long = da.cluster_launch(1, 32, 8192)
+    assert long["splits"] == 8 and long["clusters"] > 0 and long["smem"] == main["smem"]
+    one = da.cluster_launch(8, 32, 64)
+    assert one["splits"] == 1 and one["clusters"] == 0 and one["smem"] < main["smem"]
+
+
+@pytest.mark.parametrize("b,kv_len", [(8, 320), (8, 333), (1, 8192)])
+def test_decode_attention_kernel_deterministic(dev, b, kv_len):
+    """The cluster's rank 0 merges the splits in rank order: two runs give
+    the same bits."""
+    q, k, v, args = _decode_case(dev, b, kv_len, True, True)
+    first = da.decode_attention(q, k, v, **args)
+    assert torch.equal(first, da.decode_attention(q, k, v, **args))
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_decode_attention_kernel_one_launch_no_scratch(dev, masked):
+    """One call counts one launch and allocates its output and nothing else:
+    no scratch for the splits, no mask when the caller gives none or gives it
+    as fp32 (B, 1, 1, kv_len), contiguous."""
+    q, k, v, args = _decode_case(dev, 8, 320, True, masked)
+    if masked:
+        args["mask"] = args["mask"].contiguous()
+    da.decode_attention(q, k, v, **args)  # built and warm
+    torch.cuda.synchronize()
+    before, allocs = da.counter.count, torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = da.decode_attention(q, k, v, **args)
+    assert da.counter.count == before + 1
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs + 1
+    assert out.shape == q.shape
 
 
 @pytest.mark.parametrize("tq,offset", [(297, 0), (33, 264), (7, 290), (1, 100)])
