@@ -8,9 +8,9 @@ Phases, each printing its own lines:
 1. build the CUDA kernels (myriad_tpu_torch/csrc, one nvcc per source, all
    started together, sm_90a) from the checkout, print the build time and
    each kernel's registers, count the tensor-core instructions (HMMA)
-   in B3's tensor-core kernel with ``cuobjdump -sass``, and report B2's
-   cluster launch at the paths' shapes (registers, splits, shared memory,
-   and how many clusters the card holds at once);
+   in B3's and B5's tensor-core kernels with ``cuobjdump -sass``, and report
+   B2's and B5's cluster launches at the paths' shapes (registers, splits,
+   shared memory, and how many clusters the card holds at once);
 2. hold each kernel of the paths (B1 int8 weight-only matmul, B2 decode
    attention, B3 prefill attention, B4 KV-cache write, B5 int4 weight-only
    matmul, B2' row decode attention, B6 uint8 normalise, B7 streaming sum)
@@ -25,9 +25,10 @@ Phases, each printing its own lines:
    back-to-back calls, median of 21), which is the host's time where that is
    the longer; B7's times give the card's measured streaming bandwidth, and
    every bound is printed again at that rate.  B3's speculative verify chunk
-   (4 rows, ragged positions), B1 and B5 at the verify round's 32 rows, and
-   B2 and B2' at kv_len 8192 are path shapes of their own, with their times
-   and bounds under ``shapes`` in the summary;
+   (4 rows, ragged positions), B1 at the verify round's 32 rows, B5 at 8
+   and 32 rows at each of the three projection shapes (and run twice, the
+   same bits), and B2 and B2' at kv_len 8192 are path shapes of their own,
+   with their times and bounds under ``shapes`` in the summary;
 3. build Myriad at full width (EVA-ViT-g, Q-Former, ImageBind-huge,
    Vicuna-7B with int8 weights and an int8 KV cache, towers in bf16) with
    random weights drawn from --seed on the card, and run ``generate``
@@ -49,8 +50,8 @@ Phases, each printing its own lines:
    (``llm_weight_dtype: int4``) at full width: greedy generate (batch 8, 90
    tokens, median of 3), one speculative generate (K = 3, prompt-lookup
    drafts) and one chat turn, each through kernel B5 and never B1; profile
-   one greedy generate and print the stage times; gate the first prefill's
-   logits against the plain path's;
+   one greedy and one speculative generate and print the stage times; gate
+   the first prefill's logits against the plain path's;
 7. the opt-in entry points: ``MYRIAD_DECODE_ATTN=row`` greedy generate
    (kernel B2', never B2; the first decode step's logits gated against the
    plain path's), ``device_preprocess(use_pallas=True)`` on the batch's
@@ -186,18 +187,33 @@ def sass_count(lib_path, kernel: str, opcode: str):
 
 
 def cluster_launch_report(lib_path) -> None:
-    """Phase 1's lines on B2's cluster launch: ptxas's report (registers,
-    barriers) of each instantiation, and at the paths' shapes the splits
-    (blocks of a cluster), a block's dynamic shared memory and how many such
-    clusters the card holds at once."""
+    """Phase 1's lines on B2's and B5's cluster launches: ptxas's report
+    (registers, barriers) of each instantiation, and at the paths' shapes the
+    splits (blocks of a cluster), a block's dynamic shared memory and how
+    many such clusters the card holds at once."""
     from myriad_tpu_torch.ops import decode_attention as da
+    from myriad_tpu_torch.ops import quant
 
     entry = ""
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line
-        elif "Used" in line and "decode_attention_cluster_kernel" in entry:
-            print(f"  B2 {entry.split(chr(39))[1]}: {line.split('ptxas info    : ')[-1].strip()}")
+        elif "Used" in line or "spill" in line:
+            for name, kernel in (("B2", "decode_attention_cluster_kernel"),
+                                 ("B5", "int4_matmul_tc_kernel")):
+                if kernel in entry:
+                    print(f"  {name} {entry.split(chr(39))[1]}: "
+                          f"{line.split('ptxas info    : ')[-1].strip()}")
+    for m in (1, BATCH, VERIFY_ROWS, 240):
+        for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+            plan = quant.int4_launch(m, k, n, quant.INT4_GROUP)
+            print(f"  B5 launch at M={m} {k}x{n} group {quant.INT4_GROUP}: grid "
+                  f"({plan['splits']}, {plan['tiles']}) = {plan['splits'] * plan['tiles']} blocks "
+                  f"of 256 threads, cluster ({plan['splits']}, 1, 1); dynamic shared memory "
+                  f"{plan['smem']} B a block; the card holds {plan['clusters']} such clusters "
+                  f"at once", flush=True)
+            check(plan["splits"] == 1 or plan["clusters"] > 0,
+                  f"the card holds no cluster of B5 at M={m}, {k}x{n}")
     for rows, kv_len in ((BATCH, 320), (1, CHAT_KV_LEN), (BATCH, 8192), (1, 8192), (BATCH, 64)):
         plan = da.cluster_launch(rows, 32, kv_len)
         blocks = plan["splits"] * 32 * rows
@@ -469,24 +485,27 @@ def kernel_checks(dev, seed):
                    # abs, max, divide, round per element, in fp32
                    main=(nbytes, 4 * 2 * b * h * tw_q * d, PEAK_FP32_S) if is_main else None)
 
-    # B5: the int4 projections; group 128, K = 11008 ends in a half chunk
+    # B5: the int4 projections at group 128: q, k, v and o are 4096->4096,
+    # gate and up 4096->11008, down 11008->4096
     print("B5: tolerance 2^-7 * max|plain| (the same bf16 dequantized weight, fp32 sums in "
-          "another order, one bf16 rounding); library: torch.matmul on the int4 weight "
-          "dequantized to bf16 beforehand (it reads four times the weight bytes)")
-    for k, n in ((4096, 11008), (11008, 4096)):
+          "another order, one bf16 rounding); runs twice and must give the same bits; "
+          "library: torch.matmul on the int4 weight dequantized to bf16 beforehand (it reads "
+          "four times the weight bytes)")
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
         w4, s4 = quant.quantize_int4_grouped(randn(k, n) * 0.02)
         w_bf16 = quant.dequant_int4(w4, s4).to(bf16)
         for m in (1, BATCH, VERIFY_ROWS):
             x = randn(m, k, dtype=bf16)
             is_main = m == BATCH and (k, n) == (4096, 11008)
-            is_verify = m == VERIFY_ROWS and (k, n) == (4096, 11008)
             work = (m * k * 2 + k * n // 2 + s4.numel() * 4 + m * n * 2, 2 * m * k * n)
+            name = f"M={m}{' (verify rows)' if m == VERIFY_ROWS else ''} {k}x{n}"
             b5.compare(f"M={m} {k}x{n}", lambda: quant.int4_weight_only_matmul(x, w4, s4),
                        lambda: quant.int4_weight_only_matmul_plain(x, w4, s4),
                        lambda ref: 2.0 ** -7 * ref.float().abs().max().item(),
                        library=lambda: torch.matmul(x, w_bf16),
                        main=work if is_main else None,
-                       shape=(f"M={m} (verify rows)", work) if is_verify else None)
+                       shape=(name, work) if m > 1 and not is_main else None,
+                       deterministic=True)
         del w_bf16
 
     # B2': B2's shapes, a kv_len that ends inside a key tile and a split, and
@@ -964,7 +983,7 @@ def _chat_delta_gate(chat, conv, img_list, llama, dev, seed):
 KERNEL_OF = {"int8_matmul": "B1", "decode_attention_cluster_kernel": "B2",
              "prefill_attention_tc_kernel": "B3", "prefill_attention_split_kernel": "B3",
              "prefill_attention_merge_kernel": "B3", "kv_write_kernel": "B4",
-             "kv_quantize_write_kernel": "B4", "int4_matmul": "B5",
+             "kv_quantize_write_kernel": "B4", "int4_matmul_tc_kernel": "B5",
              "decode_attention_rows_split_kernel": "B2'",
              "decode_attention_rows_merge_kernel": "B2'"}
 
@@ -1096,6 +1115,8 @@ def int4_slice(dev, seed, checks, card):
     print(f"int4 speculative generate, prompt-lookup drafts: {BATCH / wall:.4f} images/s "
           f"({wall:.3f} s, one run; K={SPEC_K}); spec_stats {stats}; launches {launches}; "
           f"card: {card}", flush=True)
+    profile_generate(spec, samples, card, wall,
+                     f"int4 speculative generate (prompt-lookup drafts, K={SPEC_K})")
     del spec
 
     import numpy as np
@@ -1224,10 +1245,11 @@ def main(argv=None) -> int:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas: " + line.split("ptxas info    : ")[-1].strip())
-    hmma, first = sass_count(lib_path, "prefill_attention_tc_kernel", "HMMA")
-    print(f"  sass (cuobjdump -sass): {hmma} HMMA instructions in B3's "
-          f"prefill_attention_tc_kernel, all instantiations; first: {first}", flush=True)
-    check(hmma > 0, "B3's tensor-core kernel has no HMMA instruction")
+    for name, kernel in (("B3", "prefill_attention_tc_kernel"), ("B5", "int4_matmul_tc_kernel")):
+        hmma, first = sass_count(lib_path, kernel, "HMMA")
+        print(f"  sass (cuobjdump -sass): {hmma} HMMA instructions in {name}'s {kernel}, all "
+              f"instantiations; first: {first}", flush=True)
+        check(hmma > 0, f"{name}'s tensor-core kernel has no HMMA instruction")
     cluster_launch_report(lib_path)
 
     print("phase 2: kernels against their plain versions", flush=True)

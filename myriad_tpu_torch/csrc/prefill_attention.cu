@@ -48,6 +48,8 @@ namespace {
 
 using myriad::kHeadDim;
 using myriad::kKeyTile;
+using myriad::ldmatrix_x4;
+using myriad::mma_bf16;
 
 constexpr int kSplitBelow = 16;  // chunks shorter than this take the split kernel
 // Blocks a split launch aims at, four for each SM: the verify chunk's keys
@@ -78,22 +80,6 @@ struct TcLayout {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {

@@ -36,8 +36,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "myriad_int8_matmul_splits": ([_I], _I),
     "myriad_int8_matmul": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "myriad_int4_matmul_splits": ([_I], _I),
-    "myriad_int4_matmul": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "myriad_int4_matmul": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "myriad_int4_matmul_launch_info": ([_I] * 4 + [_P], _I),
     "myriad_decode_attention": (
         [_P] * 7 + [_I] * 4 + [_L] * 6 + [_I, _F, _P], _I),
     "myriad_decode_attention_launch_info": ([_I] * 4 + [_P], _I),

@@ -18,6 +18,7 @@ the JAX package does off the TPU, and runs W8A8.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -168,38 +169,53 @@ def int4_weight_only_matmul(x2: torch.Tensor, w4: torch.Tensor,
     x2's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches kernel B5
-    (bf16 x, M <= SMALL_M) or raises."""
+    (bf16 x, M <= SMALL_M) or raises.  One launch and one allocation (the
+    output) a call."""
     if not x2.is_cuda:
         return int4_weight_only_matmul_plain(x2, w4, scale4)
+    # every check runs at every projection of every decode step: each is a
+    # comparison, and its message is built only when it fails
     m, k = x2.shape
     n = w4.shape[1]
-    _cuda.require(x2.dtype == torch.bfloat16, f"int4_matmul kernel takes bf16 x, got {x2.dtype}")
-    _cuda.require(k % 2 == 0 and w4.dtype == torch.uint8 and w4.shape[0] * 2 == k,
-                  f"weight must be uint8 ({k // 2}, N), got {w4.dtype} {tuple(w4.shape)}")
+    if x2.dtype != torch.bfloat16:
+        raise ValueError(f"int4_matmul kernel takes bf16 x, got {x2.dtype}")
+    if k % 2 or w4.dtype != torch.uint8 or w4.shape[0] * 2 != k:
+        raise ValueError(f"weight must be uint8 ({k // 2}, N), got {w4.dtype} "
+                         f"{tuple(w4.shape)}")
     groups = scale4.shape[0] if scale4.dim() == 2 else 0
-    _cuda.require(scale4.dtype == torch.float32 and groups > 0 and k % groups == 0
-                  and (k // groups) % 2 == 0 and tuple(scale4.shape) == (groups, n),
-                  f"scale4 must be fp32 (groups, {n}) with an even group dividing {k}, got "
-                  f"{scale4.dtype} {tuple(scale4.shape)}")
-    _cuda.require(1 <= m <= SMALL_M, f"int4_matmul kernel serves 1..{SMALL_M} rows, got {m}")
-    _cuda.require(n % 4 == 0, f"int4_matmul kernel needs N % 4 == 0, got {n}")
-    _cuda.require(w4.device == x2.device and scale4.device == x2.device,
-                  "x, weight and scale4 must be on one device")
-    _cuda.require(x2.is_contiguous() and w4.is_contiguous() and scale4.is_contiguous(),
-                  "int4_matmul kernel takes contiguous tensors")
-    _cuda.require(w4.data_ptr() % 16 == 0 and scale4.data_ptr() % 16 == 0
-                  and x2.data_ptr() % 4 == 0,
-                  "weight and scale4 must be 16-byte aligned, x 4-byte aligned")
-    lib = _cuda.library()
-    splits = lib.myriad_int4_matmul_splits(k)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
+    if (scale4.dtype != torch.float32 or groups == 0 or k % groups
+            or (k // groups) % 2 or scale4.shape[1] != n):
+        raise ValueError(f"scale4 must be fp32 (groups, {n}) with an even group dividing {k}, "
+                         f"got {scale4.dtype} {tuple(scale4.shape)}")
+    if not 1 <= m <= SMALL_M:
+        raise ValueError(f"int4_matmul kernel serves 1..{SMALL_M} rows, got {m}")
+    if n % 4:
+        raise ValueError(f"int4_matmul kernel needs N % 4 == 0, got {n}")
+    if w4.device != x2.device or scale4.device != x2.device:
+        raise ValueError("x, weight and scale4 must be on one device")
+    if not (x2.is_contiguous() and w4.is_contiguous() and scale4.is_contiguous()):
+        raise ValueError("int4_matmul kernel takes contiguous tensors")
+    if (w4.data_ptr() | scale4.data_ptr()) % 16 or x2.data_ptr() % 4:
+        raise ValueError("weight and scale4 must be 16-byte aligned, x 4-byte aligned")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    err = lib.myriad_int4_matmul(x2.data_ptr(), w4.data_ptr(), scale4.data_ptr(),
-                                 partial.data_ptr(), out.data_ptr(), m, k, n, k // groups,
-                                 _cuda.stream_ptr(x2.device))
+    err = _cuda.library().myriad_int4_matmul(x2.data_ptr(), w4.data_ptr(), scale4.data_ptr(),
+                                             out.data_ptr(), m, k, n, k // groups,
+                                             _cuda.stream_ptr(x2.device))
     _cuda.check(err, "int4_matmul")
     counter4.count += 1
     return out
+
+
+def int4_launch(m: int, k: int, n: int, group: int) -> dict:
+    """Kernel B5's launch at these widths, asked of the card: ``splits``
+    (the blocks of one column tile's cluster, which split K), ``tiles`` (128
+    output columns each), ``smem`` (a block's dynamic shared memory, bytes)
+    and ``clusters`` (how many of them the card holds at once; 0 with one
+    split, which launches no cluster)."""
+    out = (ctypes.c_int * 4)()
+    _cuda.check(_cuda.library().myriad_int4_matmul_launch_info(m, k, n, group, out),
+                "int4_matmul launch info")
+    return {"splits": out[0], "tiles": out[1], "smem": out[2], "clusters": out[3]}
 
 
 def requantize_int4_to_int8(w4: torch.Tensor,

@@ -13,6 +13,8 @@ outputs, |out| of a few units); B4, B6 and B7 none: B4's writes, B6's IEEE
 divisions and B7's sums of small integers are exact.
 """
 
+import functools
+
 import pytest
 import torch
 
@@ -295,6 +297,89 @@ def test_int4_matmul_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):  # N not a multiple of 4
         quant.int4_weight_only_matmul(torch.zeros(4, 64, dtype=torch.bfloat16, device=dev),
                                       w4[:, :38].contiguous(), s4[:, :38].contiguous())
+
+
+@functools.lru_cache(maxsize=3)
+def _int4_weight(k, n):
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    return quant.quantize_int4_grouped(torch.randn(k, n, generator=g, device="cuda") * 0.02)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096)])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 16, 31, 32, 33, 64, 132, 240, 256])
+def test_int4_matmul_kernel_row_sweep(dev, m, k, n):
+    """Every row count around the kernel's 8-row tiles and 32-row slabs, at
+    Vicuna-7B's three projection shapes."""
+    w4, s4 = _int4_weight(k, n)
+    x = torch.randn(m, k, generator=torch.Generator(device=dev).manual_seed(m), device=dev)
+    x = x.to(torch.bfloat16)
+    out = quant.int4_weight_only_matmul(x, w4, s4)
+    ref = quant.int4_weight_only_matmul_plain(x, w4, s4)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    assert (out.float() - ref.float()).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
+
+
+def _int4_random(dev, k, n, group, seed=3):
+    """Every nibble value, and scales over several binades."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w4 = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    s4 = torch.exp(torch.randn(k // group, n, generator=g, device=dev) * 3) * 0.01
+    return w4, s4
+
+
+@pytest.mark.parametrize("k,n,group", [(4096, 4096, 128), (4096, 11008, 128), (1000, 36, 1000),
+                                       (1000, 40, 40)])
+@pytest.mark.parametrize("m", [16, 32])
+def test_int4_matmul_kernel_dequantizes_exactly(dev, m, k, n, group):
+    """One-hot rows of x pick one input row each, so every output is one
+    dequantized weight element: bit-identical to the plain version, at group
+    128, at a whole-dim group that is not a multiple of 16, and at a group
+    that splits the kernel's 128-row stages (its scales are looked up per
+    register)."""
+    w4, s4 = _int4_random(dev, k, n, group)
+    g = torch.Generator(device=dev).manual_seed(m)
+    pick = torch.randperm(k, generator=g, device=dev)[:m]
+    x = torch.zeros(m, k, device=dev, dtype=torch.bfloat16)
+    x[torch.arange(m, device=dev), pick] = 1.0
+    out = quant.int4_weight_only_matmul(x, w4, s4)
+    ref = quant.int4_weight_only_matmul_plain(x, w4, s4)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 11008), (32, 11008, 4096), (256, 4096, 4096),
+                                   (5, 1000, 36)])
+def test_int4_matmul_kernel_deterministic(dev, m, k, n):
+    """The splits of K are summed in a fixed order: two runs give the same
+    bits."""
+    w4, s4 = _int4_random(dev, k, n, quant.int4_group(k))
+    x = torch.randn(m, k, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    x = x.to(torch.bfloat16)
+    assert torch.equal(quant.int4_weight_only_matmul(x, w4, s4),
+                       quant.int4_weight_only_matmul(x, w4, s4))
+
+
+@pytest.mark.parametrize("m", [8, 32, 256])
+def test_int4_matmul_kernel_one_launch_no_scratch(dev, m):
+    """One call counts one launch and allocates its output and nothing else:
+    the splits of K meet in the cluster's shared memory."""
+    w4, s4 = _int4_random(dev, 4096, 11008, 128)
+    x = torch.randn(m, 4096, device=dev).to(torch.bfloat16)
+    quant.int4_weight_only_matmul(x, w4, s4)  # built and warm
+    torch.cuda.synchronize()
+    before, allocs = quant.counter4.count, torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = quant.int4_weight_only_matmul(x, w4, s4)
+    assert quant.counter4.count == before + 1
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs + 1
+    assert out.shape == (m, 11008)
+
+
+def test_int4_matmul_launch_plan(dev):
+    """The splits of K fill the card at both output widths, and the card
+    holds the clusters."""
+    for k, n, splits in ((4096, 4096, 8), (4096, 11008, 4), (11008, 4096, 8)):
+        plan = quant.int4_launch(8, k, n, 128)
+        assert plan["splits"] == splits and plan["tiles"] == -(-n // 128)
+        assert plan["clusters"] > 0
 
 
 def _rows_case(dev, int8, kv_len, seed=5, d=128):
