@@ -8,9 +8,10 @@ Phases, each printing its own lines:
 1. build the CUDA kernels (myriad_tpu_torch/csrc, one nvcc per source, all
    started together, sm_90a) from the checkout, print the build time and
    each kernel's registers, count the tensor-core instructions (HMMA)
-   in B3's and B5's tensor-core kernels with ``cuobjdump -sass``, and report
-   B2's and B5's cluster launches at the paths' shapes (registers, splits,
-   shared memory, and how many clusters the card holds at once);
+   in B1's, B3's and B5's tensor-core kernels with ``cuobjdump -sass``, and
+   report B1's, B2's and B5's cluster launches at the paths' shapes
+   (registers, splits, shared memory, how many clusters the card holds at
+   once, and for B1 how many blocks an SM holds);
 2. hold each kernel of the paths (B1 int8 weight-only matmul, B2 decode
    attention, B3 prefill attention, B4 KV-cache write, B5 int4 weight-only
    matmul, B2' row decode attention, B6 uint8 normalise, B7 streaming sum)
@@ -25,9 +26,10 @@ Phases, each printing its own lines:
    back-to-back calls, median of 21), which is the host's time where that is
    the longer; B7's times give the card's measured streaming bandwidth, and
    every bound is printed again at that rate.  B3's speculative verify chunk
-   (4 rows, ragged positions), B1 at the verify round's 32 rows, B5 at 8
-   and 32 rows at each of the three projection shapes (and run twice, the
-   same bits), and B2 and B2' at kv_len 8192 are path shapes of their own,
+   (4 rows, ragged positions), B1 and B5 at 8 and 32 rows at each of the
+   three projection shapes (and run twice, the same bits), B1 at a chat
+   turn's 132-row delta prefill, and B2 and B2' at kv_len 8192 are path
+   shapes of their own,
    with their times and bounds under ``shapes`` in the summary;
 3. build Myriad at full width (EVA-ViT-g, Q-Former, ImageBind-huge,
    Vicuna-7B with int8 weights and an int8 KV cache, towers in bf16) with
@@ -90,6 +92,7 @@ SERVING = {"arch_preset": "full", "llm_weight_dtype": "int8", "llm_kv_dtype": "i
 SPEC_K = 3
 VERIFY_ROWS = BATCH * (SPEC_K + 1)  # rows of a verify round's projections
 CHAT_KV_LEN = 512  # a chat turn's decode reads its 256-position cache bucket
+CHAT_DELTA_ROWS = 132  # rows of a chat turn's delta prefill at batch 1 (turn 2)
 CHAT_QUESTIONS = ["Is there any defect in this image?", "Where is it?",
                   "How severe is it, and what caused it?"]
 CHAT_TOKENS = 32
@@ -187,10 +190,11 @@ def sass_count(lib_path, kernel: str, opcode: str):
 
 
 def cluster_launch_report(lib_path) -> None:
-    """Phase 1's lines on B2's and B5's cluster launches: ptxas's report
-    (registers, barriers) of each instantiation, and at the paths' shapes the
-    splits (blocks of a cluster), a block's dynamic shared memory and how
-    many such clusters the card holds at once."""
+    """Phase 1's lines on B1's, B2's and B5's cluster launches: ptxas's
+    report (registers, barriers) of each instantiation, and at the paths'
+    shapes the splits (blocks of a cluster), a block's dynamic shared memory
+    and how many such clusters the card holds at once (for B1 also how many
+    blocks an SM holds: three up to 32 rows, by design)."""
     from myriad_tpu_torch.ops import decode_attention as da
     from myriad_tpu_torch.ops import quant
 
@@ -199,11 +203,24 @@ def cluster_launch_report(lib_path) -> None:
         if "Compiling entry function" in line:
             entry = line
         elif "Used" in line or "spill" in line:
-            for name, kernel in (("B2", "decode_attention_cluster_kernel"),
+            for name, kernel in (("B1", "int8_matmul_tc_kernel"),
+                                 ("B2", "decode_attention_cluster_kernel"),
                                  ("B5", "int4_matmul_tc_kernel")):
                 if kernel in entry:
                     print(f"  {name} {entry.split(chr(39))[1]}: "
                           f"{line.split('ptxas info    : ')[-1].strip()}")
+    for m in (1, BATCH, VERIFY_ROWS, CHAT_DELTA_ROWS, 240):
+        for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+            plan = quant.int8_launch(m, k, n)
+            print(f"  B1 launch at M={m} {k}x{n}: grid ({plan['splits']}, {plan['tiles']}) = "
+                  f"{plan['splits'] * plan['tiles']} blocks of 256 threads, cluster "
+                  f"({plan['splits']}, 1, 1); dynamic shared memory {plan['smem']} B a block, "
+                  f"{plan['blocks_per_sm']} blocks an SM; the card holds {plan['clusters']} "
+                  f"such clusters at once", flush=True)
+            check(plan["splits"] == 1 or plan["clusters"] > 0,
+                  f"the card holds no cluster of B1 at M={m}, {k}x{n}")
+            check(m > 32 or plan["blocks_per_sm"] == 3,
+                  f"B1 at M={m}, {k}x{n}: {plan['blocks_per_sm']} blocks an SM, not 3")
     for m in (1, BATCH, VERIFY_ROWS, 240):
         for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
             plan = quant.int4_launch(m, k, n, quant.INT4_GROUP)
@@ -346,24 +363,30 @@ def kernel_checks(dev, seed):
     b7 = Check("B7 stream_sum", "myriad_tpu_torch/csrc/bwprobe.cu",
                "tools/bwprobe.py:42", bwprobe.counter)
 
-    # B1: a bf16 output differs by at most one rounding of its largest value
-    print("B1: tolerance 2^-7 * max|plain| (one bf16 ulp at the largest output); library: "
-          "torch.matmul on the weight dequantized to bf16 beforehand (it reads twice the "
-          "weight bytes)")
+    # B1: a bf16 output differs by at most one rounding of its largest value.
+    # The int8 projections: q, k, v and o are 4096->4096, gate and up
+    # 4096->11008, down 11008->4096; a chat turn's delta prefill is 132 rows.
+    print("B1: tolerance 2^-7 * max|plain| (one bf16 ulp at the largest output); runs twice "
+          "and must give the same bits; library: torch.matmul on the weight dequantized to "
+          "bf16 beforehand (it reads twice the weight bytes)")
     for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
         w8, scale = quant.quantize_per_channel(randn(k, n) * 0.02)
         w_bf16 = (w8.float() * scale).to(bf16)
-        for m in (1, 8, 32, 48):
+        rows = (1, BATCH, VERIFY_ROWS, 48) + ((CHAT_DELTA_ROWS,) if k == n else ())
+        for m in rows:
             x = randn(m, k, dtype=bf16)
             is_main = m == BATCH and (k, n) == (4096, 11008)
-            is_verify = m == VERIFY_ROWS and (k, n) == (4096, 11008)
             work = (m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n)
+            tag = {VERIFY_ROWS: " (verify rows)", CHAT_DELTA_ROWS: " (chat delta)"}.get(m, "")
+            on_path = m in (BATCH, VERIFY_ROWS, CHAT_DELTA_ROWS) and not is_main
             b1.compare(f"M={m} {k}x{n}", lambda: quant.int8_weight_only_matmul(x, w8, scale),
                        lambda: quant.int8_weight_only_matmul_plain(x, w8, scale),
                        lambda ref: 2.0 ** -7 * ref.float().abs().max().item(),
                        library=lambda: torch.matmul(x, w_bf16),
                        main=work if is_main else None,
-                       shape=(f"M={m} (verify rows)", work) if is_verify else None)
+                       shape=(f"M={m}{tag} {k}x{n}", work) if on_path else None,
+                       deterministic=True)
+        del w_bf16
 
     b, h, t, d = BATCH, 32, 416, 128
     kv_len, frontier = 320, 300
@@ -980,7 +1003,7 @@ def _chat_delta_gate(chat, conv, img_list, llama, dev, seed):
         check(err <= 2.0 * floor, "chat turn 2: delta prefill disagrees with a full re-prefill")
 
 
-KERNEL_OF = {"int8_matmul": "B1", "decode_attention_cluster_kernel": "B2",
+KERNEL_OF = {"int8_matmul_tc_kernel": "B1", "decode_attention_cluster_kernel": "B2",
              "prefill_attention_tc_kernel": "B3", "prefill_attention_split_kernel": "B3",
              "prefill_attention_merge_kernel": "B3", "kv_write_kernel": "B4",
              "kv_quantize_write_kernel": "B4", "int4_matmul_tc_kernel": "B5",
@@ -1245,7 +1268,8 @@ def main(argv=None) -> int:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas: " + line.split("ptxas info    : ")[-1].strip())
-    for name, kernel in (("B3", "prefill_attention_tc_kernel"), ("B5", "int4_matmul_tc_kernel")):
+    for name, kernel in (("B1", "int8_matmul_tc_kernel"), ("B3", "prefill_attention_tc_kernel"),
+                         ("B5", "int4_matmul_tc_kernel")):
         hmma, first = sass_count(lib_path, kernel, "HMMA")
         print(f"  sass (cuobjdump -sass): {hmma} HMMA instructions in {name}'s {kernel}, all "
               f"instantiations; first: {first}", flush=True)

@@ -35,19 +35,26 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return kMax ? warp_max(v) : warp_sum(v);
 }
 
-__device__ __forceinline__ float to_float(int8_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Four consecutive elements as floats.  int8: one 4-byte load; bf16: one
-// 8-byte load.  The pointer must be aligned to the load width.
-__device__ __forceinline__ void load4(const int8_t* p, float out[4]) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  out[0] = c.x;
-  out[1] = c.y;
-  out[2] = c.z;
-  out[3] = c.w;
+// Four int8 (one 32-bit word) as floats, exactly, without the conversion
+// unit (a quarter of the FMA rate): each byte, offset by 128, becomes the
+// low byte of the float 2^23 + byte, and subtracting 2^23 + 128 leaves the
+// int8 value.
+__device__ __forceinline__ void int8x4_to_float(uint32_t w, float f[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
 }
 
+// Two floats that are integers of at most 8 significant bits (so bf16
+// holds them exactly: the low 16 bits are zero) as a bf16 pair, low first.
+__device__ __forceinline__ uint32_t exact_bf16x2(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Four consecutive bf16 as floats: one 8-byte load.  The pointer must be
+// 8-byte aligned.
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float out[4]) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
   const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);

@@ -61,13 +61,9 @@
 //   keeps the accumulators of one or two slabs.
 
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include <mutex>
-#include <unordered_map>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -113,54 +109,6 @@ __device__ __forceinline__ __nv_bfloat162 as_bf16x2(uint32_t v) {
   return *reinterpret_cast<__nv_bfloat162*>(&v);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-
-// The issuing thread's arrival, announcing `bytes` of tensor copies.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// An arrival once the calling thread's earlier cp.async copies have landed.
-__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One 2-D tile copy of the tensor memory accelerator into this block's
-// shared memory, at column c0 and row c1 of `map`, completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
-      "{%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // The four bytes of `word` (four columns, one packed row) as four bf16x2 A
 // registers, (low nibble, high nibble) each, times the columns' bf16 scales.
 __device__ __forceinline__ void dequant4(uint32_t word, const uint32_t s[4], uint32_t out[4]) {
@@ -202,9 +150,9 @@ __device__ void issue_stage(const Args& a, const Maps& maps, unsigned char* base
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base + kWBytes + kScaleBytes);
   if (a.vec) {
     if (lane == 0) {
-      mbar_arrive_expect_tx(full, kWBytes + (kUniform ? kScaleBytes : 0));
-      tma_load_2d(base, &maps.w, n0, p0, full);
-      if (kUniform) tma_load_2d(base + kWBytes, &maps.scale, n0, k0 / a.group, full);
+      myriad::mbar_arrive_expect_tx(full, kWBytes + (kUniform ? kScaleBytes : 0));
+      myriad::tma_load_2d(base, &maps.w, n0, p0, full);
+      if (kUniform) myriad::tma_load_2d(base + kWBytes, &maps.scale, n0, k0 / a.group, full);
     }
     for (int i = lane; i < a.M * (kStageK / 8); i += 32) {
       const int m = i / (kStageK / 8), c = i % (kStageK / 8);
@@ -213,7 +161,7 @@ __device__ void issue_stage(const Args& a, const Maps& maps, unsigned char* base
       myriad::cp_async16(xs + m * kXRow + 8 * c, ok ? a.x + (size_t)m * a.K + gk : a.x, ok);
     }
   } else {
-    if (lane == 0) mbar_arrive_expect_tx(full, 0);
+    if (lane == 0) myriad::mbar_arrive_expect_tx(full, 0);
     for (int i = lane; i < kStageP * (kTileN / 4); i += 32) {
       const int p = i / (kTileN / 4), c4 = i % (kTileN / 4);
       const int gn = n0 + 4 * c4;
@@ -234,7 +182,7 @@ __device__ void issue_stage(const Args& a, const Maps& maps, unsigned char* base
       myriad::cp_async4(xs + m * kXRow + 2 * c, ok ? a.x + (size_t)m * a.K + gk : a.x, ok);
     }
   }
-  mbar_arrive_cp_async(full);
+  myriad::mbar_arrive_cp_async(full);
 }
 
 // The bf16x2 (s, s) scales of the thread's kCols columns for input row k,
@@ -284,11 +232,11 @@ int4_matmul_tc_kernel(const __grid_constant__ Maps maps, const Args a) {
   // offsets of the thread's bytes in packed rows t and t + 4 of a weight tile
   const int wlo_off = wchunk(t, col0 / 16) + (col0 & 15);
   const int whi_off = wchunk(t + 4, col0 / 16) + (col0 & 15);
-  unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  unsigned char* smem = smem_raw + ((1024 - myriad::smem_addr(smem_raw) % 1024) % 1024);
 
   if (threadIdx.x < kStages) {
-    mbar_init(&full[threadIdx.x], 33);
-    mbar_init(&empty[threadIdx.x], kWarps);
+    myriad::mbar_init(&full[threadIdx.x], 33);
+    myriad::mbar_init(&empty[threadIdx.x], kWarps);
   }
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   __syncthreads();
@@ -311,11 +259,11 @@ int4_matmul_tc_kernel(const __grid_constant__ Maps maps, const Args a) {
     unsigned char* base = smem + slot * sbytes;
     if (warp == 0 && it > 0 && it - 1 + kStages < nst) {  // refill the slot of stage it - 1
       const int prev = (it - 1) % kStages;
-      mbar_wait(&empty[prev], ((it - 1) / kStages) & 1);
+      myriad::mbar_wait(&empty[prev], ((it - 1) / kStages) & 1);
       issue_stage<kUniform>(a, maps, smem + prev * sbytes, &full[prev],
                             s_begin + it - 1 + kStages, n0, lane);
     }
-    mbar_wait(&full[slot], (it / kStages) & 1);
+    myriad::mbar_wait(&full[slot], (it / kStages) & 1);
     const __nv_bfloat16* xs =
         reinterpret_cast<const __nv_bfloat16*>(base + kWBytes + kScaleBytes);
     const int k0 = (s_begin + it) * kStageK;
@@ -377,7 +325,7 @@ int4_matmul_tc_kernel(const __grid_constant__ Maps maps, const Args a) {
       }
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[slot]);
+    if (lane == 0) myriad::mbar_arrive(&empty[slot]);
   }
   __syncthreads();  // every stage has landed and been read: the ring's memory holds the partials
 
@@ -479,69 +427,15 @@ Plan plan(const void* x, const void* w, const void* scale, void* out, int M, int
   return p;
 }
 
-PFN_cuTensorMapEncodeTiled_v12000 encoder() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
-  }();
-  return fn;
-}
-
-// The tensor maps of a weight, encoded once for each (weight, scales, K, N,
-// group): a map is a function of these alone, and a model holds a few
-// hundred weights.
+// The weight's and the scales' tensor maps (cached in `myriad::tensor_map_2d`).
 cudaError_t tensor_maps(const void* w, const void* scale, int K, int N, int group, Maps* out) {
-  struct Key {
-    const void* w;
-    const void* scale;
-    int K, N, group;
-    bool operator==(const Key& o) const {
-      return w == o.w && scale == o.scale && K == o.K && N == o.N && group == o.group;
-    }
-  };
-  struct Hash {
-    size_t operator()(const Key& k) const {
-      return std::hash<const void*>()(k.w) ^ (std::hash<const void*>()(k.scale) << 1) ^
-             (static_cast<size_t>(k.K) << 20) ^ static_cast<size_t>(k.N) ^
-             (static_cast<size_t>(k.group) << 40);
-    }
-  };
-  static std::mutex mu;
-  static std::unordered_map<Key, Maps, Hash> cache;
-  const Key key{w, scale, K, N, group};
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = cache.find(key);
-  if (it != cache.end()) {
-    *out = it->second;
-    return cudaSuccess;
-  }
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t one[2] = {1, 1};
-  const cuuint64_t w_dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K / 2)};
-  const cuuint64_t w_stride[1] = {static_cast<cuuint64_t>(N)};
-  const cuuint32_t w_box[2] = {kTileN, kStageP};
-  const cuuint64_t s_dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K / group)};
-  const cuuint64_t s_stride[1] = {static_cast<cuuint64_t>(N) * 4};
-  const cuuint32_t s_box[2] = {kTileN, 1};
-  Maps m;
-  if (encode(&m.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), w_dims, w_stride,
-             w_box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      encode(&m.scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(scale), s_dims,
-             s_stride, s_box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  if (cache.size() >= 4096) cache.clear();
-  cache.emplace(key, m);
-  *out = m;
-  return cudaSuccess;
+  cudaError_t e = myriad::tensor_map_2d(&out->w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K / 2, N, N,
+                                        kStageP, kTileN, CU_TENSOR_MAP_SWIZZLE_128B,
+                                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+  if (e != cudaSuccess) return e;
+  return myriad::tensor_map_2d(&out->scale, scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, K / group, N,
+                               static_cast<uint64_t>(N) * 4, 1, kTileN,
+                               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE);
 }
 
 cudaError_t configure(Plan& p, cudaStream_t stream, cudaLaunchConfig_t* cfg,

@@ -120,24 +120,6 @@ __device__ __forceinline__ void zero_shared(char* p, int bytes) {
     *reinterpret_cast<uint4*>(p + i) = make_uint4(0, 0, 0, 0);
 }
 
-// Four int8 (one 32-bit word) as floats, exactly, without the conversion
-// unit (a quarter of the FMA rate): each byte, offset by 128, becomes the
-// low byte of the float 2^23 + byte, and subtracting 2^23 + 128 leaves the
-// int8 value.
-__device__ __forceinline__ void int8x4_to_float(uint32_t w, float f[4]) {
-  const uint32_t u = w ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
-}
-
-// Two floats that are integers of at most 8 significant bits (so bf16
-// holds them exactly: the low 16 bits are zero) as a bf16 pair, low first.
-__device__ __forceinline__ uint32_t exact_bf16x2(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
 // 16 bytes of a shared-memory tile row as floats: 16 int8 or 8 bf16.
 __device__ __forceinline__ void load16(const char* p, const int8_t*, float out[16]) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);

@@ -34,8 +34,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "myriad_int8_matmul_splits": ([_I], _I),
-    "myriad_int8_matmul": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "myriad_int8_matmul": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "myriad_int8_matmul_launch_info": ([_I] * 3 + [_P], _I),
     "myriad_int4_matmul": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "myriad_int4_matmul_launch_info": ([_I] * 4 + [_P], _I),
     "myriad_decode_attention": (

@@ -65,33 +65,52 @@ def int8_weight_only_matmul(x2: torch.Tensor, w8: torch.Tensor,
     """x2 (M, K) @ int8 W (K, N) * scale (N,) -> (M, N) in x2's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches kernel B1
-    (bf16 x, M <= SMALL_M) or raises."""
+    (bf16 x, M <= SMALL_M) or raises.  One launch and one allocation (the
+    output) a call."""
     if not x2.is_cuda:
         return int8_weight_only_matmul_plain(x2, w8, scale)
+    # every check runs at every projection of every decode step: each is a
+    # comparison, and its message is built only when it fails
     m, k = x2.shape
     n = w8.shape[1]
-    _cuda.require(x2.dtype == torch.bfloat16, f"int8_matmul kernel takes bf16 x, got {x2.dtype}")
-    _cuda.require(w8.dtype == torch.int8 and w8.shape[0] == k,
-                  f"weight must be int8 ({k}, N), got {w8.dtype} {tuple(w8.shape)}")
-    _cuda.require(scale.dtype == torch.float32 and tuple(scale.shape) == (n,),
-                  f"scale must be fp32 ({n},), got {scale.dtype} {tuple(scale.shape)}")
-    _cuda.require(1 <= m <= SMALL_M, f"int8_matmul kernel serves 1..{SMALL_M} rows, got {m}")
-    _cuda.require(n % 4 == 0, f"int8_matmul kernel needs N % 4 == 0, got {n}")
-    _cuda.require(w8.device == x2.device and scale.device == x2.device,
-                  "x, weight and scale must be on one device")
-    _cuda.require(x2.is_contiguous() and w8.is_contiguous() and scale.is_contiguous(),
-                  "int8_matmul kernel takes contiguous tensors")
-    _cuda.require(w8.data_ptr() % 16 == 0, "weight must be 16-byte aligned")
-    lib = _cuda.library()
-    splits = lib.myriad_int8_matmul_splits(k)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
+    if x2.dtype != torch.bfloat16:
+        raise ValueError(f"int8_matmul kernel takes bf16 x, got {x2.dtype}")
+    if w8.dtype != torch.int8 or w8.shape[0] != k:
+        raise ValueError(f"weight must be int8 ({k}, N), got {w8.dtype} {tuple(w8.shape)}")
+    if scale.dtype != torch.float32 or scale.shape != (n,):
+        raise ValueError(f"scale must be fp32 ({n},), got {scale.dtype} {tuple(scale.shape)}")
+    if not 1 <= m <= SMALL_M or k < 1:
+        raise ValueError(f"int8_matmul kernel serves 1..{SMALL_M} rows and K >= 1, got "
+                         f"({m}, {k})")
+    if n % 4:
+        raise ValueError(f"int8_matmul kernel needs N % 4 == 0, got {n}")
+    if w8.device != x2.device or scale.device != x2.device:
+        raise ValueError("x, weight and scale must be on one device")
+    if not (x2.is_contiguous() and w8.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("int8_matmul kernel takes contiguous tensors")
+    if w8.data_ptr() % 16:
+        raise ValueError("weight must be 16-byte aligned")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    err = lib.myriad_int8_matmul(x2.data_ptr(), w8.data_ptr(), scale.data_ptr(),
-                                 partial.data_ptr(), out.data_ptr(), m, k, n,
-                                 _cuda.stream_ptr(x2.device))
+    err = _cuda.library().myriad_int8_matmul(x2.data_ptr(), w8.data_ptr(), scale.data_ptr(),
+                                             out.data_ptr(), m, k, n,
+                                             _cuda.stream_ptr(x2.device))
     _cuda.check(err, "int8_matmul")
     counter.count += 1
     return out
+
+
+def int8_launch(m: int, k: int, n: int) -> dict:
+    """Kernel B1's launch at these widths, asked of the card: ``splits``
+    (the blocks of one column tile's cluster, which split K), ``tiles`` (128
+    output columns each), ``smem`` (a block's dynamic shared memory, bytes),
+    ``clusters`` (how many of them the card holds at once; 0 with one split,
+    which launches no cluster) and ``blocks_per_sm`` (how many of its blocks
+    an SM holds at once)."""
+    out = (ctypes.c_int * 5)()
+    _cuda.check(_cuda.library().myriad_int8_matmul_launch_info(m, k, n, out),
+                "int8_matmul launch info")
+    return {"splits": out[0], "tiles": out[1], "smem": out[2], "clusters": out[3],
+            "blocks_per_sm": out[4]}
 
 
 def int8_matmul(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, *,

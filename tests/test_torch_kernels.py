@@ -8,7 +8,7 @@ suite's conftest:
 
 Tolerances: B1 and B5 one bf16 rounding of the largest output (2^-7 *
 max|plain|: the same dequantized weight, fp32 sums in another order, one
-rounding to bf16); B2, B2' and B3 2e-2 absolute (bf16 probabilities and
+rounding to bf16), and none where one-hot rows make every sum exact; B2, B2' and B3 2e-2 absolute (bf16 probabilities and
 outputs, |out| of a few units); B4, B6 and B7 none: B4's writes, B6's IEEE
 divisions and B7's sums of small integers are exact.
 """
@@ -86,6 +86,91 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     kv = torch.zeros(1, 2, 8, 256, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):  # head dim above 128
         da.decode_attention(q, kv, kv)
+
+
+@functools.lru_cache(maxsize=3)
+def _int8_weight(k, n):
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    return quant.quantize_per_channel(torch.randn(k, n, generator=g, device="cuda") * 0.02)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096)])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 16, 31, 32, 33, 64, 132, 240, 256])
+def test_int8_matmul_kernel_row_sweep(dev, m, k, n):
+    """Every row count around the kernel's 8-row tiles and 32-row slabs, at
+    Vicuna-7B's three projection shapes (M = 132: a chat turn's delta)."""
+    w8, scale = _int8_weight(k, n)
+    x = torch.randn(m, k, generator=torch.Generator(device=dev).manual_seed(m), device=dev)
+    x = x.to(torch.bfloat16)
+    out = quant.int8_weight_only_matmul(x, w8, scale)
+    ref = quant.int8_weight_only_matmul_plain(x, w8, scale)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    assert (out.float() - ref.float()).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
+
+
+def _int8_random(dev, k, n, seed=3):
+    """Random int8 weights, -128 included, and scales over several binades."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w8 = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    scale = torch.exp(torch.randn(n, generator=g, device=dev) * 3) * 0.01
+    return w8, scale
+
+
+@pytest.mark.parametrize("k,n", [(4096, 11008), (1000, 36), (1000, 40), (1000, 48), (999, 44)])
+@pytest.mark.parametrize("m", [16, 32])
+def test_int8_matmul_kernel_converts_exactly(dev, m, k, n):
+    """One-hot rows of x pick one weight row each, and the picked rows hold
+    every int8 value: every output is one weight byte times its column's
+    scale, bit-identical to the plain version.  N = 36, 40 and 44 take the
+    4-byte copies; K = 1000 and 999 end inside a stage, through the tensor
+    copy (N = 48) and the element copies of x (K odd)."""
+    w8, scale = _int8_random(dev, k, n)
+    g = torch.Generator(device=dev).manual_seed(m)
+    pick = torch.randperm(k, generator=g, device=dev)[:m]
+    every = torch.arange(m * n, device=dev) % 256 - 128
+    w8[pick] = every.reshape(m, n).to(torch.int8)
+    x = torch.zeros(m, k, device=dev, dtype=torch.bfloat16)
+    x[torch.arange(m, device=dev), pick] = 1.0
+    out = quant.int8_weight_only_matmul(x, w8, scale)
+    ref = quant.int8_weight_only_matmul_plain(x, w8, scale)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 11008), (32, 11008, 4096), (256, 4096, 4096),
+                                   (5, 1000, 36)])
+def test_int8_matmul_kernel_deterministic(dev, m, k, n):
+    """The splits of K are summed in a fixed order: two runs give the same
+    bits."""
+    w8, scale = _int8_random(dev, k, n)
+    x = torch.randn(m, k, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    x = x.to(torch.bfloat16)
+    assert torch.equal(quant.int8_weight_only_matmul(x, w8, scale),
+                       quant.int8_weight_only_matmul(x, w8, scale))
+
+
+@pytest.mark.parametrize("m", [8, 32, 256])
+def test_int8_matmul_kernel_one_launch_no_scratch(dev, m):
+    """One call counts one launch and allocates its output and nothing else:
+    the splits of K meet in the cluster's shared memory."""
+    w8, scale = _int8_random(dev, 4096, 11008)
+    x = torch.randn(m, 4096, device=dev).to(torch.bfloat16)
+    quant.int8_weight_only_matmul(x, w8, scale)  # built and warm
+    torch.cuda.synchronize()
+    before, allocs = quant.counter.count, torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = quant.int8_weight_only_matmul(x, w8, scale)
+    assert quant.counter.count == before + 1
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs + 1
+    assert out.shape == (m, 11008)
+
+
+def test_int8_matmul_launch_plan(dev):
+    """The splits of K fill the card at the three projection shapes, the
+    card holds the clusters, and up to 32 rows three blocks share an SM."""
+    for k, n, splits in ((4096, 4096, 8), (4096, 11008, 4), (11008, 4096, 8)):
+        for m in (8, 16, 32):
+            plan = quant.int8_launch(m, k, n)
+            assert plan["splits"] == splits and plan["tiles"] == -(-n // 128)
+            assert plan["clusters"] > 0 and plan["blocks_per_sm"] == 3
 
 
 def _decode_case(dev, b, kv_len, int8, masked, seed=0, d=128):

@@ -57,20 +57,31 @@ def test_w8a8_matches_jax(rng, m):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("m", [1, 8, 20])
-def test_weight_only_plain_matches_pallas_kernel(rng, m):
+@pytest.mark.parametrize("m,k,n,full_range", [(1, 128, 256, False), (8, 128, 256, False),
+                                               (20, 128, 256, False), (32, 128, 256, False),
+                                               (5, 200, 36, False), (16, 128, 256, True)])
+def test_weight_only_plain_matches_pallas_kernel(rng, m, k, n, full_range):
     """The plain version of kernel B1 against the TPU kernel in interpret
-    mode, both in bf16."""
-    w8, scale = jq.quantize_per_channel(jnp.asarray(rng.normal(size=(128, 256)) * 0.02,
-                                                    jnp.float32))
-    x = _bf16_np(rng.normal(size=(m, 128)))
+    mode, both in bf16: a verify round's 32 rows, a ragged (K, N) that the
+    JAX wrapper pads, and a weight holding every int8 value, -128 included
+    (which the per-channel quantizer never makes), with scales over several
+    binades."""
+    if full_range:
+        w8 = rng.integers(-128, 128, size=(k, n)).astype(np.int8)
+        w8.reshape(-1)[:256] = np.arange(-128, 128)
+        w8, scale = jnp.asarray(w8), jnp.asarray(np.exp(rng.normal(size=n) * 3) * 1e-3,
+                                                 jnp.float32)
+    else:
+        w8, scale = jq.quantize_per_channel(jnp.asarray(rng.normal(size=(k, n)) * 0.02,
+                                                        jnp.float32))
+    x = _bf16_np(rng.normal(size=(m, k)))
     ref = jq.int8_matmul(jnp.asarray(x, jnp.bfloat16), w8, scale, interpret=True,
                          use_pallas=True)
     ref = np.asarray(ref.astype(jnp.float32))
     out = quant.int8_weight_only_matmul(torch.from_numpy(x).to(torch.bfloat16),
                                         torch.from_numpy(np.asarray(w8)),
                                         torch.from_numpy(np.asarray(scale)))
-    assert out.dtype == torch.bfloat16
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
                                atol=2.0 ** -7 * np.abs(ref).max())
 
