@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths once on one CUDA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent DIR [--parent-kernels B4,B6]]
 
 Phases, each printing its own lines:
 
@@ -28,9 +28,11 @@ Phases, each printing its own lines:
    every bound is printed again at that rate.  B3's speculative verify chunk
    (4 rows, ragged positions), B1 and B5 at 8 and 32 rows at each of the
    three projection shapes (and run twice, the same bits), B1 at a chat
-   turn's 132-row delta prefill, and B2 and B2' at kv_len 8192 are path
-   shapes of their own,
-   with their times and bounds under ``shapes`` in the summary;
+   turn's 132-row delta prefill, B2 and B2' at kv_len 8192, B4's copy (with
+   an indexed assignment as its library call), B4's quantize-and-write at a
+   greedy and a chat decode step, a prefill chunk and its launch floor (one
+   row of 8), and B6 to bf16 are path shapes of their own, with their times
+   and bounds under ``shapes`` in the summary;
 3. build Myriad at full width (EVA-ViT-g, Q-Former, ImageBind-huge,
    Vicuna-7B with int8 weights and an int8 KV cache, towers in bf16) with
    random weights drawn from --seed on the card, and run ``generate``
@@ -59,6 +61,12 @@ Phases, each printing its own lines:
    plain path's), ``device_preprocess(use_pallas=True)`` on the batch's
    images (kernel B6) and the bandwidth probe's CLI
    (``myriad_tpu_torch.tools.bwprobe``, kernel B7, 4 GiB a pass).
+
+With ``--parent DIR`` (a checkout of another tree, such as the parent
+commit's), phase 1 also builds DIR's kernels, compares their SASS with this
+tree's function by function, and runs phase 2's checks of the kernels that
+``--parent-kernels`` names (all by default) on DIR's package and this
+tree's in turns (parent, change, change, parent).
 
 Each path is driven with every launch count set to 0 just before it and read
 just after.  The last two lines are a JSON summary of the kernels and the
@@ -154,6 +162,11 @@ def _device_ms(fn, launches: int = 10, repeats: int = 21) -> float:
     return statistics.median(times)
 
 
+def exact(ref) -> float:
+    """The tolerance of a kernel that must give its plain version's bits."""
+    return 0.0
+
+
 def check(cond, what) -> None:
     """A failed check ends the run with a non-zero exit and no result line."""
     if not cond:
@@ -242,6 +255,76 @@ def cluster_launch_report(lib_path) -> None:
               f"the card holds no cluster of B2 at B={rows}, kv_len={kv_len}")
 
 
+# kernel source of each function name in the library, for the SASS comparison
+SASS_TAGS = (("int8_matmul", "B1"), ("decode_attention", "B2/B2'"), ("prefill_attention", "B3"),
+             ("kv_", "B4"), ("int4_matmul", "B5"), ("u8_normalize", "B6"), ("stream_sum", "B7"))
+
+
+def sass_functions(lib_path) -> dict:
+    """{function: its SASS lines} of a built library, from ``cuobjdump
+    -sass``, with each build's anonymous-namespace tag taken out of the
+    names."""
+    import re
+
+    from myriad_tpu_torch.ops import _cuda
+
+    anon = re.compile(r"\d*_GLOBAL__N__[0-9a-f]+_\d+_\w*?_cu_[0-9a-f]{8}")
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {res.stderr.strip()}")
+    funcs, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = anon.sub("ANON", line.split("Function :")[-1].strip())
+            funcs[name] = []
+        elif name and line.strip().startswith("/*"):
+            funcs[name].append(anon.sub("ANON", line.strip()))
+    return funcs
+
+
+def parent_comparison(parent, kernels, seed, lib_path) -> None:
+    """``--parent DIR`` (a checkout of another tree, e.g. the parent
+    commit's): build DIR's kernels, compare their SASS with this tree's
+    function by function, then run phase 2's checks of ``kernels`` (names
+    from ``PHASE2``) on DIR's package and this tree's in turns (parent,
+    change, change, parent), each in a process of its own, on the same
+    card."""
+    parent = os.path.abspath(parent)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from myriad_tpu_torch.ops import _cuda; print(_cuda.build())")
+    res = subprocess.run([sys.executable, "-c", code, parent], capture_output=True, text=True,
+                         timeout=600, cwd=parent)
+    check(res.returncode == 0, f"the parent's kernels did not build: {res.stderr[-2000:]}")
+    old, new = sass_functions(res.stdout.strip().splitlines()[-1]), sass_functions(lib_path)
+    for key, tag in SASS_TAGS:
+        names = sorted(n for n in set(old) | set(new) if key in n)
+        notes = []
+        for n in names:
+            if n not in old or n not in new:
+                notes.append(f"only in {'parent' if n in old else 'this tree'}: {n[:80]}")
+            elif old[n] != new[n]:
+                notes.append(f"differs: {n[:80]}")
+        print(f"  sass (cuobjdump -sass) against --parent: {tag} ({key}): "
+              f"{len(names) - len(notes)} of {len(names)} functions identical"
+              + "".join(f"; {x}" for x in notes), flush=True)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as c; "
+            "sys.path.insert(0, sys.argv[2]); import torch; "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "c.kernel_checks(torch.device('cuda', 0), int(sys.argv[3]), sys.argv[4].split(','))")
+    for which, tree in (("parent", parent), ("change", REPO), ("change", REPO),
+                        ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", code, REPO, tree, str(seed),
+                              ",".join(kernels)],
+                             capture_output=True, text=True, timeout=600, cwd=REPO)
+        for line in res.stdout.splitlines():
+            if line.startswith("  B"):
+                print(f"  [{which}] {line.strip()}", flush=True)
+        check(res.returncode == 0, f"phase 2's {', '.join(kernels)} on {tree} failed: "
+              f"{res.stderr[-2000:]}")
+
+
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_S,
           bytes_s: float = PEAK_BYTES_S):
     """(ms, "bytes" or "operations"): the least time the card could take,
@@ -264,6 +347,7 @@ class Check:
         self.by_path = {}
         self.main = None  # (bytes, operations[, peak]) of the path's shape
         self.bound_measured_ms = None  # bytes at B7's measured bandwidth
+        self.measured_bytes_s = None  # B7's: the card's measured streaming bandwidth
         self.shapes = []  # every path shape: its times and bound
 
     def compare(self, label, kernel, plain, tol_of, *, outputs=None, main=None, library=None,
@@ -285,7 +369,11 @@ class Check:
         err = (out.float() - ref.float()).abs().max().item()
         tol = tol_of(ref)
         ok = bool(torch.isfinite(out.float()).all()) and err <= tol
-        same = torch.equal(out, kernel()) if deterministic else None
+        same = None
+        if deterministic:  # in place (``outputs``): the same call again, the same bits
+            first = out.clone()
+            again = kernel()
+            same = torch.equal(first, outputs()[0] if outputs is not None else again)
         self.max_err = max(self.max_err, err)
         eager_ms = _time_ms(kernel)
         ms, plain_ms = _device_ms(kernel), _device_ms(plain)
@@ -327,54 +415,77 @@ class Check:
                 "shapes": [{k: v for k, v in sh.items() if k != "work"} for sh in self.shapes]}
 
 
-def kernel_checks(dev, seed):
-    """Phase 2: each kernel against its plain version at the paths' shapes."""
+def kernel_checks(dev, seed, only=None):
+    """Phase 2: each kernel against its plain version at the paths' shapes,
+    in the order of ``PHASE2``.  ``only`` (names from ``PHASE2``, such as
+    ("B4", "B6")) runs those kernels' checks alone, to time another tree's
+    package beside this one's (``--parent``).  Returns the kernels' checks."""
     import torch
-    import torch.nn.functional as F
 
     from myriad_tpu_torch.ops import decode_attention as da
     from myriad_tpu_torch.ops import kv_write as kw
     from myriad_tpu_torch.ops import prefill_attention as pa
     from myriad_tpu_torch.ops import preprocess as pp
     from myriad_tpu_torch.ops import quant
-    from myriad_tpu_torch.ops.attention import causal_mask
     from myriad_tpu_torch.tools import bwprobe
 
     g = torch.Generator(device=dev).manual_seed(seed)
+    checks = {
+        "B1": Check("B1 int8_matmul", "myriad_tpu_torch/csrc/int8_matmul.cu",
+                    "myriad_tpu/ops/quant.py:73", quant.counter),
+        "B2": Check("B2 decode_attention", "myriad_tpu_torch/csrc/decode_attention.cu",
+                    "myriad_tpu/ops/decode_attention.py:31", da.counter),
+        "B3": Check("B3 prefill_attention", "myriad_tpu_torch/csrc/prefill_attention.cu",
+                    "myriad_tpu/ops/prefill_attention.py:37", pa.counter),
+        "B4": Check("B4 kv_write", "myriad_tpu_torch/csrc/kv_write.cu",
+                    "myriad_tpu/ops/kv_write.py:56", kw.counter),
+        "B5": Check("B5 int4_matmul", "myriad_tpu_torch/csrc/int4_matmul.cu",
+                    "myriad_tpu/ops/quant.py:247", quant.counter4),
+        "B2'": Check("B2' decode_attention_rows", "myriad_tpu_torch/csrc/decode_attention.cu",
+                     "myriad_tpu/ops/decode_attention.py:56", da.counter_rows),
+        "B6": Check("B6 u8_normalize", "myriad_tpu_torch/csrc/preprocess.cu",
+                    "myriad_tpu/ops/preprocess.py:69", pp.counter),
+        "B7": Check("B7 stream_sum", "myriad_tpu_torch/csrc/bwprobe.cu",
+                    "tools/bwprobe.py:42", bwprobe.counter),
+    }
+    inputs = {}  # the attention kernels' caches, built once for B2, B3 and B2'
+    ran = []
+    for name, run in PHASE2:
+        if only is None or name in only:
+            run(dev, g, checks[name], inputs)
+            ran.append(checks[name])
+    inputs.clear()
+    measured = checks["B7"].measured_bytes_s
+    if measured is not None:
+        for c in ran:
+            c.bound_measured_ms = bound(*c.main, bytes_s=measured)[0]
+            for sh in c.shapes:
+                sh["bound_ms_at_measured_bandwidth"] = bound(*sh["work"], bytes_s=measured)[0]
+            print(f"  {c.name}: bound {c.bound_ms:.6f} ms at the data sheet's "
+                  f"{PEAK_BYTES_S / 1e12:.2f} TB/s, {c.bound_measured_ms:.6f} ms at the "
+                  f"measured {measured / 1e12:.4f} TB/s; kernel {c.ms:.4f} ms")
+    return ran
+
+
+def b1_checks(dev, g, b1, inputs):
+    """Phase 2's B1 at the int8 projections: q, k, v and o are 4096->4096,
+    gate and up 4096->11008, down 11008->4096; a chat turn's delta prefill
+    is 132 rows.  A bf16 output differs by at most one rounding of its
+    largest value."""
+    import torch
+
+    from myriad_tpu_torch.ops import quant
+
     bf16 = torch.bfloat16
-
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=g, device=dev).to(dtype)
-
-    b1 = Check("B1 int8_matmul", "myriad_tpu_torch/csrc/int8_matmul.cu",
-               "myriad_tpu/ops/quant.py:73", quant.counter)
-    b2 = Check("B2 decode_attention", "myriad_tpu_torch/csrc/decode_attention.cu",
-               "myriad_tpu/ops/decode_attention.py:31", da.counter)
-    b3 = Check("B3 prefill_attention", "myriad_tpu_torch/csrc/prefill_attention.cu",
-               "myriad_tpu/ops/prefill_attention.py:37", pa.counter)
-    b4 = Check("B4 kv_write", "myriad_tpu_torch/csrc/kv_write.cu",
-               "myriad_tpu/ops/kv_write.py:56", kw.counter)
-    b5 = Check("B5 int4_matmul", "myriad_tpu_torch/csrc/int4_matmul.cu",
-               "myriad_tpu/ops/quant.py:247", quant.counter4)
-    b2r = Check("B2' decode_attention_rows", "myriad_tpu_torch/csrc/decode_attention.cu",
-                "myriad_tpu/ops/decode_attention.py:56", da.counter_rows)
-    b6 = Check("B6 u8_normalize", "myriad_tpu_torch/csrc/preprocess.cu",
-               "myriad_tpu/ops/preprocess.py:69", pp.counter)
-    b7 = Check("B7 stream_sum", "myriad_tpu_torch/csrc/bwprobe.cu",
-               "tools/bwprobe.py:42", bwprobe.counter)
-
-    # B1: a bf16 output differs by at most one rounding of its largest value.
-    # The int8 projections: q, k, v and o are 4096->4096, gate and up
-    # 4096->11008, down 11008->4096; a chat turn's delta prefill is 132 rows.
     print("B1: tolerance 2^-7 * max|plain| (one bf16 ulp at the largest output); runs twice "
           "and must give the same bits; library: torch.matmul on the weight dequantized to "
           "bf16 beforehand (it reads twice the weight bytes)")
     for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
-        w8, scale = quant.quantize_per_channel(randn(k, n) * 0.02)
+        w8, scale = quant.quantize_per_channel(_randn(g, dev, k, n) * 0.02)
         w_bf16 = (w8.float() * scale).to(bf16)
         rows = (1, BATCH, VERIFY_ROWS, 48) + ((CHAT_DELTA_ROWS,) if k == n else ())
         for m in rows:
-            x = randn(m, k, dtype=bf16)
+            x = _randn(g, dev, m, k, dtype=bf16)
             is_main = m == BATCH and (k, n) == (4096, 11008)
             work = (m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n)
             tag = {VERIFY_ROWS: " (verify rows)", CHAT_DELTA_ROWS: " (chat delta)"}.get(m, "")
@@ -388,56 +499,156 @@ def kernel_checks(dev, seed):
                        deterministic=True)
         del w_bf16
 
-    b, h, t, d = BATCH, 32, 416, 128
-    kv_len, frontier = 320, 300
-    print("B2/B3: tolerance 2e-2 absolute (bf16 probabilities and outputs; |out| <~ 3); "
-          "library: scaled_dot_product_attention with the additive mask on the cache "
-          "dequantized to bf16")
-    q1 = randn(b, h, 1, d, dtype=bf16)
-    kf, vf = randn(b, h, t, d), randn(b, h, t, d)
-    k8, ks = kw.quantize_kv(kf)
-    v8, vs = kw.quantize_kv(vf)
-    ks, vs = ks.half(), vs.half()
-    kbf, vbf = kf.to(bf16), vf.to(bf16)
-    kdq, vdq = (k8.float() * ks.float()).to(bf16), (v8.float() * vs.float()).to(bf16)
-    kpos = torch.arange(kv_len, device=dev)
-    mask = torch.where(kpos <= frontier, 0.0, -1e9).float()[None, None, None].expand(
-        b, 1, 1, kv_len).contiguous()
-    kdq_len, vdq_len = kdq[:, :, :kv_len].contiguous(), vdq[:, :, :kv_len].contiguous()
 
-    def decode_bytes(rows, n):
-        """Bytes of one int8 decode call: q and out, K and V of n positions
-        with their fp16 scales, and the fp32 mask, for `rows` batch rows."""
-        return 2 * rows * h * d * 2 + 2 * rows * h * n * d + 2 * rows * h * n * 2 + rows * n * 4
+def _randn(g, dev, *shape, dtype=None):
+    import torch
 
-    print("B2: one launch, the splits of each (b, h) one thread-block cluster merged in "
-          "distributed shared memory; runs twice and must give the same bits")
-    for label, kk, vv, kss, vss in (("int8", k8, v8, ks, vs), ("bf16", kbf, vbf, None, None)):
-        args = dict(mask=mask, scale=d ** -0.5, k_scale=kss, v_scale=vss, kv_len=kv_len)
+    x = torch.randn(*shape, generator=g, device=dev)
+    return x if dtype is None else x.to(dtype)
+
+
+# the attention kernels' cache: B = 8, H = 32, T = 416, D = 128, read to
+# kv_len 320 with the frontier at 300; the long cache has 8192 positions
+ATT_B, ATT_H, ATT_T, ATT_D = BATCH, 32, 416, 128
+KV_LEN, FRONTIER, LONG_T = 320, 300, 8192
+
+
+def _attention_inputs(inputs, dev, g):
+    """The int8 and bf16 caches, the decode query and mask that B2, B3 and
+    B2' read, built on first use."""
+    import torch
+
+    from myriad_tpu_torch.ops import kv_write as kw
+
+    if "k8" not in inputs:
+        b, h, t, d = ATT_B, ATT_H, ATT_T, ATT_D
+        bf16 = torch.bfloat16
+        q1 = _randn(g, dev, b, h, 1, d, dtype=bf16)
+        kf, vf = _randn(g, dev, b, h, t, d), _randn(g, dev, b, h, t, d)
+        k8, ks = kw.quantize_kv(kf)
+        v8, vs = kw.quantize_kv(vf)
+        ks, vs = ks.half(), vs.half()
+        kdq, vdq = (k8.float() * ks.float()).to(bf16), (v8.float() * vs.float()).to(bf16)
+        kpos = torch.arange(KV_LEN, device=dev)
+        mask = torch.where(kpos <= FRONTIER, 0.0, -1e9).float()[None, None, None].expand(
+            b, 1, 1, KV_LEN).contiguous()
+        inputs.update(q1=q1, k8=k8, v8=v8, ks=ks, vs=vs, kbf=kf.to(bf16), vbf=vf.to(bf16),
+                      kdq=kdq, vdq=vdq, mask=mask,
+                      kdq_len=kdq[:, :, :KV_LEN].contiguous(),
+                      vdq_len=vdq[:, :, :KV_LEN].contiguous())
+    return inputs
+
+
+def _long_cache(inputs, dev, g):
+    """An int8 cache of 8192 positions at batch 8, its bf16 dequantization
+    and a zero mask, built on first use."""
+    import torch
+
+    from myriad_tpu_torch.ops import kv_write as kw
+
+    if "kl8" not in inputs:
+        b, h, n, d = ATT_B, ATT_H, LONG_T, ATT_D
+        kl8, kls = kw.quantize_kv(_randn(g, dev, b, h, n, d))
+        vl8, vls = kw.quantize_kv(_randn(g, dev, b, h, n, d))
+        kls, vls = kls.half(), vls.half()
+        inputs.update(kl8=kl8, vl8=vl8, kls=kls, vls=vls,
+                      kldq=(kl8.float() * kls.float()).to(torch.bfloat16),
+                      vldq=(vl8.float() * vls.float()).to(torch.bfloat16),
+                      lmask=torch.zeros(b, 1, 1, n, device=dev))
+    return inputs
+
+
+def _decode_bytes(rows, n):
+    """Bytes of one int8 decode call: q and out, K and V of n positions with
+    their fp16 scales, and the fp32 mask, for `rows` batch rows."""
+    h, d = ATT_H, ATT_D
+    return 2 * rows * h * d * 2 + 2 * rows * h * n * d + 2 * rows * h * n * 2 + rows * n * 4
+
+
+def _decode_checks(check, kernel, plain, a, long_rows):
+    """B2's or B2''s checks: the cache at kv_len 320 (int8, the path shape,
+    and bf16), at 333 (ends inside a key tile and a split), and on the long
+    cache at each batch of ``long_rows`` ((rows, kv_len) pairs)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, t, d = ATT_B, ATT_H, ATT_T, ATT_D
+    bf16 = torch.bfloat16
+    q1, mask = a["q1"], a["mask"]
+    for label, kk, vv, kss, vss in (("int8", a["k8"], a["v8"], a["ks"], a["vs"]),
+                                    ("bf16", a["kbf"], a["vbf"], None, None)):
+        args = dict(mask=mask, scale=d ** -0.5, k_scale=kss, v_scale=vss, kv_len=KV_LEN)
         is_main = label == "int8"
-        b2.compare(f"{label} B={b} H={h} T={t} kv_len={kv_len} D={d}",
-                   lambda: da.decode_attention(q1, kk, vv, **args),
-                   lambda: da.decode_attention_plain(q1, kk, vv, **args),
-                   lambda ref: 2e-2,
-                   library=(lambda: F.scaled_dot_product_attention(
-                       q1, kdq_len, vdq_len, attn_mask=mask.to(bf16), scale=d ** -0.5))
-                   if is_main else None,
-                   main=(decode_bytes(b, kv_len), 4 * b * h * kv_len * d) if is_main else None,
-                   deterministic=True)
+        check.compare(f"{label} B={b} H={h} T={t} kv_len={KV_LEN} D={d}",
+                      lambda: kernel(q1, kk, vv, **args), lambda: plain(q1, kk, vv, **args),
+                      lambda ref: 2e-2,
+                      library=(lambda: F.scaled_dot_product_attention(
+                          q1, a["kdq_len"], a["vdq_len"], attn_mask=mask.to(bf16),
+                          scale=d ** -0.5)) if is_main else None,
+                      main=(_decode_bytes(b, KV_LEN), 4 * b * h * KV_LEN * d) if is_main
+                      else None,
+                      deterministic=True)
     n = 333  # ends inside a key tile and inside a split
     args = dict(mask=mask[..., :1].expand(b, 1, 1, n).contiguous(), scale=d ** -0.5,
-                k_scale=ks, v_scale=vs, kv_len=n)
-    b2.compare(f"int8 B={b} H={h} T={t} kv_len={n} D={d}",
-               lambda: da.decode_attention(q1, k8, v8, **args),
-               lambda: da.decode_attention_plain(q1, k8, v8, **args),
-               lambda ref: 2e-2, deterministic=True)
+                k_scale=a["ks"], v_scale=a["vs"], kv_len=n)
+    check.compare(f"int8 B={b} H={h} T={t} kv_len={n} D={d}",
+                  lambda: kernel(q1, a["k8"], a["v8"], **args),
+                  lambda: plain(q1, a["k8"], a["v8"], **args),
+                  lambda ref: 2e-2, deterministic=True)
+    n = LONG_T
+    for rows, kv in long_rows:
+        qq, kk, vv = q1[:rows], a["kl8"][:rows], a["vl8"][:rows]
+        mk = a["lmask"][:rows, ..., :kv].contiguous()
+        kdq_kv = a["kldq"][:rows, :, :kv].contiguous()
+        vdq_kv = a["vldq"][:rows, :, :kv].contiguous()
+        args = dict(mask=mk, scale=d ** -0.5, k_scale=a["kls"][:rows], v_scale=a["vls"][:rows],
+                    kv_len=kv)
+        work = (_decode_bytes(rows, kv), 4 * rows * h * kv * d)
+        where = "chat turn" if kv == CHAT_KV_LEN else f"kv_len {kv}"
+        check.compare(f"int8 B={rows} H={h} T={n} kv_len={kv} D={d}",
+                      lambda: kernel(qq, kk, vv, **args), lambda: plain(qq, kk, vv, **args),
+                      lambda ref: 2e-2,
+                      library=lambda: F.scaled_dot_product_attention(
+                          qq, kdq_kv, vdq_kv, attn_mask=mk.to(bf16), scale=d ** -0.5),
+                      shape=(f"batch {rows}, {where}", work), deterministic=True)
 
+
+def b2_checks(dev, g, b2, inputs):
+    """Phase 2's B2: one launch, the splits of each (b, h) one cluster; also
+    on the long cache at batch 8 and 1, and at batch 1 at a chat turn's
+    kv_len, the positions read through the cache's strides."""
+    from myriad_tpu_torch.ops import decode_attention as da
+
+    print("B2/B3/B2': tolerance 2e-2 absolute (bf16 probabilities and outputs; |out| <~ 3); "
+          "library: scaled_dot_product_attention with the additive mask on the cache "
+          "dequantized to bf16")
+    print("B2: one launch, the splits of each (b, h) one thread-block cluster merged in "
+          "distributed shared memory; runs twice and must give the same bits; also on a "
+          "cache of 8192 positions at batch 8 and 1, and at batch 1 at a chat turn's kv_len")
+    _decode_checks(b2, da.decode_attention, da.decode_attention_plain,
+                   _long_cache(_attention_inputs(inputs, dev, g), dev, g),
+                   ((ATT_B, LONG_T), (1, LONG_T), (1, CHAT_KV_LEN)))
+
+
+def b3_checks(dev, g, b3, inputs):
+    """Phase 2's B3: 16 rows or more on the tensor cores, fewer with the keys
+    split over blocks; the 4-row verify chunk with ragged positions is a
+    path shape of its own."""
+    import torch
+    import torch.nn.functional as F
+
+    from myriad_tpu_torch.ops import prefill_attention as pa
+    from myriad_tpu_torch.ops.attention import causal_mask
+
+    a = _attention_inputs(inputs, dev, g)
+    b, h, t, d = ATT_B, ATT_H, ATT_T, ATT_D
+    bf16 = torch.bfloat16
     ragged = torch.tensor([297, 300, 310, 299, 305, 301, 296, 320], device=dev,
                           dtype=torch.int32)
     print("B3: 16 rows or more on the tensor cores, fewer with the keys split over blocks; "
           "the 4-row verify chunk with ragged positions is a path shape of its own")
     for tq, offset in ((297, 0), (33, 264), (7, 290), (SPEC_K + 1, None)):
-        qq = randn(b, h, tq, d, dtype=bf16)
+        qq = _randn(g, dev, b, h, tq, d, dtype=bf16)
         start = ragged if offset is None else torch.full((b,), offset, device=dev,
                                                          dtype=torch.int32)
         pos = (start[:, None] + torch.arange(tq, device=dev, dtype=torch.int32)[None]
@@ -449,8 +660,8 @@ def kernel_checks(dev, seed):
         pairs = int((pos.long() + 1).clamp(max=t).sum()) * h
         nbytes = 2 * b * h * tq * d * 2 + h * row_keys * (2 * d + 2 * 2) + b * tq * 4
         cmask = causal_mask(pos, t).to(bf16)
-        for label, kk, vv, kss, vss in (("int8", k8, v8, ks, vs),
-                                        ("bf16", kbf, vbf, None, None)):
+        for label, kk, vv, kss, vss in (("int8", a["k8"], a["v8"], a["ks"], a["vs"]),
+                                        ("bf16", a["kbf"], a["vbf"], None, None)):
             args = dict(scale=d ** -0.5, k_scale=kss, v_scale=vss)
             is_main = label == "int8" and tq == 297
             is_verify = label == "int8" and offset is None
@@ -459,66 +670,30 @@ def kernel_checks(dev, seed):
                        lambda: pa.prefill_attention_plain(qq, kk, vv, pos, **args),
                        lambda ref: 2e-2,
                        library=(lambda: F.scaled_dot_product_attention(
-                           qq, kdq, vdq, attn_mask=cmask, scale=d ** -0.5))
+                           qq, a["kdq"], a["vdq"], attn_mask=cmask, scale=d ** -0.5))
                        if is_main or is_verify else None,
                        main=(nbytes, 4 * d * pairs) if is_main else None,
                        shape=("verify", (nbytes, 4 * d * pairs)) if is_verify else None,
                        deterministic=True)
 
-    # B4: per-row starts include two that clamp (413 and 1000 -> T - t)
-    print("B4: bit-exact (tolerance 0): copy mode on an int8 payload, fp16 scales (D=1) "
-          "and a bf16 cache, and the fused quantize-and-write, with per-row starts of which "
-          "two clamp; library (copy mode, bf16 cache): one indexed assignment; none computes "
-          "the fused quantize-and-write")
-    starts = torch.tensor([300, 412, 0, 413, 37, 200, 5, 1000], device=dev, dtype=torch.int32)
-    tw = SPEC_K + 1
-    rows = torch.arange(b, device=dev)[:, None].expand(b, tw)
-    cols = starts.long().clamp(0, t - tw)[:, None] + torch.arange(tw, device=dev)[None]
-    exact = lambda ref: 0.0  # noqa: E731
-    for label, dtype, dd in (("int8 payload", torch.int8, d), ("fp16 scales", torch.float16, 1),
-                             ("bf16 cache", bf16, d)):
-        buf = (randn(b, h, t, dd) * 50).clamp(-127, 127).to(dtype)
-        # the attention's layout: (B, t, H, D) transposed
-        upd = (randn(b, tw, h, dd) * 50).clamp(-127, 127).to(dtype).transpose(1, 2)
-        out, ref, lib = buf.clone(), buf.clone(), buf.clone()
-        upd_rows = upd.transpose(1, 2).contiguous()
 
-        def assign(lib=lib, upd_rows=upd_rows):
-            lib[rows, :, cols] = upd_rows
-        b4.compare(f"copy {label} B={b} H={h} T={t} t={tw} D={dd}",
-                   lambda: kw.kv_cache_write(out, upd, starts),
-                   lambda: kw.kv_cache_write_plain(ref, upd, starts), exact,
-                   library=assign if label == "bf16 cache" else None)
-    for tw_q in (1, SPEC_K + 1, 297):
-        idx = starts if tw_q < 297 else 0
-        k = (randn(b, tw_q, h, d) * 4).to(bf16).transpose(1, 2)
-        v = randn(b, tw_q, h, d).to(bf16).transpose(1, 2)
-        bufs = [torch.randint(-127, 128, (b, h, t, d), generator=g, device=dev,
-                              dtype=torch.int8) for _ in range(2)]
-        bufs += [torch.rand(b, h, t, 1, generator=g, device=dev).half() for _ in range(2)]
-        outs, refs = [x.clone() for x in bufs], [x.clone() for x in bufs]
-        is_main = tw_q == SPEC_K + 1
-        nbytes = 2 * b * h * tw_q * d * 2 + 2 * b * h * tw_q * d + 2 * b * h * tw_q * 2 + b * 4
-        b4.compare(f"quantize-and-write B={b} H={h} T={t} t={tw_q} D={d} "
-                   f"{'per-row starts' if tw_q < 297 else 'start 0'}",
-                   lambda: kw.kv_quantize_write(*outs, k, v, idx),
-                   lambda: kw.kv_quantize_write_plain(*refs, k, v, idx), exact,
-                   outputs=lambda: (torch.cat([x.flatten().float() for x in outs]),
-                                    torch.cat([x.flatten().float() for x in refs])),
-                   # abs, max, divide, round per element, in fp32
-                   main=(nbytes, 4 * 2 * b * h * tw_q * d, PEAK_FP32_S) if is_main else None)
+def b5_checks(dev, g, b5, inputs):
+    """Phase 2's B5 at the int4 projections at group 128: q, k, v and o are
+    4096->4096, gate and up 4096->11008, down 11008->4096."""
+    import torch
 
-    # B5: the int4 projections at group 128: q, k, v and o are 4096->4096,
-    # gate and up 4096->11008, down 11008->4096
+    from myriad_tpu_torch.ops import quant
+
+    bf16 = torch.bfloat16
     print("B5: tolerance 2^-7 * max|plain| (the same bf16 dequantized weight, fp32 sums in "
           "another order, one bf16 rounding); runs twice and must give the same bits; "
           "library: torch.matmul on the int4 weight dequantized to bf16 beforehand (it reads "
           "four times the weight bytes)")
     for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
-        w4, s4 = quant.quantize_int4_grouped(randn(k, n) * 0.02)
+        w4, s4 = quant.quantize_int4_grouped(_randn(g, dev, k, n) * 0.02)
         w_bf16 = quant.dequant_int4(w4, s4).to(bf16)
         for m in (1, BATCH, VERIFY_ROWS):
-            x = randn(m, k, dtype=bf16)
+            x = _randn(g, dev, m, k, dtype=bf16)
             is_main = m == BATCH and (k, n) == (4096, 11008)
             work = (m * k * 2 + k * n // 2 + s4.numel() * 4 + m * n * 2, 2 * m * k * n)
             name = f"M={m}{' (verify rows)' if m == VERIFY_ROWS else ''} {k}x{n}"
@@ -531,89 +706,26 @@ def kernel_checks(dev, seed):
                        deterministic=True)
         del w_bf16
 
-    # B2': B2's shapes, a kv_len that ends inside a key tile and a split, and
-    # a cache of 8192 positions
+
+def b2r_checks(dev, g, b2r, inputs):
+    """Phase 2's B2': B2's shapes, and the long cache at batch 8 and 1."""
+    from myriad_tpu_torch.ops import decode_attention as da
+
     print("B2': tolerance 2e-2 absolute, as B2; library: scaled_dot_product_attention on the "
           "cache dequantized to bf16")
+    _decode_checks(b2r, da.decode_attention_rows, da.decode_attention_rows_plain,
+                   _long_cache(_attention_inputs(inputs, dev, g), dev, g),
+                   ((ATT_B, LONG_T), (1, LONG_T)))
 
-    for label, kk, vv, kss, vss in (("int8", k8, v8, ks, vs), ("bf16", kbf, vbf, None, None)):
-        args = dict(mask=mask, scale=d ** -0.5, k_scale=kss, v_scale=vss, kv_len=kv_len)
-        is_main = label == "int8"
-        b2r.compare(f"{label} B={b} H={h} T={t} kv_len={kv_len} D={d}",
-                    lambda: da.decode_attention_rows(q1, kk, vv, **args),
-                    lambda: da.decode_attention_rows_plain(q1, kk, vv, **args),
-                    lambda ref: 2e-2,
-                    library=(lambda: F.scaled_dot_product_attention(
-                        q1, kdq_len, vdq_len, attn_mask=mask.to(bf16), scale=d ** -0.5))
-                    if is_main else None,
-                    main=(decode_bytes(b, kv_len), 4 * b * h * kv_len * d) if is_main else None,
-                    deterministic=True)
-    n = 333
-    args = dict(mask=mask[..., :1].expand(b, 1, 1, n).contiguous(), scale=d ** -0.5,
-                k_scale=ks, v_scale=vs, kv_len=n)
-    b2r.compare(f"int8 B={b} H={h} T={t} kv_len={n} D={d}",
-                lambda: da.decode_attention_rows(q1, k8, v8, **args),
-                lambda: da.decode_attention_rows_plain(q1, k8, v8, **args),
-                lambda ref: 2e-2, deterministic=True)
-    del kf, vf, kbf, vbf, kdq, vdq, k8, v8
-    n = 8192
-    kl8, kls = kw.quantize_kv(randn(b, h, n, d))
-    vl8, vls = kw.quantize_kv(randn(b, h, n, d))
-    kls, vls = kls.half(), vls.half()
-    kldq, vldq = (kl8.float() * kls.float()).to(bf16), (vl8.float() * vls.float()).to(bf16)
-    lmask = torch.zeros(b, 1, 1, n, device=dev)
-    args = dict(mask=lmask, scale=d ** -0.5, k_scale=kls, v_scale=vls, kv_len=n)
-    b2r.compare(f"int8 B={b} H={h} T={n} kv_len={n} D={d}",
-                lambda: da.decode_attention_rows(q1, kl8, vl8, **args),
-                lambda: da.decode_attention_rows_plain(q1, kl8, vl8, **args),
-                lambda ref: 2e-2,
-                library=lambda: F.scaled_dot_product_attention(
-                    q1, kldq, vldq, attn_mask=lmask.to(bf16), scale=d ** -0.5),
-                shape=(f"kv_len {n}", (decode_bytes(b, n), 4 * b * h * n * d)),
-                deterministic=True)
-    # B2 on the same long cache, at batch 8 and at batch 1 (where the cluster
-    # caps the splits at 8; B2' beside it), and at batch 1 at a chat turn's
-    # kv_len, the positions read through the cache's strides
-    print("B2 on a cache of 8192 positions, at batch 8 and 1, and at batch 1 at a chat "
-          "turn's kv_len; B2' beside it at batch 1, 8192; library: SDPA on the cache "
-          "dequantized to bf16")
-    for rows, kv in ((b, n), (1, n), (1, CHAT_KV_LEN)):
-        qq, kk, vv, kss, vss = q1[:rows], kl8[:rows], vl8[:rows], kls[:rows], vls[:rows]
-        mk = lmask[:rows, ..., :kv].contiguous()
-        kdq_kv, vdq_kv = kldq[:rows, :, :kv].contiguous(), vldq[:rows, :, :kv].contiguous()
-        args = dict(mask=mk, scale=d ** -0.5, k_scale=kss, v_scale=vss, kv_len=kv)
-        work = (decode_bytes(rows, kv), 4 * rows * h * kv * d)
-        where = "chat turn" if kv == CHAT_KV_LEN else f"kv_len {kv}"
-        b2.compare(f"int8 B={rows} H={h} T={n} kv_len={kv} D={d}",
-                   lambda: da.decode_attention(qq, kk, vv, **args),
-                   lambda: da.decode_attention_plain(qq, kk, vv, **args),
-                   lambda ref: 2e-2,
-                   library=lambda: F.scaled_dot_product_attention(
-                       qq, kdq_kv, vdq_kv, attn_mask=mk.to(bf16), scale=d ** -0.5),
-                   shape=(f"batch {rows}, {where}", work), deterministic=True)
-        if rows == 1 and kv == n:
-            b2r.compare(f"int8 B=1 H={h} T={n} kv_len={n} D={d}",
-                        lambda: da.decode_attention_rows(qq, kk, vv, **args),
-                        lambda: da.decode_attention_rows_plain(qq, kk, vv, **args),
-                        lambda ref: 2e-2, shape=(f"batch 1, kv_len {n}", work),
-                        deterministic=True)
-    del kl8, vl8, kldq, vldq
 
-    # B6: the batch's images
-    print("B6: bit-exact (tolerance 0: IEEE divisions on both sides); no library call "
-          "computes it in one")
-    images = torch.randint(0, 256, (BATCH, 224, 224, 3), generator=g, device=dev,
-                           dtype=torch.uint8)
-    n_el = images.numel()
-    for out_dtype, width in ((torch.float32, 4), (bf16, 2)):
-        b6.compare(f"{BATCH}x224x224x3 -> {str(out_dtype).split('.')[-1]}",
-                   lambda: pp.u8_normalize_rows(images, out_dtype=out_dtype),
-                   lambda: pp.u8_normalize_rows_plain(images, out_dtype=out_dtype), exact,
-                   # divide, subtract, divide per element, in fp32
-                   main=(n_el * (1 + width), 3 * n_el, PEAK_FP32_S)
-                   if out_dtype == torch.float32 else None)
+def b7_checks(dev, g, b7, inputs):
+    """Phase 2's B7: a 4 GiB int8 operand of small integers, so that every
+    sum is exact; sets ``b7.measured_bytes_s``, the card's measured
+    streaming bandwidth."""
+    import torch
 
-    # B7: a 4 GiB int8 operand of small integers, so that every sum is exact
+    from myriad_tpu_torch.tools import bwprobe
+
     print("B7: exact (tolerance 0: sums of integers in {-1, 0, 1}); library: torch.sum "
           "(dtype float32) over the same operand")
     rows = int(PROBE_GIB * (1 << 30)) // bwprobe.WIDTH // 1024 * 1024
@@ -633,20 +745,110 @@ def kernel_checks(dev, seed):
           "B7 two-operand sum disagrees with its plain version")
     gbps[f"stream_sum2 (B7, two {PROBE_GIB / 2:g} GiB operands)"] = big.numel() / two_ms / 1e6
     del big, half_x, half_y
-    card = _card()
     print("measured streaming bandwidth (device ms from CUDA-graph replay): "
-          + ", ".join(f"{k} {v:.1f} GB/s" for k, v in gbps.items()) + f"; card: {card}",
+          + ", ".join(f"{k} {v:.1f} GB/s" for k, v in gbps.items()) + f"; card: {_card()}",
           flush=True)
-    measured = max(gbps.values()) * 1e9
-    checks = [b1, b2, b3, b4, b5, b2r, b6, b7]
-    for c in checks:
-        c.bound_measured_ms = bound(*c.main, bytes_s=measured)[0]
-        for sh in c.shapes:
-            sh["bound_ms_at_measured_bandwidth"] = bound(*sh["work"], bytes_s=measured)[0]
-        print(f"  {c.name}: bound {c.bound_ms:.6f} ms at the data sheet's "
-              f"{PEAK_BYTES_S / 1e12:.2f} TB/s, {c.bound_measured_ms:.6f} ms at the measured "
-              f"{measured / 1e12:.4f} TB/s; kernel {c.ms:.4f} ms")
-    return checks
+    b7.measured_bytes_s = max(gbps.values()) * 1e9
+
+
+def b4_checks(dev, g, b4, inputs):
+    """Phase 2's B4: the copy (an int8 payload, fp16 scales and a bf16 cache
+    at a verify round's 4 positions) and the quantize-and-write at each path
+    shape (greedy decode, a chat turn's decode, the verify round, a prefill
+    chunk) and at its launch floor (one row of 8), bit-exact."""
+    import torch
+
+    from myriad_tpu_torch.ops import kv_write as kw
+
+    bf16 = torch.bfloat16
+    b, h, t, d = BATCH, 32, 416, 128
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    # per-row starts include two that clamp (413 and 1000 -> T - t)
+    print("B4: bit-exact (tolerance 0): copy mode on an int8 payload, fp16 scales (D=1) "
+          "and a bf16 cache, and the fused quantize-and-write, with per-row starts of which "
+          "two clamp; library (copy mode, bf16 cache): one indexed assignment; none computes "
+          "the fused quantize-and-write")
+    starts = torch.tensor([300, 412, 0, 413, 37, 200, 5, 1000], device=dev, dtype=torch.int32)
+    tw = SPEC_K + 1
+    rows = torch.arange(b, device=dev)[:, None].expand(b, tw)
+    cols = starts.long().clamp(0, t - tw)[:, None] + torch.arange(tw, device=dev)[None]
+    for label, dtype, dd in (("int8 payload", torch.int8, d), ("fp16 scales", torch.float16, 1),
+                             ("bf16 cache", bf16, d)):
+        buf = (randn(b, h, t, dd) * 50).clamp(-127, 127).to(dtype)
+        # the attention's layout: (B, t, H, D) transposed
+        upd = (randn(b, tw, h, dd) * 50).clamp(-127, 127).to(dtype).transpose(1, 2)
+        out, ref, lib = buf.clone(), buf.clone(), buf.clone()
+        upd_rows = upd.transpose(1, 2).contiguous()
+
+        def assign(lib=lib, upd_rows=upd_rows):
+            lib[rows, :, cols] = upd_rows
+        is_lib = label == "bf16 cache"
+        size = upd.element_size()
+        b4.compare(f"copy {label} B={b} H={h} T={t} t={tw} D={dd}",
+                   lambda: kw.kv_cache_write(out, upd, starts),
+                   lambda: kw.kv_cache_write_plain(ref, upd, starts), exact,
+                   outputs=lambda: (out, ref), library=assign if is_lib else None,
+                   shape=("copy, bf16 cache, verify round",
+                          (2 * b * h * tw * dd * size + b * 4, 0)) if is_lib else None,
+                   deterministic=True)
+    # (batch rows, heads, written positions, D, label); the launch floor is one row of 8
+    cases = ((BATCH, h, 1, d, "greedy decode"), (1, h, 1, d, "chat decode"),
+             (BATCH, h, tw, d, "verify round"), (BATCH, h, 297, d, "prefill"),
+             (1, 1, 1, 8, "launch floor"))
+    for bq, hq, tq, dq, label in cases:
+        # per-row starts where the path has them (a verify round); the decode
+        # steps and the prefill start every row at the frontier
+        idx = starts[:bq] if label == "verify round" else (0 if label == "prefill" else 300)
+        k = (randn(bq, tq, hq, dq) * 4).to(bf16).transpose(1, 2)
+        v = randn(bq, tq, hq, dq).to(bf16).transpose(1, 2)
+        bufs = [torch.randint(-127, 128, (bq, hq, t, dq), generator=g, device=dev,
+                              dtype=torch.int8) for _ in range(2)]
+        bufs += [torch.rand(bq, hq, t, 1, generator=g, device=dev).half() for _ in range(2)]
+        outs, refs = [x.clone() for x in bufs], [x.clone() for x in bufs]
+        n = bq * hq * tq
+        work = (2 * n * dq * 2 + 2 * n * dq + 2 * n * 2 + (bq * 4 if label == "verify round"
+                                                           else 0),
+                # abs, max, divide, round per element, in fp32
+                4 * 2 * n * dq, PEAK_FP32_S)
+        is_main = label == "verify round"
+        b4.compare(f"quantize-and-write B={bq} H={hq} T={t} t={tq} D={dq} ({label}, "
+                   f"{'per-row starts' if is_main else f'start {idx}'})",
+                   lambda: kw.kv_quantize_write(*outs, k, v, idx),
+                   lambda: kw.kv_quantize_write_plain(*refs, k, v, idx), exact,
+                   outputs=lambda: (torch.cat([x.flatten().float() for x in outs]),
+                                    torch.cat([x.flatten().float() for x in refs])),
+                   main=work if is_main else None,
+                   shape=None if is_main else (label, work), deterministic=True)
+
+
+def b6_checks(dev, g, b6, inputs):
+    """Phase 2's B6: the batch's images to fp32 (the path shape) and bf16."""
+    import torch
+
+    from myriad_tpu_torch.ops import preprocess as pp
+
+    print("B6: bit-exact (tolerance 0: IEEE divisions on both sides); no library call "
+          "computes it in one")
+    images = torch.randint(0, 256, (BATCH, 224, 224, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    n_el = images.numel()
+    for out_dtype, width in ((torch.float32, 4), (torch.bfloat16, 2)):
+        name = f"{BATCH}x224x224x3 -> {str(out_dtype).split('.')[-1]}"
+        # divide, subtract, divide per element, in fp32
+        work = (n_el * (1 + width), 3 * n_el, PEAK_FP32_S)
+        is_main = out_dtype == torch.float32
+        b6.compare(name, lambda: pp.u8_normalize_rows(images, out_dtype=out_dtype),
+                   lambda: pp.u8_normalize_rows_plain(images, out_dtype=out_dtype), exact,
+                   main=work if is_main else None, shape=None if is_main else (name, work),
+                   deterministic=True)
+
+
+# phase 2's checks by kernel, in the order of the summary's kernels line
+PHASE2 = (("B1", b1_checks), ("B2", b2_checks), ("B3", b3_checks), ("B4", b4_checks),
+          ("B5", b5_checks), ("B2'", b2r_checks), ("B6", b6_checks), ("B7", b7_checks))
 
 
 class plain_path:
@@ -1006,7 +1208,8 @@ def _chat_delta_gate(chat, conv, img_list, llama, dev, seed):
 KERNEL_OF = {"int8_matmul_tc_kernel": "B1", "decode_attention_cluster_kernel": "B2",
              "prefill_attention_tc_kernel": "B3", "prefill_attention_split_kernel": "B3",
              "prefill_attention_merge_kernel": "B3", "kv_write_kernel": "B4",
-             "kv_quantize_write_kernel": "B4", "int4_matmul_tc_kernel": "B5",
+             "kv_quantize_write_kernel": "B4", "kv_quantize_write_rows_kernel": "B4",
+             "int4_matmul_tc_kernel": "B5",
              "decode_attention_rows_split_kernel": "B2'",
              "decode_attention_rows_merge_kernel": "B2'"}
 
@@ -1238,7 +1441,16 @@ def entry_point_slice(dev, seed, checks, card, model, samples):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--parent", help="a checkout of another tree (e.g. the parent "
+                        "commit's): compare its kernels' SASS with this tree's and time its "
+                        "kernels beside this tree's before phase 2")
+    parser.add_argument("--parent-kernels", default=",".join(n for n, _ in PHASE2),
+                        help="the kernels that --parent times, comma-separated "
+                        "(default: all, %(default)s)")
     args = parser.parse_args(argv)
+    kernels = args.parent_kernels.split(",")
+    if any(k not in dict(PHASE2) for k in kernels):
+        parser.error(f"--parent-kernels takes names from {[n for n, _ in PHASE2]}")
 
     try:
         import torch
@@ -1275,6 +1487,8 @@ def main(argv=None) -> int:
               f"instantiations; first: {first}", flush=True)
         check(hmma > 0, f"{name}'s tensor-core kernel has no HMMA instruction")
     cluster_launch_report(lib_path)
+    if args.parent:
+        parent_comparison(args.parent, kernels, args.seed, lib_path)
 
     print("phase 2: kernels against their plain versions", flush=True)
     checks = kernel_checks(dev, args.seed)

@@ -47,8 +47,8 @@ _SIGNATURES = {
     "myriad_prefill_attention_scratch": ([_I] * 5, _L),
     "myriad_prefill_attention": (
         [_P] * 7 + [_I] * 5 + [_L] * 6 + [_I, _F, _P, _P], _I),
-    "myriad_kv_write": ([_P] * 3 + [_I] * 6 + [_L] * 6 + [_P], _I),
-    "myriad_kv_quantize_write": ([_P] * 7 + [_I] * 6 + [_L] * 9 + [_P], _I),
+    "myriad_kv_write": ([_P] * 3 + [_I] * 7 + [_L] * 5 + [_P], _I),
+    "myriad_kv_quantize_write": ([_P] * 7 + [_I] * 6 + [_L] * 5 + [_P], _I),
     "myriad_u8_normalize": ([_P, _P, _L, _F, _F, _F, _F, _F, _F, _I, _P], _I),
     "myriad_stream_sum": ([_P, _P, _P, _P, _L, _L, _F, _I, _P], _I),
     "myriad_error_string": ([_I], ctypes.c_char_p),

@@ -43,16 +43,20 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return x8, scale
 
 
-def _check_index(buf: torch.Tensor, upd: torch.Tensor, idx: Index) -> None:
-    b, t = upd.shape[0], upd.shape[2]
-    _cuda.require(buf.dim() == 4 and upd.dim() == 4 and buf.shape[0] == b
-                  and buf.shape[1] == upd.shape[1] and buf.shape[3] == upd.shape[3],
-                  f"update {tuple(upd.shape)} does not fit cache {tuple(buf.shape)}")
-    _cuda.require(1 <= t <= buf.shape[2], f"{t} positions do not fit {buf.shape[2]}")
-    if torch.is_tensor(idx):
-        _cuda.require(tuple(idx.shape) == (b,) and not idx.is_floating_point(),
-                      f"per-row starts must be a ({b},) int tensor, got "
-                      f"{idx.dtype} {tuple(idx.shape)}")
+def _check_index(buf: torch.Tensor, upd: torch.Tensor, idx: Index) -> int:
+    """Check that ``upd`` fits ``buf`` and ``idx`` its rows; returns T.  A
+    decode step calls this at every layer: each check is a comparison, and
+    its message is built only when it fails."""
+    shape, bshape = upd.shape, buf.shape
+    if len(shape) != 4 or len(bshape) != 4 or shape[0] != bshape[0] \
+            or shape[1] != bshape[1] or shape[3] != bshape[3]:
+        raise ValueError(f"update {tuple(shape)} does not fit cache {tuple(bshape)}")
+    if not 1 <= shape[2] <= bshape[2]:
+        raise ValueError(f"{shape[2]} positions do not fit {bshape[2]}")
+    if isinstance(idx, torch.Tensor) and (idx.shape != shape[:1] or idx.is_floating_point()):
+        raise ValueError(f"per-row starts must be a ({shape[0]},) int tensor, got "
+                         f"{idx.dtype} {tuple(idx.shape)}")
+    return bshape[2]
 
 
 def kv_cache_write_plain(buf: torch.Tensor, upd: torch.Tensor, idx: Index) -> torch.Tensor:
@@ -82,36 +86,38 @@ def kv_quantize_write_plain(k_buf, v_buf, k_scale, v_scale, k, v, idx: Index) ->
 
 def _launch_index(idx: Index, device) -> Tuple[int, int]:
     """(pointer to per-row int32 starts or 0, the broadcast start)."""
-    if not torch.is_tensor(idx):
+    if not isinstance(idx, torch.Tensor):
         return 0, int(idx)
-    _cuda.require(idx.device == device and idx.dtype == torch.int32 and idx.is_contiguous(),
-                  "per-row starts on the card must be a contiguous int32 tensor beside "
-                  "the cache")
+    if idx.dtype != torch.int32 or idx.device != device or not idx.is_contiguous():
+        raise ValueError("per-row starts on the card must be a contiguous int32 tensor beside "
+                         "the cache")
     return idx.data_ptr(), 0
-
-
-def _byte_strides(x: torch.Tensor) -> Tuple[int, int, int]:
-    e = x.element_size()
-    return x.stride(0) * e, x.stride(1) * e, x.stride(2) * e
 
 
 def kv_cache_write(buf: torch.Tensor, upd: torch.Tensor, idx: Index) -> torch.Tensor:
     """Write ``upd`` (B, H, t, D) into ``buf`` (B, H, T, D) in place at the
     starts ``idx`` clamped to [0, T - t]; returns ``buf``.  A CPU tensor takes
-    the plain version; a CUDA tensor launches kernel B4 or raises."""
+    the plain version; a CUDA tensor launches kernel B4 or raises.  The
+    kernel takes a cache whose positions are rows one after the other
+    (strides (*, *, D, 1)) and an update with a contiguous last dim."""
     if not buf.is_cuda:
         return kv_cache_write_plain(buf, upd, idx)
-    _check_index(buf, upd, idx)
+    T = _check_index(buf, upd, idx)
     b, h, t, d = upd.shape
-    _cuda.require(upd.dtype == buf.dtype, f"update {upd.dtype} into a {buf.dtype} cache")
-    _cuda.require(upd.device == buf.device, "cache and update on one device")
-    _cuda.require(buf.stride(3) == 1 and upd.stride(3) == 1,
-                  "cache and update need a contiguous last dim")
-    idx_ptr, start = _launch_index(idx, buf.device)
-    lib = _cuda.library()
-    err = lib.myriad_kv_write(buf.data_ptr(), upd.data_ptr(), idx_ptr, start, b, h, t,
-                              buf.shape[2], d * buf.element_size(), *_byte_strides(buf),
-                              *_byte_strides(upd), _cuda.stream_ptr(buf.device))
+    if upd.dtype != buf.dtype:
+        raise ValueError(f"update {upd.dtype} into a {buf.dtype} cache")
+    dev = buf.device
+    if upd.device != dev:
+        raise ValueError("cache and update on one device")
+    buf_sb, buf_sh, buf_st, buf_sd = buf.stride()
+    upd_sb, upd_sh, upd_st, upd_sd = upd.stride()
+    if buf_sd != 1 or buf_st != d or upd_sd != 1:
+        raise ValueError(f"the kernel takes a cache of strides (*, *, {d}, 1) and an update "
+                         f"with a contiguous last dim, got {buf.stride()} and {upd.stride()}")
+    idx_ptr, start = _launch_index(idx, dev)
+    err = _cuda.library().myriad_kv_write(
+        buf.data_ptr(), upd.data_ptr(), idx_ptr, start, b, h, t, T, d, buf.element_size(),
+        buf_sb, buf_sh, upd_sb, upd_sh, upd_st, _cuda.stream_ptr(dev))
     _cuda.check(err, "kv_write")
     counter.count += 1
     return buf
@@ -124,35 +130,41 @@ def kv_quantize_write(k_buf: torch.Tensor, v_buf: torch.Tensor, k_scale: torch.T
     int8 payloads into ``k_buf``/``v_buf`` (B, H, T, D) and the fp16 scales
     into ``k_scale``/``v_scale`` (B, H, T, 1), in place, at the clamped
     starts ``idx``.  CPU tensors take the plain version; CUDA tensors launch
-    kernel B4 once (bf16 K and V) or raise."""
+    kernel B4 once (bf16 K and V) or raise.  The kernel takes payloads whose
+    positions are rows one after the other (strides (sb, sh, D, 1), K's and
+    V's alike), scales of strides (sb / D, sh / D, 1, *) as ``init_cache``
+    makes them, and K and V of one layout with a contiguous last dim."""
     if not k_buf.is_cuda:
         return kv_quantize_write_plain(k_buf, v_buf, k_scale, v_scale, k, v, idx)
-    _check_index(k_buf, k, idx)
-    b, h, t, d = k.shape
-    _cuda.require(k.dtype == v.dtype == torch.bfloat16,
-                  f"the quantizing write takes bf16 K and V, got {k.dtype}/{v.dtype}")
-    _cuda.require(k_buf.dtype == v_buf.dtype == torch.int8
-                  and k_scale.dtype == v_scale.dtype == torch.float16,
-                  "the quantizing write fills int8 payloads and fp16 scales")
-    _cuda.require(tuple(v.shape) == tuple(k.shape) and v.stride() == k.stride()
-                  and k.stride(3) == 1, "K and V need one shape and one layout with a "
-                  "contiguous last dim")
-    _cuda.require(tuple(v_buf.shape) == tuple(k_buf.shape) and v_buf.stride() == k_buf.stride()
-                  and k_buf.stride(3) == 1, "the K and V payloads need one layout with a "
-                  "contiguous last dim")
-    sshape = tuple(k_buf.shape[:3]) + (1,)
-    _cuda.require(tuple(k_scale.shape) == sshape == tuple(v_scale.shape)
-                  and k_scale.stride() == v_scale.stride(),
-                  f"scales must be {sshape} with one layout")
-    _cuda.require(all(x.device == k_buf.device for x in (v_buf, k_scale, v_scale, k, v)),
-                  "caches and updates on one device")
-    idx_ptr, start = _launch_index(idx, k_buf.device)
-    lib = _cuda.library()
-    err = lib.myriad_kv_quantize_write(
+    T = _check_index(k_buf, k, idx)
+    shape, cshape = k.shape, k_buf.shape
+    b, h, t, d = shape
+    if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise ValueError(f"the quantizing write takes bf16 K and V, got {k.dtype}/{v.dtype}")
+    if k_buf.dtype != torch.int8 or v_buf.dtype != torch.int8 \
+            or k_scale.dtype != torch.float16 or v_scale.dtype != torch.float16:
+        raise ValueError("the quantizing write fills int8 payloads and fp16 scales")
+    x_strides, c_strides, s_strides = k.stride(), k_buf.stride(), k_scale.stride()
+    x_sb, x_sh, x_st, x_sd = x_strides
+    c_sb, c_sh, c_st, c_sd = c_strides
+    s_sb, s_sh, s_st, _ = s_strides
+    if v.shape != shape or v.stride() != x_strides or x_sd != 1:
+        raise ValueError("K and V need one shape and one layout with a contiguous last dim")
+    if v_buf.shape != cshape or v_buf.stride() != c_strides or c_sd != 1 or c_st != d:
+        raise ValueError(f"the K and V payloads need one layout of strides (*, *, {d}, 1)")
+    if k_scale.shape != (b, h, T, 1) or v_scale.shape != (b, h, T, 1) \
+            or v_scale.stride() != s_strides or s_st != 1 or s_sb * d != c_sb or s_sh * d != c_sh:
+        raise ValueError(f"scales must be {(b, h, T, 1)} with one layout, strides "
+                         f"(sb / {d}, sh / {d}, 1) of the payload's")
+    dev = k_buf.device
+    if v_buf.device != dev or k_scale.device != dev or v_scale.device != dev \
+            or k.device != dev or v.device != dev:
+        raise ValueError("caches and updates on one device")
+    idx_ptr, start = _launch_index(idx, dev)
+    err = _cuda.library().myriad_kv_quantize_write(
         k_buf.data_ptr(), v_buf.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        k.data_ptr(), v.data_ptr(), idx_ptr, start, b, h, t, k_buf.shape[2], d,
-        k_buf.stride(0), k_buf.stride(1), k_buf.stride(2),
-        k_scale.stride(0), k_scale.stride(1), k_scale.stride(2),
-        k.stride(0), k.stride(1), k.stride(2), _cuda.stream_ptr(k_buf.device))
+        k.data_ptr(), v.data_ptr(), idx_ptr, start, b, h, t, T, d, c_sb, c_sh,
+        x_sb, x_sh, x_st, _cuda.stream_ptr(dev))
     _cuda.check(err, "kv_quantize_write")
     counter.count += 1
+

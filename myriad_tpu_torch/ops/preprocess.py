@@ -59,14 +59,17 @@ def u8_normalize_rows(images_u8: torch.Tensor, mean=CLIP_MEAN, std=CLIP_STD,
     """uint8 (..., 3) -> normalized fp32 or bf16, kernel B6 on the card."""
     if not images_u8.is_cuda:
         return u8_normalize_rows_plain(images_u8, mean, std, out_dtype)
-    _cuda.require(images_u8.dtype == torch.uint8 and images_u8.shape[-1] == 3,
-                  f"u8_normalize kernel takes uint8 (..., 3), got {images_u8.dtype} "
-                  f"{tuple(images_u8.shape)}")
-    _cuda.require(out_dtype in (torch.float32, torch.bfloat16),
-                  f"u8_normalize kernel writes fp32 or bf16, not {out_dtype}")
-    _cuda.require(len(mean) == 3 and len(std) == 3, "mean and std need 3 channels")
+    # each check is a comparison, and its message is built only when it fails
+    if images_u8.dtype != torch.uint8 or images_u8.dim() == 0 or images_u8.shape[-1] != 3:
+        raise ValueError(f"u8_normalize kernel takes uint8 (..., 3), got {images_u8.dtype} "
+                         f"{tuple(images_u8.shape)}")
+    if out_dtype != torch.float32 and out_dtype != torch.bfloat16:
+        raise ValueError(f"u8_normalize kernel writes fp32 or bf16, not {out_dtype}")
+    if len(mean) != 3 or len(std) != 3:
+        raise ValueError("mean and std need 3 channels")
     x = images_u8.contiguous()
-    _cuda.require(x.data_ptr() % 16 == 0, "images must be 16-byte aligned")
+    if x.data_ptr() % 16:
+        raise ValueError("images must be 16-byte aligned")
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     err = _cuda.library().myriad_u8_normalize(
         x.data_ptr(), out.data_ptr(), x.numel(), *map(float, mean), *map(float, std),

@@ -339,6 +339,131 @@ def test_kv_write_refuses_what_it_does_not_take(dev):
                              torch.zeros(2, 4, 1, 8, device=dev), 0)
 
 
+# B4 over block boundaries (B * H * t not a multiple of a block's rows, H odd),
+# every row width (D = 1: the scales; 80: a row of 10 lanes in a group of 16;
+# 37: element loops) and the three path lengths; per-row starts that clamp
+KV_SHAPES = [(8, 32, 1), (1, 32, 1), (3, 5, 1), (3, 7, 4), (2, 3, 297)]
+KV_DIMS = [1, 8, 37, 64, 80, 128, 256]
+
+
+def _kv_case(dev, seed, b, h, t, d, T=416):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = (torch.randn(b, t, h, d, generator=g, device=dev) * 4).bfloat16().transpose(1, 2)
+    v = torch.randn(b, t, h, d, generator=g, device=dev).bfloat16().transpose(1, 2)
+    bufs = [torch.randint(-127, 128, (b, h, T, d), generator=g, device=dev, dtype=torch.int8)
+            for _ in range(2)]
+    bufs += [torch.rand(b, h, T, 1, generator=g, device=dev).half() for _ in range(2)]
+    starts = torch.tensor((STARTS * b)[:b], dtype=torch.int32, device=dev)
+    return k, v, bufs, starts
+
+
+def _quantize_write_both(bufs, k, v, idx):
+    out, ref = [x.clone() for x in bufs], [x.clone() for x in bufs]
+    kw.kv_quantize_write(*out, k, v, idx)
+    kw.kv_quantize_write_plain(*ref, k, v, idx)
+    return out, ref
+
+
+@pytest.mark.parametrize("d", KV_DIMS)
+@pytest.mark.parametrize("b,h,t", KV_SHAPES)
+def test_kv_quantize_write_any_rows_and_width(dev, b, h, t, d):
+    k, v, bufs, starts = _kv_case(dev, 11, b, h, t, d)
+    k[0, h - 1, t - 1] = 0  # an all-zero row takes the 1e-8 scale floor
+    for idx in (starts, 413):
+        before = kw.counter.count
+        out, ref = _quantize_write_both(bufs, k, v, idx)
+        assert kw.counter.count == before + 1
+        for name, a, r in zip(("k", "v", "k_scale", "v_scale"), out, ref):
+            assert torch.equal(a, r), name
+
+
+@pytest.mark.parametrize("d", KV_DIMS)
+@pytest.mark.parametrize("b,h,t", KV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float16, torch.bfloat16])
+def test_kv_write_copy_any_rows_and_width(dev, b, h, t, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(12)
+    buf = (torch.randn(b, h, 416, d, generator=g, device=dev) * 50).to(dtype)
+    upd = (torch.randn(b, t, h, d, generator=g, device=dev) * 50).to(dtype).transpose(1, 2)
+    starts = torch.tensor((STARTS * b)[:b], dtype=torch.int32, device=dev)
+    for idx in (starts, 413):
+        out, ref = buf.clone(), buf.clone()
+        kw.kv_cache_write(out, upd, idx)
+        kw.kv_cache_write_plain(ref, upd, idx)
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("d", [8, 128])
+@pytest.mark.parametrize("shift", [1, 2, 4, 8])
+def test_kv_write_unaligned_views(dev, shift, d):
+    """K and V, payloads and scales that start `shift` elements into their
+    storage (the copy's byte units or the quantization's one-warp rows)."""
+    b, h, t, T = 3, 5, 4, 64
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def view(n, dtype, shape, fill):
+        flat = fill(torch.empty(n + shift, device=dev)).to(dtype)
+        return flat[shift:].view(shape)
+
+    rand = lambda x: x.normal_(generator=g) * 4  # noqa: E731
+    k = view(b * t * h * d, torch.bfloat16, (b, t, h, d), rand).transpose(1, 2)
+    v = view(b * t * h * d, torch.bfloat16, (b, t, h, d), rand).transpose(1, 2)
+    bufs = [view(b * h * T * d, torch.int8, (b, h, T, d), rand) for _ in range(2)]
+    bufs += [view(b * h * T, torch.float16, (b, h, T, 1), rand) for _ in range(2)]
+    starts = torch.tensor(STARTS[:b], dtype=torch.int32, device=dev)
+    out, ref = _quantize_write_both(bufs, k, v, starts)
+    for name, a, r in zip(("k", "v", "k_scale", "v_scale"), out, ref):
+        assert torch.equal(a, r), name
+    for buf, upd in ((bufs[0], bufs[1][:, :, :t]), (bufs[2], bufs[3][:, :, :t])):
+        o, r = buf.clone(), buf.clone()
+        kw.kv_cache_write(o, upd, starts)
+        kw.kv_cache_write_plain(r, upd, starts)
+        assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("b,h,t", [(8, 32, 1), (8, 32, 4), (8, 32, 297)])
+def test_kv_quantize_write_deterministic_and_in_a_graph(dev, b, h, t):
+    """The same bits twice, and from a CUDA graph's replay."""
+    k, v, bufs, starts = _kv_case(dev, 14, b, h, t, 128)
+    idx = starts if t == 4 else 300
+    out, ref = _quantize_write_both(bufs, k, v, idx)
+    again = [x.clone() for x in bufs]
+    kw.kv_quantize_write(*again, k, v, idx)
+    graphed = [x.clone() for x in bufs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kw.kv_quantize_write(*graphed, k, v, idx)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graphed = [x.clone() for x in bufs]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kw.kv_quantize_write(*graphed, k, v, idx)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b2, c, r in zip(out, again, graphed, ref):
+        assert torch.equal(a, r) and torch.equal(b2, r) and torch.equal(c, r)
+
+
+def test_kv_write_refuses_layouts_it_does_not_serve(dev):
+    b, h, T, t, d = 2, 4, 16, 1, 8
+    k8 = torch.zeros(b, h, T, d, dtype=torch.int8, device=dev)
+    sc = torch.zeros(b, h, T, 1, dtype=torch.float16, device=dev)
+    x = torch.zeros(b, h, t, d, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # scales not of the payload's strides / D
+        wide = torch.zeros(b, h, T, 2, dtype=torch.float16, device=dev)[..., :1]
+        kw.kv_quantize_write(k8, k8.clone(), wide, wide.clone(), x, x.clone(), 0)
+    with pytest.raises(ValueError):  # payload positions not one row after the other
+        sparse = torch.zeros(b, h, T, 2 * d, dtype=torch.int8, device=dev)[..., :d]
+        kw.kv_quantize_write(sparse, sparse.clone(), sc, sc.clone(), x, x.clone(), 0)
+    with pytest.raises(ValueError):  # K and V of two layouts
+        every_other_head = torch.zeros(b, 2 * h, t, d, dtype=torch.bfloat16, device=dev)[:, ::2]
+        kw.kv_quantize_write(k8, k8.clone(), sc, sc.clone(), x, every_other_head, 0)
+    with pytest.raises(ValueError):  # an update without a contiguous last dim
+        kw.kv_cache_write(k8, torch.zeros(b, h, d, 2, dtype=torch.int8, device=dev).mT, 0)
+    with pytest.raises(ValueError):  # the update on another device
+        kw.kv_cache_write(k8, torch.zeros(b, h, t, d, dtype=torch.int8), 0)
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 11008), (8, 4096, 11008), (32, 11008, 4096),
                                    (8, 4096, 4096), (256, 4096, 4096), (3, 64, 40),
                                    (5, 1000, 36)])
@@ -561,6 +686,38 @@ def test_u8_normalize_kernel_bit_exact(dev, out_dtype, shape):
     assert out.dtype == out_dtype and torch.equal(out, ref)
     assert torch.equal(pp.device_preprocess(img, use_pallas=True, out_dtype=out_dtype), ref)
     assert pp.counter.count == before + 2
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_u8_normalize_kernel_every_value_and_channel(dev, out_dtype):
+    """All 768 (value, channel) pairs, at each of the three positions of a
+    pair in a 4-byte word (the kernel's unit)."""
+    values = torch.arange(256, device=dev, dtype=torch.uint8)
+    for lead in range(3):
+        img = torch.cat([torch.zeros(lead, dtype=torch.uint8, device=dev),
+                         values[:, None].expand(256, 3).flatten(),
+                         torch.zeros(3 - lead, dtype=torch.uint8, device=dev)])
+        img = img.view(-1, 3)
+        out = pp.u8_normalize_rows(img, out_dtype=out_dtype)
+        assert torch.equal(out, pp.u8_normalize_rows_plain(img, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [3, 12, 48, 4099 * 3, 1024 * 4 * 3 + 3, 3 << 20])
+def test_u8_normalize_kernel_any_length(dev, n, out_dtype):
+    """Lengths that end inside a word, a block and the grid, and one larger
+    than many blocks; a non-contiguous view (the wrapper copies it)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    img = torch.randint(0, 256, (n // 3, 3), generator=g, device=dev, dtype=torch.uint8)
+    before = pp.counter.count
+    out = pp.u8_normalize_rows(img, out_dtype=out_dtype)
+    assert pp.counter.count == before + 1
+    assert torch.equal(out, pp.u8_normalize_rows_plain(img, out_dtype=out_dtype))
+    strided = torch.randint(0, 256, (n // 3, 6), generator=g, device=dev,
+                            dtype=torch.uint8)[:, ::2]
+    assert torch.equal(pp.u8_normalize_rows(strided, out_dtype=out_dtype),
+                       pp.u8_normalize_rows_plain(strided, out_dtype=out_dtype))
+    assert torch.equal(pp.u8_normalize_rows(img, out_dtype=out_dtype), out)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
