@@ -60,7 +60,17 @@ Phases, each printing its own lines:
    (kernel B2', never B2; the first decode step's logits gated against the
    plain path's), ``device_preprocess(use_pallas=True)`` on the batch's
    images (kernel B6) and the bandwidth probe's CLI
-   (``myriad_tpu_torch.tools.bwprobe``, kernel B7, 4 GiB a pass).
+   (``myriad_tpu_torch.tools.bwprobe``, kernel B7, 4 GiB a pass);
+8. free that model and run the AQA evaluation entry point
+   (``myriad_tpu_torch.evaluate``) in process over a synthetic MVTec-style
+   test tree written under build/ (24 PNGs with every row filter: 12 RGB
+   900x900 and 12 gray 1024x1024, half of each anomalous, two classes):
+   ``eval_configs/myriad.yaml`` at full width with int8 LLM weights and an int8
+   KV cache, random weights, ``--bs 8 --greedy --bench``, 90 new tokens; check
+   24 rows with the harness's schema, each row's tokens identical to a direct
+   ``Myriad.generate`` on the same collated batch, and B1-B4 launched; print
+   the ``--bench`` line, its phase means, the PNG decode and resize time per
+   image on this host and the peak device memory.
 
 With ``--parent DIR`` (a checkout of another tree, such as the parent
 commit's), phase 1 also builds DIR's kernels, compares their SASS with this
@@ -1438,6 +1448,133 @@ def entry_point_slice(dev, seed, checks, card, model, samples):
           flush=True)
 
 
+EVAL_CLASSES = (("bottle", 900, 3), ("screw", 1024, 1))  # MVTec's sizes; screw is gray
+EVAL_PER_CLASS = 12
+# --options of phase 8 over eval_configs/myriad.yaml (the serving profile of SERVING)
+EVAL_OPTIONS = ["model.llm_weight_dtype=int8", "model.llm_kv_dtype=int8"]
+
+
+def write_eval_tree(root, seed):
+    """A synthetic MVTec AD test tree: ``EVAL_PER_CLASS`` PNGs a class (half
+    anomalous, a dark square), each row with a random filter type, and the
+    ``DC_MVTEC_test_normal.jsonl`` annotation.  Returns {class: a file}."""
+    import numpy as np
+
+    from myriad_tpu_torch.datasets.png import encode_png
+
+    rng = np.random.default_rng(seed)
+    rows, files = [], {}
+    for cls, size, channels in EVAL_CLASSES:
+        yy, xx = np.mgrid[0:size, 0:size]
+        base = np.stack([(xx // 4 + c * 40) % 256 for c in range(channels)], -1) // 2 + 60
+        for i in range(EVAL_PER_CLASS):
+            anomalous = i % 2 == 1
+            sub = "broken_large" if anomalous else "good"
+            img = (base + rng.integers(0, 24, base.shape)).astype(np.uint8)
+            if anomalous:
+                img[size // 3:size // 2, size // 3:size // 2] = 10
+            rel = f"mvtec/{cls}/test/{sub}/{i:03d}.png"
+            os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+            with open(os.path.join(root, rel), "wb") as f:
+                f.write(encode_png(img[..., 0] if channels == 1 else img,
+                                   filters=rng.integers(0, 5, size), idat_chunks=3, level=1))
+            rows.append({"img_path": rel, "caption": "", "is_anomaly": "1" if anomalous else "0"})
+            files.setdefault(cls, os.path.join(root, rel))
+    with open(os.path.join(root, "DC_MVTEC_test_normal.jsonl"), "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    return files
+
+
+def _host_ms(fn, repeats=3):
+    times = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def eval_slice(dev, seed, checks, card):
+    """Phase 8: the AQA evaluation entry point at full width on a synthetic tree."""
+    import numpy as np
+    import torch
+
+    from myriad_tpu_torch import evaluate
+    from myriad_tpu_torch.common.config import Config
+    from myriad_tpu_torch.datasets.loaders import DataLoader
+    from myriad_tpu_torch.datasets.png import read_png
+    from myriad_tpu_torch.processors import functional as F
+
+    root = os.path.join(REPO, "build", "aqa_eval")
+    t0 = time.time()
+    files = write_eval_tree(root, seed)
+    n_images = EVAL_PER_CLASS * len(EVAL_CLASSES)
+    print(f"wrote {n_images} PNGs under {root} in {time.time() - t0:.1f} s", flush=True)
+    for cls, size, channels in EVAL_CLASSES:
+        img = read_png(files[cls])
+        check(img.shape == (size, size, 3), f"{files[cls]} decoded to {img.shape}")
+        dec = _host_ms(lambda: read_png(files[cls]))
+        rsz = _host_ms(lambda: F.center_crop(F.resize_bicubic(img, 224), 224))
+        print(f"host, one thread, median of 3: PNG decode {dec:.1f} ms, resize + centre crop to "
+              f"224 {rsz:.1f} ms per {size}x{size} {'RGB' if channels == 3 else 'gray'} image",
+              flush=True)
+
+    argv = ["--cfg-path", os.path.join(REPO, "eval_configs", "myriad.yaml"),
+            "--bs", str(BATCH), "--greedy", "--bench", "--max_new_tokens", str(NEW_TOKENS),
+            "--save_path", os.path.join(root, "rows.jsonl"),
+            "--options", *EVAL_OPTIONS, f"model.seed={seed}",
+            f"datasets.anomaly_detection.build_info.storage={root}"]
+    args = evaluate.parse_args(argv)
+    cfg = Config(args)
+    t0 = time.time()
+    model = evaluate.build_model(args, cfg)
+    torch.cuda.synchronize()
+    check(model.device.type == dev.type, f"evaluate built its model on {model.device}")
+    check(model.arch.llama.weight_dtype == "int8" and model.arch.llama.kv_cache_dtype == "int8",
+          "the --options did not reach the model")
+    print(f"evaluate.build_model: full width, int8 LLM weights and KV, seed {seed}, "
+          f"{time.time() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    needs = ["B1 int8_matmul", "B2 decode_attention", "B3 prefill_attention", "B4 kv_write"]
+    out, wall, launches = drive(checks, "aqa_eval", lambda: evaluate.run(args, cfg, model), needs)
+    peak = evaluate.device_mem_mb(dev)
+    rows, bench = out["rows"], out["bench"]
+    check(len(rows) == n_images, f"{len(rows)} rows for {n_images} images")
+    keys = ["image_id", "image_path", "is_anomaly", "output", "error", "anomaly_score"]
+    for i, row in enumerate(rows):
+        check(list(row) == keys and row["image_id"] == i and row["error"] in ("0", "1")
+              and 0.0 <= float(row["anomaly_score"]) <= 1.0, f"row {i}: {row}")
+    check(bench is not None and bench["batches"] == n_images // BATCH - 1,
+          "no --bench line for three batches")
+    # batches 2-3 took at least their two generates
+    check(bench["value"] <= BATCH / bench["phase_means_s"]["dispatch"] * 1.01,
+          f"--bench value {bench['value']} is faster than the generates it timed")
+    print(f"evaluate.run: {len(rows)} rows in {wall:.3f} s (host clock, synchronized, "
+          f"decode and model included); launches {launches}; peak device memory "
+          f"{peak:.1f} MiB; card: {card}", flush=True)
+    print(f"aqa eval --bench: {json.dumps(bench)}", flush=True)
+    print(f"aqa eval phase means (s, batches 2-3): {bench['phase_means_s']}; first batch: "
+          + ", ".join(f"{k} {v[0]:.3f}" for k, v in out["phases"].items()), flush=True)
+
+    # the eval's tokens against a direct generate on the same collated batches
+    dataset = evaluate.build_dataset(args, cfg.datasets_cfg, root)
+    same = 0
+    for batch, tokens in zip(DataLoader(dataset, batch_size=BATCH), out["token_ids"]):
+        direct = model.generate(batch, max_new_tokens=NEW_TOKENS, do_sample=False)
+        direct = direct["token_ids"].cpu().numpy()
+        check_tokens(torch.as_tensor(direct), BATCH, NEW_TOKENS, model.arch.llama.vocab_size)
+        check(np.array_equal(direct, tokens), "evaluate's tokens differ from a direct generate")
+        same += len(tokens)
+    check(same == n_images, f"compared {same} of {n_images} rows with a direct generate")
+    print(f"tokens of all {same} rows identical to a direct Myriad.generate on the same "
+          f"batches", flush=True)
+
+
+def say(t_start, title) -> None:
+    """A phase's header, with the seconds since the build started."""
+    print(f"{title} [{time.time() - t_start:.0f} s]", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1473,7 +1610,7 @@ def main(argv=None) -> int:
 
     from myriad_tpu_torch.ops import _cuda
 
-    t0 = time.time()
+    t0 = t_start = time.time()
     lib_path = _cuda.build()
     _cuda.library()
     print(f"phase 1: kernels built in {time.time() - t0:.1f} s", flush=True)
@@ -1490,24 +1627,29 @@ def main(argv=None) -> int:
     if args.parent:
         parent_comparison(args.parent, kernels, args.seed, lib_path)
 
-    print("phase 2: kernels against their plain versions", flush=True)
+    say(t_start, "phase 2: kernels against their plain versions")
     checks = kernel_checks(dev, args.seed)
     card = _card()
-    print("phase 3: full-width Myriad.generate", flush=True)
+    say(t_start, "phase 3: full-width Myriad.generate")
     model, samples, greedy, embeds = full_slice(dev, args.seed, checks, card)
-    print("phase 4: full-width speculative generate", flush=True)
+    say(t_start, "phase 4: full-width speculative generate")
     spec, spec_wall = spec_slice(dev, args.seed, model, checks, card, samples, greedy, embeds)
     del model
-    print("phase 5: full-width chat on the resident cache", flush=True)
+    say(t_start, "phase 5: full-width chat on the resident cache")
     chat_slice(dev, args.seed, spec, checks, card)
     profile_generate(spec, samples, card, spec_wall,
                      f"speculative generate (prompt-lookup drafts, K={SPEC_K})")
     del spec
     torch.cuda.empty_cache()
-    print("phase 6: full-width Myriad with int4 LLM weights", flush=True)
+    say(t_start, "phase 6: full-width Myriad with int4 LLM weights")
     model4, samples4 = int4_slice(dev, args.seed, checks, card)
-    print("phase 7: row decode, device_preprocess and the bandwidth probe", flush=True)
+    say(t_start, "phase 7: row decode, device_preprocess and the bandwidth probe")
     entry_point_slice(dev, args.seed, checks, card, model4, samples4)
+    del model4
+    torch.cuda.empty_cache()
+    say(t_start, "phase 8: the AQA evaluation entry point at full width")
+    eval_slice(dev, args.seed, checks, card)
+    say(t_start, "all phases done")
     print(card)
     print(json.dumps({"kernels": [c.record() for c in checks]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

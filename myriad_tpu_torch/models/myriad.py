@@ -16,12 +16,14 @@ unless the caller passes another device.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from myriad_tpu_torch.datasets.anomaly_detection import ABNORMAL_DESCRIBE, NORMAL_DESCRIBE
 from myriad_tpu_torch.generation import (GenerationConfig, greedy_generate,
                                          speculative_generate)
 from myriad_tpu_torch.models.clip_tokenizer import HashTokenizer
@@ -35,13 +37,6 @@ from myriad_tpu_torch.models.qformer import QFormer
 from myriad_tpu_torch.models.vision_expert import AnomalyExpertModule, VisionExpert
 from myriad_tpu_torch.ops.preprocess import u8_normalize
 from myriad_tpu_torch.tokenization import ByteTokenizer
-
-# The AQA task's templated answers, copied from
-# myriad_tpu/datasets/anomaly_detection.py (which imports cv2);
-# tests/test_torch_myriad.py holds the copies equal.  They seed the
-# speculative lookup corpus.
-NORMAL_DESCRIBE = "No, there exists no anomalies in the image."
-ABNORMAL_DESCRIBE = "Yes, there exists anomalies in the image."
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,13 +134,19 @@ def _bf16_or_unset(value) -> bool:
 
 
 # config keys whose other values the port does not serve: the int8 towers,
-# one-shot maps and a model without the vision expert
+# one-shot maps, a model without the vision expert, and what the JAX
+# from_config would load: npz towers, a local Q-Former file, a checkpoint and
+# (from an existing path) an HF tokenizer
 UNSERVED_KEYS = {
     "qformer_weight_dtype": _bf16_or_unset,
     "vit_weight_dtype": _bf16_or_unset,
     "ve_weight_dtype": _bf16_or_unset,
     "k_shot": lambda v: not v,
     "use_ve": lambda v: bool(v),
+    "weights": lambda v: not v,
+    "ckpt": lambda v: not v,
+    "q_former_model": lambda v: not v or not os.path.isfile(str(v)),
+    "llama_model": lambda v: not v or not os.path.exists(str(v)),
 }
 
 
@@ -205,7 +206,9 @@ class Myriad:
         port serves bf16 storage, ``Policy.bf16_params``).  Keys the port
         cannot serve raise ``NotImplementedError``; the reference's dead
         knobs (noise_level, ...) and the training keys are accepted and
-        inactive."""
+        inactive.  No weights are loaded: ``weights``, ``ckpt``, a
+        ``q_former_model`` that names a local file and a ``llama_model`` that
+        names an existing path raise."""
         for key, ok in UNSERVED_KEYS.items():
             if key in cfg and not ok(cfg[key]):
                 raise NotImplementedError(f"config {key}={cfg[key]!r} is not ported")

@@ -14,6 +14,7 @@ import ast
 import copy
 import dataclasses
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -300,12 +301,33 @@ def test_from_config_llm_vocab_size_as_jax(pair):
 
 @pytest.mark.parametrize("cfg", [{"qformer_weight_dtype": "int8"}, {"vit_weight_dtype": "int8"},
                                  {"ve_weight_dtype": "int8"}, {"use_ve": False},
-                                 {"k_shot": 1}])
+                                 {"k_shot": 1},
+                                 # what the JAX from_config would load (F8)
+                                 {"weights": {"vit": "eva_vit_g.npz"}},
+                                 {"ckpt": "output/myriad/checkpoint_4.pth"},
+                                 {"q_former_model": os.path.abspath(__file__)},
+                                 {"llama_model": os.path.dirname(os.path.abspath(__file__))}])
 def test_from_config_unserved_keys_raise(cfg):
     """Keys the port does not serve raise, naming the key and the value."""
     (key, value), = cfg.items()
-    with pytest.raises(NotImplementedError, match=f"{key}={value!r}"):
+    with pytest.raises(NotImplementedError, match=re.escape(f"{key}={value!r}")):
         Myriad.from_config({"arch_preset": "tiny", **cfg}, device="cpu")
+
+
+def test_from_config_builds_the_eval_config():
+    """What the JAX from_config would not load builds: eval_configs/myriad.yaml's
+    empty ckpt and llama_model, a q_former_model that is no local file (the
+    JAX one warns) and a llama_model path that does not exist (the JAX one
+    falls back to its byte tokenizer)."""
+    import yaml
+
+    with open(os.path.join(REPO, "eval_configs", "myriad.yaml")) as f:
+        cfg = dict(yaml.safe_load(f)["model"], arch_preset="tiny", llama_model="",
+                   q_former_model="https://example.invalid/blip2.pth")
+    assert cfg["ckpt"] == ""
+    Myriad.from_config(cfg, device="cpu", class_names=SCENES)
+    Myriad.from_config({"arch_preset": "tiny", "llama_model": "/nonexistent/vicuna"},
+                       device="cpu", class_names=SCENES)
 
 
 def test_from_config_int4_generate_and_spec_match_jax(pair):
@@ -481,7 +503,10 @@ def test_import_leaves_jax_out():
             "myriad_tpu_torch.ops.decode_attention, myriad_tpu_torch.ops.prefill_attention, "
             "myriad_tpu_torch.ops.kv_write, myriad_tpu_torch.ops.preprocess, "
             "myriad_tpu_torch.tools.bwprobe, myriad_tpu_torch.conversation, "
-            "myriad_tpu_torch.demo\n"
+            "myriad_tpu_torch.demo, myriad_tpu_torch.evaluate, "
+            "myriad_tpu_torch.common.config, myriad_tpu_torch.common.yaml_subset, "
+            "myriad_tpu_torch.datasets.png, myriad_tpu_torch.datasets.anomaly_detection, "
+            "myriad_tpu_torch.datasets.loaders, myriad_tpu_torch.processors.functional\n"
             "from myriad_tpu_torch.models.myriad import Myriad\n"
             "m = Myriad.from_config({'arch_preset': 'tiny', 'llm_weight_dtype': 'int8', "
             "'llm_kv_dtype': 'int8', 'llm_spec_k': 2}, device='cpu', class_names=['bottle'])\n"
@@ -490,6 +515,27 @@ def test_import_leaves_jax_out():
             "out = m.generate({'image': img, 'scene': ['bottle'], "
             "'question': '<Img><ImageHere></Img>Any defect?'}, max_new_tokens=3)\n"
             "assert out['token_ids'].shape == (1, 3) and 'spec_stats' in out\n"
+            # the eval entry point over a two-image tree written by the port
+            "import json, os, tempfile\n"
+            "from myriad_tpu_torch.datasets.png import encode_png\n"
+            "root = tempfile.mkdtemp()\n"
+            "os.makedirs(os.path.join(root, 'mvtec', 'bottle', 'test', 'good'))\n"
+            "with open(os.path.join(root, 'DC_MVTEC_test_normal.jsonl'), 'w') as f:\n"
+            "    for i in range(2):\n"
+            "        rel = f'mvtec/bottle/test/good/{i}.png'\n"
+            "        with open(os.path.join(root, rel), 'wb') as g:\n"
+            "            g.write(encode_png(np.full((30, 40, 3), 9 * i, np.uint8)))\n"
+            "        f.write(json.dumps({'img_path': rel, 'is_anomaly': '0'}) + '\\n')\n"
+            "cfg = os.path.join(root, 'cfg.yaml')\n"
+            "with open(cfg, 'w') as f:\n"
+            "    f.write('model:\\n  arch: myriad\\n  arch_preset: tiny\\n  image_size: 28\\n'\n"
+            "            'datasets:\\n  anomaly_detection:\\n    img_size: 28\\n'\n"
+            "            '    crop_size: 28\\n    build_info:\\n      storage: ' + root +\n"
+            "            '\\nrun:\\n  device: cpu\\n')\n"
+            "from myriad_tpu_torch import evaluate\n"
+            "res = evaluate.main(['--cfg-path', cfg, '--bs', '2', '--max_new_tokens', '3', "
+            "'--save_path', os.path.join(root, 'rows.jsonl')])\n"
+            "assert len(res['rows']) == 2\n"
             "bad = [n for n in ('jax', 'flax', 'yaml', 'PIL', 'cv2', 'transformers') "
             "if n in sys.modules]\n"
             "bad += [n for n in sys.modules if n == 'myriad_tpu' or n.startswith('myriad_tpu.')]\n"
