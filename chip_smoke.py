@@ -32,7 +32,10 @@ Phases, each printing its own lines:
    an indexed assignment as its library call), B4's quantize-and-write at a
    greedy and a chat decode step, a prefill chunk and its launch floor (one
    row of 8), and B6 to bf16 are path shapes of their own, with their times
-   and bounds under ``shapes`` in the summary;
+   and bounds under ``shapes`` in the summary; so are the serving engine's
+   decode step's B2 (kv_len 416, eight rows masked at frontiers spread over
+   64-410; library: SDPA with the same boolean mask) and B4 (t = 1 at those
+   eight per-row starts);
 3. build Myriad at full width (EVA-ViT-g, Q-Former, ImageBind-huge,
    Vicuna-7B with int8 weights and an int8 KV cache, towers in bf16) with
    random weights drawn from --seed on the card, and run ``generate``
@@ -70,7 +73,19 @@ Phases, each printing its own lines:
    24 rows with the harness's schema, each row's tokens identical to a direct
    ``Myriad.generate`` on the same collated batch, and B1-B4 launched; print
    the ``--bench`` line, its phase means, the PNG decode and resize time per
-   image on this host and the peak device memory.
+   image on this host and the peak device memory;
+9. on phase 8's model, the continuous-batching engine
+   (``myriad_tpu_torch.serving``): (a) 24 requests over 8 slots, four
+   arrivals a tick, segment 32, the eval's 297-position prefixes and the
+   same cut to 120 and 50 (widths 320, 160 and 64 admit): every request
+   finishes, a second run gives the same transcripts bit for bit, B1-B4's
+   launches equal what the admission chunks and decode steps imply, and the
+   first decode step after a mixed admission is gated against the plain
+   path; (b) the same load with K = 3 and the AQA answer corpus as the
+   lookup; (c) two held conversations through ``MyriadServing``, a second
+   turn each, the frontier after it checked; (d) ``evaluate.run`` with
+   ``--engine`` over phase 8's tree: 24 rows and the ``--bench`` line,
+   images/s printed beside phase 8's.
 
 With ``--parent DIR`` (a checkout of another tree, such as the parent
 commit's), phase 1 also builds DIR's kernels, compares their SASS with this
@@ -635,9 +650,43 @@ def b2_checks(dev, g, b2, inputs):
     print("B2: one launch, the splits of each (b, h) one thread-block cluster merged in "
           "distributed shared memory; runs twice and must give the same bits; also on a "
           "cache of 8192 positions at batch 8 and 1, and at batch 1 at a chat turn's kv_len")
-    _decode_checks(b2, da.decode_attention, da.decode_attention_plain,
-                   _long_cache(_attention_inputs(inputs, dev, g), dev, g),
+    a = _long_cache(_attention_inputs(inputs, dev, g), dev, g)
+    _decode_checks(b2, da.decode_attention, da.decode_attention_plain, a,
                    ((ATT_B, LONG_T), (1, LONG_T), (1, CHAT_KV_LEN)))
+    _engine_decode_check(b2, a, dev)
+
+
+# the serving engine's per-row frontiers at a decode step: spread over 64-410
+# in one batch of 8, the whole 416-position bucket read (the engine does not stage)
+ENGINE_FRONTIERS = (64, 410, 297, 120, 233, 350, 180, 389)
+
+
+def _engine_decode_check(b2, a, dev):
+    """B2 at the engine's decode step: kv_len = the bucket, every row masked at
+    its own frontier through the (B, 1, 1, kv_len) mask.  The library call is
+    SDPA with the same mask as booleans.  The bound counts what the data
+    needs: each row's keys up to its frontier."""
+    import torch
+    import torch.nn.functional as F
+
+    from myriad_tpu_torch.ops import decode_attention as da
+    from myriad_tpu_torch.ops.attention import causal_mask
+
+    b, h, t, d = ATT_B, ATT_H, ATT_T, ATT_D
+    front = torch.tensor(ENGINE_FRONTIERS, device=dev, dtype=torch.int32)
+    mask = causal_mask(front[:, None], t)
+    allowed = mask == 0
+    args = dict(mask=mask, scale=d ** -0.5, k_scale=a["ks"], v_scale=a["vs"], kv_len=t)
+    keys = int((front.long() + 1).sum())
+    work = (2 * b * h * d * 2 + keys * h * (2 * d + 2 * 2) + b * t * 4, 4 * h * d * keys)
+    b2.compare(f"int8 B={b} H={h} T={t} kv_len={t} D={d}, per-row frontiers "
+               f"{min(ENGINE_FRONTIERS)}-{max(ENGINE_FRONTIERS)} (engine decode)",
+               lambda: da.decode_attention(a["q1"], a["k8"], a["v8"], **args),
+               lambda: da.decode_attention_plain(a["q1"], a["k8"], a["v8"], **args),
+               lambda ref: 2e-2,
+               library=lambda: F.scaled_dot_product_attention(
+                   a["q1"], a["kdq"], a["vdq"], attn_mask=allowed, scale=d ** -0.5),
+               shape=("engine decode, ragged frontiers", work), deterministic=True)
 
 
 def b3_checks(dev, g, b3, inputs):
@@ -804,14 +853,15 @@ def b4_checks(dev, g, b4, inputs):
                    shape=("copy, bf16 cache, verify round",
                           (2 * b * h * tw * dd * size + b * 4, 0)) if is_lib else None,
                    deterministic=True)
-    # (batch rows, heads, written positions, D, label); the launch floor is one row of 8
-    cases = ((BATCH, h, 1, d, "greedy decode"), (1, h, 1, d, "chat decode"),
-             (BATCH, h, tw, d, "verify round"), (BATCH, h, 297, d, "prefill"),
-             (1, 1, 1, 8, "launch floor"))
-    for bq, hq, tq, dq, label in cases:
-        # per-row starts where the path has them (a verify round); the decode
-        # steps and the prefill start every row at the frontier
-        idx = starts[:bq] if label == "verify round" else (0 if label == "prefill" else 300)
+    # (batch rows, heads, written positions, D, label, starts); the launch floor
+    # is one row of 8.  Per-row starts where the path has them (a verify round,
+    # the engine's decode step); greedy decode and the prefill start every row
+    # at one frontier
+    engine = torch.tensor(ENGINE_FRONTIERS, device=dev, dtype=torch.int32)
+    cases = ((BATCH, h, 1, d, "greedy decode", 300), (1, h, 1, d, "chat decode", 300),
+             (BATCH, h, tw, d, "verify round", starts), (BATCH, h, 297, d, "prefill", 0),
+             (BATCH, h, 1, d, "engine decode", engine), (1, 1, 1, 8, "launch floor", 300))
+    for bq, hq, tq, dq, label, idx in cases:
         k = (randn(bq, tq, hq, dq) * 4).to(bf16).transpose(1, 2)
         v = randn(bq, tq, hq, dq).to(bf16).transpose(1, 2)
         bufs = [torch.randint(-127, 128, (bq, hq, t, dq), generator=g, device=dev,
@@ -819,13 +869,13 @@ def b4_checks(dev, g, b4, inputs):
         bufs += [torch.rand(bq, hq, t, 1, generator=g, device=dev).half() for _ in range(2)]
         outs, refs = [x.clone() for x in bufs], [x.clone() for x in bufs]
         n = bq * hq * tq
-        work = (2 * n * dq * 2 + 2 * n * dq + 2 * n * 2 + (bq * 4 if label == "verify round"
+        work = (2 * n * dq * 2 + 2 * n * dq + 2 * n * 2 + (bq * 4 if torch.is_tensor(idx)
                                                            else 0),
                 # abs, max, divide, round per element, in fp32
                 4 * 2 * n * dq, PEAK_FP32_S)
         is_main = label == "verify round"
         b4.compare(f"quantize-and-write B={bq} H={hq} T={t} t={tq} D={dq} ({label}, "
-                   f"{'per-row starts' if is_main else f'start {idx}'})",
+                   f"{'per-row starts' if torch.is_tensor(idx) else f'start {idx}'})",
                    lambda: kw.kv_quantize_write(*outs, k, v, idx),
                    lambda: kw.kv_quantize_write_plain(*refs, k, v, idx), exact,
                    outputs=lambda: (torch.cat([x.flatten().float() for x in outs]),
@@ -1568,6 +1618,247 @@ def eval_slice(dev, seed, checks, card):
     check(same == n_images, f"compared {same} of {n_images} rows with a direct generate")
     print(f"tokens of all {same} rows identical to a direct Myriad.generate on the same "
           f"batches", flush=True)
+    return model, argv, out
+
+
+# phase 9: the engine's load (requests over the eval's slots, arrivals a tick)
+# and the prefix lengths that make widths 320, 160 and 64 admit
+ENGINE_REQUESTS, ENGINE_SEGMENT, ENGINE_ARRIVALS = 24, 32, 4
+ENGINE_WIDTHS, ENGINE_CUTS, ENGINE_ADMIT_CHUNK = (64, 160, 320), (None, 120, 50), 8
+
+
+def _engine_bucket(spec_k):
+    """ServingEngine's bucket rule of MyriadServing: 416 greedy, 448 with K = 3."""
+    return -(-(max(ENGINE_WIDTHS) + NEW_TOKENS + 2 * spec_k + 1) // 32) * 32
+
+
+def _engine_prompts(model, seed, dev):
+    """Eight images' AQA prefixes (the eval's 297 positions at full width),
+    and the requests: request i takes image i % 8, cut to ENGINE_CUTS[i % 3]."""
+    import torch
+
+    samples = _samples(seed + 3, model.arch.img_size)
+    ve = model.vision_expert
+    scenes = [ve.class_names[i % len(ve.class_names)] for i in range(BATCH)]
+    with torch.inference_mode():
+        image = torch.as_tensor(samples["image"], device=dev)
+        maps, _ = ve.module.zero_shot(image, ve._text_feats[ve.scene_ids(scenes)])
+        before, after = model.split_prompt(AQA_QUESTION)
+        embeds = model.module.prefill_embeds(image, maps, before, after, 1, add_bos=False)
+    prompts = [embeds[i % BATCH, :ENGINE_CUTS[i % 3]] for i in range(ENGINE_REQUESTS)]
+    return embeds, prompts, after
+
+
+def _engine_run(llama, prompts, spec_k=0, lookup=None, profile=False):
+    """One run of the engine's schedule: ENGINE_ARRIVALS submits a tick until
+    every request is in, ticks until it drains.  Returns (engine, {request id:
+    Finished}, [(width, rows) of each admission chunk])."""
+    from myriad_tpu_torch.generation import GenerationConfig
+    from myriad_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(llama, slots=BATCH, bucket=_engine_bucket(spec_k),
+                        config=GenerationConfig(max_new_tokens=NEW_TOKENS), cache_dtype="int8",
+                        segment=ENGINE_SEGMENT, admit_widths=ENGINE_WIDTHS,
+                        max_admit_chunk=ENGINE_ADMIT_CHUNK, spec_k=spec_k, lookup_ids=lookup)
+    eng.profile_sync = profile
+    chunks, admit = [], eng._admit_rows
+
+    def admit_rows(width, slot_list, *rest):
+        chunks.append((width, len(slot_list)))
+        return admit(width, slot_list, *rest)
+    eng._admit_rows = admit_rows
+    done, queue = {}, list(enumerate(prompts))
+    while queue or eng.pending:
+        for _ in range(ENGINE_ARRIVALS):
+            if queue:
+                i, x = queue.pop(0)
+                eng.submit(x, request_id=i)
+        done.update((f.request_id, f) for f in eng.step())
+        check(eng.stats["ticks"] < 1000, "the engine did not drain")
+    return eng, done, chunks
+
+
+def _check_engine_launches(counts, chunks, steps, spec_k, layers, label):
+    """Every forward of the engine launches B3 (a chunk of several rows) or B2
+    (one decode row) once a layer and B4 once a layer; B1 serves the seven
+    projections of a layer where the forward has at most 256 rows."""
+    from myriad_tpu_torch.ops.quant import SMALL_M
+
+    rows = BATCH * (spec_k + 1)
+    small = sum(1 for w, n in chunks if w * n <= SMALL_M) + (steps if rows <= SMALL_M else 0)
+    want = {"B1 int8_matmul": layers * 7 * small,
+            "B2 decode_attention": 0 if spec_k else layers * steps,
+            "B3 prefill_attention": layers * (len(chunks) + (steps if spec_k else 0)),
+            "B4 kv_write": layers * (len(chunks) + steps)}
+    print(f"  {label}: launches {counts}; expected from {len(chunks)} admission chunks "
+          f"{chunks} and {steps} {'rounds' if spec_k else 'steps'}: {want}", flush=True)
+    for name, n in want.items():
+        check(counts[name] == n, f"{label}: {name} launched {counts[name]} times, not {n}")
+
+
+def engine_slice(dev, seed, checks, card, model, eval_argv, eval_out):
+    """Phase 9: the continuous-batching engine at full width on phase 8's model."""
+    import numpy as np
+    import torch
+
+    from myriad_tpu_torch import evaluate
+    from myriad_tpu_torch.common.config import Config
+    from myriad_tpu_torch.generation import GenerationConfig, greedy_generate, trim_stop_ids
+    from myriad_tpu_torch.models.llama import set_frontier
+    from myriad_tpu_torch.serving import MyriadServing, ServingEngine
+
+    llama = model.module.llama
+    vocab, layers = model.arch.llama.vocab_size, model.arch.llama.num_layers
+    cfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    needs = ["B1 int8_matmul", "B2 decode_attention", "B3 prefill_attention", "B4 kv_write"]
+    embeds, prompts, after = _engine_prompts(model, seed, dev)
+    p = embeds.shape[1]
+    print(f"engine requests: {ENGINE_REQUESTS} over {BATCH} slots, prefixes of "
+          f"{sorted({x.shape[0] for x in prompts})} positions, {ENGINE_ARRIVALS} arrivals a "
+          f"tick, segment {ENGINE_SEGMENT}, widths {ENGINE_WIDTHS}, chunks of at most "
+          f"{ENGINE_ADMIT_CHUNK}, bucket {_engine_bucket(0)}", flush=True)
+
+    # (a) greedy: launches, determinism, the first step after a mixed admission
+    (eng, done, chunks), wall, counts = drive(checks, "engine_greedy",
+                                              lambda: _engine_run(llama, prompts, profile=True),
+                                              needs)
+    st = eng.stats
+    check(sorted(done) == list(range(ENGINE_REQUESTS)), f"finished {sorted(done)}")
+    for f in done.values():
+        check(f.tokens.size <= NEW_TOKENS and f.raw_tokens.size <= NEW_TOKENS
+              and bool(((f.raw_tokens >= 0) & (f.raw_tokens < vocab)).all()),
+              f"request {f.request_id}: bad tokens")
+        check(list(f.tokens) == trim_stop_ids(f.raw_tokens, cfg), "trim disagrees")
+    _check_engine_launches(counts, chunks, st["decode_steps"], 0, layers, "engine greedy")
+    occupancy = st["live_row_steps"] / max(st["decode_steps"] * BATCH, 1)
+    print(f"engine greedy: {ENGINE_REQUESTS / wall:.4f} images/s ({wall:.3f} s, host clock "
+          f"after synchronize, profile_sync on; LLM only, embeds made beforehand); stats "
+          f"{ {k: (round(v, 4) if isinstance(v, float) else v) for k, v in st.items()} }; "
+          f"slot occupancy {occupancy:.4f}; admit {st['admit_wall_s']:.3f} s, decode "
+          f"{st['decode_wall_s']:.3f} s; card: {card}", flush=True)
+    (_, again, _), wall2 = timed(lambda: _engine_run(llama, prompts))
+    same = all(np.array_equal(again[i].raw_tokens, done[i].raw_tokens) for i in done)
+    print(f"engine greedy, the same schedule again (profile_sync off): {wall2:.3f} s, "
+          f"{ENGINE_REQUESTS / wall2:.4f} images/s; transcripts bit-identical: {same}",
+          flush=True)
+    check(same, "two runs of one engine schedule gave different transcripts")
+    # the same 24 prompts as three fixed batches of one length each, in this call
+    solo, fixed_wall = {}, 0.0
+    with torch.inference_mode():
+        for cut in ENGINE_CUTS:
+            toks, t = timed(lambda: greedy_generate(llama, embeds[:, :cut], config=cfg,
+                                                    cache_dtype="int8"))
+            fixed_wall += t
+            for i in range(ENGINE_REQUESTS):
+                if ENGINE_CUTS[i % 3] == cut:
+                    solo[i] = trim_stop_ids(toks[i % BATCH].cpu().numpy(), cfg)
+    agree = sum(list(done[i].tokens) == solo[i] for i in done)
+    print(f"the same {ENGINE_REQUESTS} prompts as three fixed batches of 8 through "
+          f"greedy_generate: {ENGINE_REQUESTS / fixed_wall:.4f} images/s ({fixed_wall:.3f} s, "
+          f"host clock after synchronize) against the engine's {ENGINE_REQUESTS / wall:.4f} and "
+          f"{ENGINE_REQUESTS / wall2:.4f}; transcripts equal for {agree} of {ENGINE_REQUESTS} "
+          f"requests (reported, not required: B2 reads the whole bucket here and stages there, "
+          f"and random weights are chaotic); card: {card}", flush=True)
+
+    # the first decode step after a mixed admission (a width-320 chunk of four
+    # and a width-64 chunk of four): kernels against the plain path
+    valid = np.array([p, 250, p, 180, 50, 64, 33, 50])
+    mixed = torch.zeros((BATCH, max(ENGINE_WIDTHS), embeds.shape[2]), dtype=embeds.dtype,
+                        device=dev)
+    for i, n in enumerate(valid):
+        mixed[i, :n] = embeds[i, :n]
+
+    def first_step(x):
+        e = ServingEngine(llama, slots=BATCH, bucket=_engine_bucket(0), config=cfg,
+                          cache_dtype="int8", admit_widths=ENGINE_WIDTHS,
+                          max_admit_chunk=ENGINE_ADMIT_CHUNK)
+        e.submit_group(x[:4], valid[:4])
+        e.submit_group(x[4:, :64].contiguous(), valid[4:])
+        e._admit_pending()
+        state = e._state
+        set_frontier(state["cache"], state["length"])
+        with torch.inference_mode():
+            return llama(llama.embed(state["last"][:, None]), state["cache"])[:, -1].float()
+
+    sensitivity_gate(f"first engine decode step after a mixed admission (frontiers "
+                     f"{valid.tolist()}, kv_len {_engine_bucket(0)})", first_step(mixed),
+                     first_step, mixed, seed)
+
+    # (b) speculative rounds with the AQA answer corpus as the lookup
+    lookup = model._spec_lookup_ids(after).cpu().numpy()
+    (eng, done_k, chunks), wall, counts = drive(
+        checks, "engine_spec", lambda: _engine_run(llama, prompts, SPEC_K, lookup, True),
+        ["B1 int8_matmul", "B3 prefill_attention", "B4 kv_write"])
+    st = eng.stats
+    check(sorted(done_k) == list(range(ENGINE_REQUESTS)), "speculative engine: not all finished")
+    _check_engine_launches(counts, chunks, st["decode_steps"], SPEC_K, layers, "engine spec")
+    spec_same = sum(np.array_equal(done_k[i].tokens, done[i].tokens) for i in done)
+    print(f"engine spec K={SPEC_K}: {ENGINE_REQUESTS / wall:.4f} images/s ({wall:.3f} s); "
+          f"acceptance {st['spec_accepted'] / max(st['spec_drafted'], 1):.4f} "
+          f"({st['spec_accepted']} of {st['spec_drafted']}), {st['decode_steps']} rounds, "
+          f"occupancy {st['live_row_steps'] / max(st['decode_steps'] * BATCH, 1):.4f}; admit "
+          f"{st['admit_wall_s']:.3f} s, decode {st['decode_wall_s']:.3f} s; transcripts equal "
+          f"to the greedy engine's for {spec_same} of {ENGINE_REQUESTS} (reported); card: "
+          f"{card}", flush=True)
+
+    # (c) two held conversations through the adapter, a second turn each
+    serving = MyriadServing(model, slots=BATCH, bucket=576, segment=ENGINE_SEGMENT,
+                            max_new_tokens=NEW_TOKENS, admit_widths=ENGINE_WIDTHS)
+    turn1 = _samples(seed + 4, model.arch.img_size)
+    handles = [serving.submit_held({"image": turn1["image"][i:i + 1],
+                                    "scene": [model.vision_expert.class_names[i % 2]],
+                                    "question2": [AQA_QUESTION]}) for i in range(2)]
+    (first, wall, counts) = drive(checks, "engine_held", serving.drain, needs)
+    check(sorted(r["request_id"] for r in first) == handles and all(r["held"] for r in first),
+          "held turn 1")
+    eng = serving.engine
+    text = "###Human: " + CHAT_QUESTIONS[1] + " ###Assistant: "
+    delta = len(model.llama_tokenizer(text)["input_ids"][0])
+    front1 = {h: int(eng._frontier_host[eng._held[h]]) for h in handles}
+    slots = {h: eng._held[h] for h in handles}
+    turns = {serving.continue_request(h, text, hold=True): h for h in handles}
+    second = serving.drain()
+    check(sorted(r["request_id"] for r in second) == sorted(turns), "held turn 2")
+    for r in second:
+        h = turns[r["request_id"]]
+        want = front1[h] + delta + len(r["raw_tokens"])
+        got = int(eng._frontier_host[slots[h]])
+        print(f"  held conversation {h}: turn 1 frontier {front1[h]}, delta {delta}, "
+              f"{len(r['raw_tokens'])} raw tokens -> frontier {got} (want {want}); scene "
+              f"{r.get('scene')!r}", flush=True)
+        check(got == want, f"held conversation {h}: frontier {got}, not {want}")
+        serving.release(r["request_id"])
+    check(eng.free_slot_count == BATCH, "release did not free the held slots")
+    print(f"engine held conversations: turn 1 {wall:.3f} s (two requests), launches {counts}",
+          flush=True)
+    del serving, eng
+
+    # (d) the eval entry point with --engine over phase 8's tree
+    argv = eval_argv + ["--engine", "--save_path",
+                        os.path.join(REPO, "build", "aqa_eval", "engine_rows.jsonl")]
+    args = evaluate.parse_args(argv)
+    out, wall, counts = drive(checks, "aqa_engine_eval",
+                              lambda: evaluate.run(args, Config(args), model), needs)
+    rows, bench = out["rows"], out["bench"]
+    keys = ["image_id", "image_path", "is_anomaly", "output", "error", "anomaly_score"]
+    n_images = len(eval_out["rows"])
+    check(sorted(r["image_id"] for r in rows) == list(range(n_images)),
+          f"--engine wrote {len(rows)} rows")
+    for row in rows:
+        check(list(row) == keys and row["error"] in ("0", "1")
+              and 0.0 <= float(row["anomaly_score"]) <= 1.0, f"--engine row {row}")
+    check(bench is not None and bench["requests"] == n_images and bench["slots"] == BATCH,
+          f"--engine --bench line: {bench}")
+    fixed = {r["image_id"]: r for r in eval_out["rows"]}
+    agree = sum(r["output"] == fixed[r["image_id"]]["output"] for r in rows)
+    scores = sum(r["anomaly_score"] == fixed[r["image_id"]]["anomaly_score"] for r in rows)
+    print(f"evaluate.run --engine: {len(rows)} rows in {wall:.3f} s; launches {counts}; "
+          f"outputs equal to phase 8's for {agree} of {n_images} images, anomaly scores for "
+          f"{scores} (reported); card: {card}", flush=True)
+    print(f"aqa eval --engine --bench: {json.dumps(bench)}", flush=True)
+    print(f"eval images/s: --engine {bench['value']:.4f} against phase 8's fixed batches "
+          f"{eval_out['bench']['value']:.4f} (each its own --bench rule); card: {card}",
+          flush=True)
 
 
 def say(t_start, title) -> None:
@@ -1648,7 +1939,10 @@ def main(argv=None) -> int:
     del model4
     torch.cuda.empty_cache()
     say(t_start, "phase 8: the AQA evaluation entry point at full width")
-    eval_slice(dev, args.seed, checks, card)
+    model8, eval_argv, eval_out = eval_slice(dev, args.seed, checks, card)
+    say(t_start, "phase 9: the continuous-batching engine at full width")
+    engine_slice(dev, args.seed, checks, card, model8, eval_argv, eval_out)
+    del model8
     say(t_start, "all phases done")
     print(card)
     print(json.dumps({"kernels": [c.record() for c in checks]}))

@@ -16,8 +16,11 @@ It runs on the card named by the config's ``run.device`` (``cuda`` when
 unset; without a card that raises), and ``run.device: cpu`` runs it on the
 CPU.  The images are decoded and resized on the host exactly as PIL does
 (``datasets.png``, ``processors.functional``) and normalised to float32, as
-the JAX harness feeds its towers.  The serving engine (``--engine``),
-one-shot maps (``--k_shot`` > 0) and VisA's JPEGs are not ported and raise.
+the JAX harness feeds its towers.  ``--engine`` serves every image as a
+request of the continuous-batching engine over ``--bs`` slots
+(``serving.MyriadServing``), with the same rows and a ``--bench`` line of its
+own.  One-shot maps (``--k_shot`` > 0) and VisA's JPEGs are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -65,9 +68,10 @@ def parse_args(argv=None):
                         "is routed to the same greedy path)")
     p.add_argument("--max_new_tokens", type=int, default=90)
     p.add_argument("--engine", action="store_true",
-                   help="the continuous-batching serving engine (not ported: raises)")
+                   help="serve the images through the continuous-batching engine, --bs slots")
     p.add_argument("--engine-segment", type=int, default=32)
-    p.add_argument("--engine-block", type=int, default=8)
+    p.add_argument("--engine-block", type=int, default=8,
+                   help="the JAX engine's block KV layout; not ported: per-row frontiers")
     p.add_argument("--engine-admit-chunk", type=int, default=8)
     p.add_argument("--pipeline-depth", type=int, default=2,
                    help="batches generated before the oldest one's rows are written")
@@ -160,12 +164,25 @@ def device_mem_mb(device) -> float:
     return torch.cuda.max_memory_allocated(device) / (1024 * 1024)
 
 
+def result_row(image_id, img_path: str, is_anomaly, text: str, score=None) -> Dict:
+    """One jsonl row: the answer cut at '###', and ``error`` "0" when it says
+    Yes of an anomalous image or No of a normal one."""
+    text = text.split("###")[0]
+    is_anomaly = bool(is_anomaly)
+    ok = ("Yes" in text and is_anomaly) or ("No" in text and not is_anomaly)
+    item = {"image_id": int(image_id), "image_path": "/".join(img_path.split("/")[-5:]),
+            "is_anomaly": is_anomaly, "output": text, "error": "0" if ok else "1"}
+    if score is not None:
+        item["anomaly_score"] = str(round(float(score), 4))
+    return item
+
+
 def run(args, cfg: Config, model) -> Dict:
     """``main`` after the model is built: the dataset, the vision expert's
-    classes, the batched generate loop, the jsonl rows and the ``--bench``
-    line.  Returns {"save_path", "rows", "token_ids" (each batch's, real rows
-    only), "bench" (the line's dict, or None), "phases" (each batch's phase
-    times, s)}.
+    classes, the batched generate loop (or, with ``--engine``, ``run_engine``),
+    the jsonl rows and the ``--bench`` line.  Returns {"save_path", "rows",
+    "token_ids" (each batch's, real rows only), "bench" (the line's dict, or
+    None), "phases" (each batch's phase times, s)}.
 
     Phases per batch, as the JAX harness splits them: ``collate`` (the loader
     and padding), ``dispatch`` (``model.generate``), ``wait`` (the first host
@@ -186,6 +203,8 @@ def run(args, cfg: Config, model) -> Dict:
     dataloader = DataLoader(dataset, batch_size=args.bs, num_workers=4)
     save_path = _save_path(args, cfg)
     print(f"Results will be saved to {save_path}")
+    if args.engine:
+        return run_engine(args, model, dataloader, save_path)
 
     generate_kwargs = {
         "max_new_tokens": args.max_new_tokens,
@@ -211,20 +230,9 @@ def run(args, cfg: Config, model) -> Dict:
         output_text = model.llama_tokenizer.batch_decode(np.clip(token_ids, 1, 40000))
         maps = outputs["ve_anomaly_maps"].float().cpu().numpy()
         for ind, text in enumerate(output_text):
-            text = text.split("###")[0]
-            is_anomaly = bool(samples["is_anomaly"][ind])
-            item = {
-                "image_id": int(samples["image_id"][ind]),
-                "image_path": "/".join(samples["img_path"][ind].split("/")[-5:]),
-                "is_anomaly": is_anomaly,
-                "output": text,
-            }
-            if ("Yes" in text and is_anomaly) or ("No" in text and not is_anomaly):
-                item["error"] = "0"
-            else:
-                item["error"] = "1"
-            if maps.size:
-                item["anomaly_score"] = str(round(float(maps[ind].max()), 4))
+            item = result_row(samples["image_id"][ind], samples["img_path"][ind],
+                              samples["is_anomaly"][ind], text,
+                              maps[ind].max() if maps.size else None)
             writer.write(json.dumps(item) + "\n")
             rows.append(item)
         phases["hflush"].append(time.time() - t_h0)
@@ -294,10 +302,85 @@ def run(args, cfg: Config, model) -> Dict:
             "phases": phases}
 
 
+def run_engine(args, model, dataloader, save_path: str) -> Dict:
+    """The eval through the continuous-batching engine
+    (``serving.MyriadServing``, the JAX harness's ``run_engine_eval``): every
+    image is a request over ``--bs`` slots, admitted at widths (64, 160, 320),
+    speculative when the model's ``spec_k`` is set; rows are written as
+    requests finish, with the fixed-batch loop's schema.  The block KV
+    layout (``--engine-block``) is not ported: the engine serves per-row
+    frontiers, and its line says block 0.  The ``--bench`` line's value
+    counts the requests after the first finisher, over the time from it to
+    the last.  Returns {"save_path", "rows", "bench", "stats"}."""
+    from myriad_tpu_torch.serving import MyriadServing
+
+    spec_k = model.spec_k
+    serving = MyriadServing(model, slots=args.bs, segment=args.engine_segment,
+                            max_new_tokens=args.max_new_tokens, admit_widths=(64, 160, 320),
+                            spec_k=spec_k, max_admit_chunk=args.engine_admit_chunk)
+    meta = {}
+    t0 = time.time()
+    n_submitted = 0
+    for samples in dataloader:
+        bs = len(samples["image_id"])
+        requests = []
+        for i in range(bs):
+            req = {"image": np.asarray(samples["image"])[i:i + 1]}
+            for k in ("scene", "question", "question2", "question3", "img_path"):
+                if k in samples:
+                    req[k] = [samples[k][i]]
+            requests.append(req)
+        for i, rid in enumerate(serving.submit_batch(requests, lazy=True)):
+            meta[rid] = (samples["image_id"][i], samples["img_path"][i],
+                         samples["is_anomaly"][i])
+        n_submitted += bs
+    if args.engine_block and not spec_k:
+        print(f"engine eval: the block KV layout (--engine-block {args.engine_block}) is not "
+              "ported; the engine serves per-row frontiers")
+    print(f"engine eval: {n_submitted} requests over {args.bs} slots "
+          f"(segment {args.engine_segment}, block 0, spec {spec_k})")
+
+    rows, completions = [], []
+    with open(save_path, "w") as writer:
+        while serving.pending:
+            for r in serving.step():
+                item = result_row(*meta.pop(r["request_id"]), r["text"], r.get("anomaly_score"))
+                writer.write(json.dumps(item) + "\n")
+                rows.append(item)
+                completions.append(time.time())
+
+    print("Device Memory:", device_mem_mb(model.device))
+    stats = serving.stats
+    print("Mean Time: ", (time.time() - t0) / max(stats["ticks"], 1))
+    line = None
+    if args.bench and len(completions) > args.bs:
+        # steady state: from the first finisher (the wave that paid the
+        # set-up) to the last, as the JAX harness takes it
+        secs = completions[-1] - completions[0]
+        card = (torch.cuda.get_device_name(model.device) if model.device.type == "cuda"
+                else "CPU")
+        line = {
+            "metric": f"images/sec (AQA eval harness, serving engine, PyTorch port on {card}, "
+                      f"{args.max_new_tokens}-token decode"
+                      + (f", spec K={spec_k}" if spec_k else "") + ")",
+            "value": round((len(completions) - 1) / max(secs, 1e-9), 4),
+            "unit": "images/sec",
+            "requests": len(completions),
+            "slots": args.bs,
+            "ticks": stats["ticks"],
+            "decode_steps": stats["decode_steps"],
+            "slot_occupancy": round(stats["live_row_steps"]
+                                    / max(stats["decode_steps"] * args.bs, 1), 3),
+            "compile_to_first_s": round(completions[0] - t0, 2),
+        }
+        if stats["spec_drafted"]:
+            line["spec_acceptance"] = round(stats["spec_accepted"] / stats["spec_drafted"], 4)
+        print(json.dumps(line))
+    return {"save_path": save_path, "rows": rows, "bench": line, "stats": dict(stats)}
+
+
 def main(argv=None) -> Dict:
     args = parse_args(argv)
-    if args.engine:
-        raise NotImplementedError("--engine: the serving engine is not ported")
     cfg = Config(args)
     return run(args, cfg, build_model(args, cfg))
 

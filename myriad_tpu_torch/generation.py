@@ -80,6 +80,13 @@ def _select_token(logits: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
+def _stopped(prev: torch.Tensor, nxt: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
+    """Rows whose next token ``nxt`` (after ``prev``) ends them: eos, the
+    single '###' id, or the '###' pair."""
+    return ((nxt == cfg.eos_token_id) | (nxt == cfg.stop_single)
+            | ((prev == cfg.stop_pair[0]) & (nxt == cfg.stop_pair[1])))
+
+
 def decode_stages(p: int, cfg: GenerationConfig) -> List[Tuple[int, int]]:
     """``(kv_limit, stage_end)`` spans of the decode loop: step s < stage_end
     attends over cache positions < kv_limit (its write frontier p + s stays
@@ -106,9 +113,7 @@ def _decode_loop(model: LlamaForCausalLM, cfg: GenerationConfig, last: torch.Ten
             tokens[:, step] = torch.where(done, cfg.pad_token_id, last)
             logits = model(model.embed(last[:, None]), cache, kv_limit=kv_limit)
             nxt = _select_token(logits[:, -1].float(), cfg)
-            stopped = ((nxt == cfg.eos_token_id) | (nxt == cfg.stop_single)
-                       | ((last == cfg.stop_pair[0]) & (nxt == cfg.stop_pair[1])))
-            done = done | stopped
+            done = done | _stopped(last, nxt, cfg)
             last = nxt
             step += 1
     tokens[:, step] = torch.where(done, cfg.pad_token_id, last)
@@ -188,6 +193,26 @@ def _lookup_drafts(corpus: torch.Tensor, prev: torch.Tensor, last: torch.Tensor,
     first = torch.where(j2 >= 0, j2 + 2, j1 + 1)
     idx = (first[:, None] + torch.arange(k, device=corpus.device)[None, :]).clamp(0, n - 1)
     return corpus.gather(1, idx)
+
+
+def _emit_window(chain: torch.Tensor, a: torch.Tensor, done: torch.Tensor,
+                 cfg: GenerationConfig):
+    """A verify round's output: ``chain`` (B, K+2) is the fed token and the
+    model's K+1 greedy tokens, ``a`` the accepted drafts.  Emits chain[0..a]
+    on rows not ``done``, with greedy_generate's stop rules, as a (B, K+1)
+    window padded with ``pad_token_id``; returns (window, done after the
+    window, tokens emitted)."""
+    b, k1 = chain.shape[0], chain.shape[1] - 1
+    window = torch.full((b, k1), cfg.pad_token_id, dtype=torch.int64, device=chain.device)
+    done_j = done
+    n_new = torch.zeros((b,), dtype=torch.int64, device=chain.device)
+    for j in range(k1):
+        c_j, c_n = chain[:, j], chain[:, j + 1]
+        valid = (j <= a) & ~done_j
+        window[:, j] = torch.where(valid, c_j, cfg.pad_token_id)
+        done_j = done_j | (valid & _stopped(c_j, c_n, cfg))
+        n_new = n_new + valid.long()
+    return window, done_j, n_new
 
 
 @torch.inference_mode()
@@ -286,18 +311,7 @@ def speculative_generate(model: LlamaForCausalLM, inputs_embeds: torch.Tensor, *
         chain = torch.cat([last[:, None], g], dim=1)                     # (B, K+2)
         a = torch.cumprod((feed[:, 1:] == g[:, :-1]).long(), dim=1).sum(dim=1)
 
-        # emit chain[0..a] with greedy_generate's stop rules
-        window = torch.full((b, k + 1), cfg.pad_token_id, dtype=torch.int64, device=dev)
-        done_j = done
-        n_new = torch.zeros_like(n_emit)
-        for j in range(k + 1):
-            c_j, c_n = chain[:, j], chain[:, j + 1]
-            valid = (j <= a) & ~done_j
-            window[:, j] = torch.where(valid, c_j, cfg.pad_token_id)
-            stopped = ((c_n == cfg.eos_token_id) | (c_n == cfg.stop_single)
-                       | ((c_j == cfg.stop_pair[0]) & (c_n == cfg.stop_pair[1])))
-            done_j = done_j | (valid & stopped)
-            n_new = n_new + valid.long()
+        window, done_j, n_new = _emit_window(chain, a, done, cfg)
         # rows already done park their all-pad window in the slack past max_new
         offset = torch.where(done, max_new, n_emit.clamp(max=max_new - 1))
         tokens.scatter_(1, offset[:, None] + cols[None, :], window)

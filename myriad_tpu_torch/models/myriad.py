@@ -110,6 +110,19 @@ class MyriadModule(nn.Module):
             inputs_llama = torch.cat([inputs_llama, self.ve_tokenizer(maps)], dim=1)
         return inputs_llama
 
+    def image_tokens(self, stage: int) -> int:
+        """Positions ``encode_img`` gives an image, known before it runs: the
+        queries, the VEInstructor's tokens (stages 1-2: one a cell of the map
+        pyramid's (map_size / 32)^2 grid) and the VETokenizer's (stages 0-1:
+        9 base prompts and its 5x5 head's 9 cells on that grid)."""
+        side = self.arch.map_size // 32
+        n = self.arch.num_query_token
+        if stage in (1, 2):
+            n += side * side
+        if stage in (0, 1):
+            n += 9 + (side - 4) ** 2
+        return n
+
     def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
         return self.llama.embed(ids)
 

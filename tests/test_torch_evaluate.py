@@ -296,10 +296,17 @@ def test_eval_rows_match_jax(pair, tree, tmp_path, capsys):  # noqa: F811
     assert "Device Memory: 0.0" in printed
 
 
-def test_evaluate_refuses_what_is_not_ported(tree, tmp_path):
+def test_evaluate_refuses_what_is_not_ported(tree, tmp_path, capsys):
     cfg = _write_config(tmp_path / "cfg.yaml", tree)
-    with pytest.raises(NotImplementedError, match="--engine"):
-        evaluate.main(["--cfg-path", cfg, "--engine"])
+    # --engine is served; the JAX engine's block KV layout is what is not
+    # ported, and the engine runs with per-row frontiers instead
+    out = evaluate.main(["--cfg-path", cfg, "--engine", "--engine-block", "8", "--bs", "2",
+                         "--max_new_tokens", "4", "--save_path", str(tmp_path / "e.jsonl")])
+    assert sorted(r["image_id"] for r in out["rows"]) == list(range(10))
+    assert out["stats"]["completed"] == 10
+    printed = capsys.readouterr().out
+    assert "block KV layout (--engine-block 8) is not ported" in printed
+    assert "(segment 32, block 0, spec 0)" in printed
     with pytest.raises(NotImplementedError, match="k_shot=1"):
         evaluate.setup_vision_expert(None, None, 1)
     with pytest.raises(SystemExit, match="task_type 'aqa'"):

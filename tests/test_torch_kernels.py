@@ -247,6 +247,35 @@ def test_decode_attention_kernel_one_launch_no_scratch(dev, masked):
     assert out.shape == q.shape
 
 
+# the serving engine's decode step: eight rows at frontiers spread over 64-410,
+# each masked at its own frontier over the whole 416-position bucket
+ENGINE_FRONTIERS = [64, 410, 297, 120, 233, 350, 180, 389]
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_decode_attention_kernel_ragged_frontiers(dev, int8):
+    from myriad_tpu_torch.ops.attention import causal_mask
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, h, t, d = 8, 32, 416, 128
+    q = torch.randn(b, h, 1, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v, ks, vs = _cache(dev, g, b, h, t, d, int8)
+    front = torch.tensor(ENGINE_FRONTIERS, device=dev, dtype=torch.int32)
+    args = dict(mask=causal_mask(front[:, None], t), k_scale=ks, v_scale=vs, kv_len=t)
+    before = da.counter.count
+    out = da.decode_attention(q, k, v, **args)
+    assert da.counter.count == before + 1
+    ref = da.decode_attention_plain(q, k, v, **args)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_ATOL
+    assert torch.equal(out, da.decode_attention(q, k, v, **args))
+    # a row sees nothing past its frontier: junk there changes no output
+    k2, v2 = k.clone(), v.clone()
+    for i, f in enumerate(ENGINE_FRONTIERS):
+        k2[i, :, f + 1:] = k2[i, :, f + 1:].flip(1)
+        v2[i, :, f + 1:] = 0
+    assert torch.equal(out, da.decode_attention(q, k2, v2, **args))
+
+
 @pytest.mark.parametrize("tq,offset", [(297, 0), (33, 264), (7, 290), (1, 100)])
 @pytest.mark.parametrize("int8", [True, False])
 def test_prefill_attention_kernel_matches_plain(dev, tq, offset, int8):
@@ -323,6 +352,29 @@ def test_kv_quantize_write_bit_exact(dev, t, d):
     kw.kv_quantize_write_plain(*ref, k, v, idx)
     for name, a, r in zip(("k", "v", "k_scale", "v_scale"), out, ref):
         assert torch.equal(a, r), name
+
+
+def test_kv_quantize_write_engine_decode_step(dev):
+    """The engine's decode step: t = 1 at eight per-row frontiers."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, h, T, d = 8, 32, 416, 128
+    bufs = [torch.randint(-127, 128, (b, h, T, d), generator=g, device=dev, dtype=torch.int8)
+            for _ in range(2)]
+    bufs += [torch.rand(b, h, T, 1, generator=g, device=dev).half() for _ in range(2)]
+    k = (torch.randn(b, 1, h, d, generator=g, device=dev) * 4).bfloat16().transpose(1, 2)
+    v = torch.randn(b, 1, h, d, generator=g, device=dev).bfloat16().transpose(1, 2)
+    idx = torch.tensor(ENGINE_FRONTIERS, dtype=torch.int32, device=dev)
+    out, ref = [x.clone() for x in bufs], [x.clone() for x in bufs]
+    before = kw.counter.count
+    kw.kv_quantize_write(*out, k, v, idx)
+    assert kw.counter.count == before + 1
+    kw.kv_quantize_write_plain(*ref, k, v, idx)
+    for name, a, r in zip(("k", "v", "k_scale", "v_scale"), out, ref):
+        assert torch.equal(a, r), name
+    # one position a row, at its frontier, and nothing else
+    changed = (out[0] != bufs[0]).any(dim=-1).any(dim=1)  # (b, T)
+    for i, f in enumerate(ENGINE_FRONTIERS):
+        assert changed[i].nonzero().flatten().tolist() in ([f], [])
 
 
 def test_kv_write_refuses_what_it_does_not_take(dev):
@@ -741,3 +793,51 @@ def test_bwprobe_cli_on_the_card(dev):
     assert bwprobe.main(["--gb", "0.25", "--iters", "2", "--impl", "cuda"]) == 0
     res = bwprobe.probe(0.25, "int8", 2, "cuda2", 512, "cuda")
     assert res["gb_per_s"] > 0 and res["bytes"] == 2 * 64 * 512 * bwprobe.WIDTH
+
+
+
+@pytest.mark.parametrize("spec_k", [0, 2])
+def test_serving_engine_on_the_card(dev, spec_k):
+    """A small LLaMA (two layers, head dim 128, int8 weights and KV, bf16) in
+    the continuous-batching engine: six requests over four slots, two
+    arrivals a tick; every request finishes, two runs of the schedule give
+    the same transcripts bit for bit, and B1-B4 (B2 only without
+    speculation) are launched."""
+    from myriad_tpu_torch.generation import GenerationConfig
+    from myriad_tpu_torch.models.layers import Policy, init_random_
+    from myriad_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from myriad_tpu_torch.serving import ServingEngine
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                      num_heads=2, weight_dtype="int8", kv_cache_dtype="int8")
+    model = LlamaForCausalLM(cfg, policy=Policy.bf16_params(), device=dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    init_random_(model, g, std=0.2)
+    prompts = [torch.randn(n, 256, generator=g, device=dev).bfloat16()
+               for n in (40, 9, 25, 60, 3, 17)]
+    gen_cfg = GenerationConfig(max_new_tokens=20, eos_token_id=-1, stop_single=-1,
+                               stop_pair=(-1, -1))
+
+    def run():
+        eng = ServingEngine(model, slots=4, bucket=128, config=gen_cfg, cache_dtype="int8",
+                            segment=8, admit_widths=(16, 32, 64), spec_k=spec_k)
+        out, queue = {}, list(enumerate(prompts))
+        while queue or eng.pending:
+            for _ in range(2):
+                if queue:
+                    i, x = queue.pop(0)
+                    eng.submit(x, request_id=i)
+            out.update((f.request_id, f.raw_tokens) for f in eng.step())
+        return out
+
+    counters = (quant.counter, da.counter, pa.counter, kw.counter)
+    before = [c.count for c in counters]
+    first = run()
+    launched = [c.count - b for c, b in zip(counters, before)]
+    assert sorted(first) == list(range(6))
+    assert all(len(t) == 20 and ((t >= 0) & (t < 256)).all() for t in first.values())
+    assert launched[0] > 0 and launched[2] > 0 and launched[3] > 0
+    assert (launched[1] > 0) == (spec_k == 0)
+    again = run()
+    assert all(torch.equal(torch.from_numpy(first[i]), torch.from_numpy(again[i]))
+               for i in first)

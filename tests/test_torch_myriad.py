@@ -506,7 +506,8 @@ def test_import_leaves_jax_out():
             "myriad_tpu_torch.demo, myriad_tpu_torch.evaluate, "
             "myriad_tpu_torch.common.config, myriad_tpu_torch.common.yaml_subset, "
             "myriad_tpu_torch.datasets.png, myriad_tpu_torch.datasets.anomaly_detection, "
-            "myriad_tpu_torch.datasets.loaders, myriad_tpu_torch.processors.functional\n"
+            "myriad_tpu_torch.datasets.loaders, myriad_tpu_torch.processors.functional, "
+            "myriad_tpu_torch.serving, myriad_tpu_torch.serving.myriad_adapter\n"
             "from myriad_tpu_torch.models.myriad import Myriad\n"
             "m = Myriad.from_config({'arch_preset': 'tiny', 'llm_weight_dtype': 'int8', "
             "'llm_kv_dtype': 'int8', 'llm_spec_k': 2}, device='cpu', class_names=['bottle'])\n"
@@ -570,6 +571,7 @@ def test_port_sources_reach_nothing_of_the_jax_package():
     assert len(files) > 20
     # every subpackage is walked, tools/ included
     assert Path(REPO, "myriad_tpu_torch", "tools", "bwprobe.py") in files
+    assert Path(REPO, "myriad_tpu_torch", "serving", "engine.py") in files
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
