@@ -85,7 +85,22 @@ Phases, each printing its own lines:
    lookup; (c) two held conversations through ``MyriadServing``, a second
    turn each, the frontier after it checked; (d) ``evaluate.run`` with
    ``--engine`` over phase 8's tree: 24 rows and the ``--bench`` line,
-   images/s printed beside phase 8's.
+   images/s printed beside phase 8's;
+10. free that model and train: ``python -m myriad_tpu_torch.train``'s runner
+   (``train.build`` and ``runner.train``, ``train.main``'s body) in process on
+   ``train_configs/loraadapter_simple_myriad_finetune.yaml`` at full width
+   (float Vicuna-7B with LoRA, towers frozen, random weights) over a synthetic
+   MVTec train tree under build/ (16 good PNGs, RGB 900x900 and gray
+   1024x1024), 2 epochs x 3 steps of 2 images and their 2 NSA twins, 4 loader
+   threads, a ring of 1: every loss finite, every frozen tensor bit-identical
+   afterwards and without a gradient, every trainable changed, one
+   checkpoint holding exactly the trainables, a resume that restores them bit
+   for bit and continues the step; one more step timed by phase (CUDA events)
+   with one AdamW update recomputed in fp64, one under ``torch.profiler``
+   (top 10 ops by device time), the host's NSA time per twin; then one step
+   with int8 LLM weights: W8A8 on ``torch._int_mm`` at every projection, the
+   straight-through backward reaching ``expert_adaptor`` across 32 layers,
+   one projection's dx against dy @ dequant(W)^T in fp32 (2e-2, bf16).
 
 With ``--parent DIR`` (a checkout of another tree, such as the parent
 commit's), phase 1 also builds DIR's kernels, compares their SASS with this
@@ -1861,6 +1876,265 @@ def engine_slice(dev, seed, checks, card, model, eval_argv, eval_out):
           flush=True)
 
 
+# phase 10: stage-2 LoRA fine-tuning over a synthetic MVTec train tree
+TRAIN_CLASSES = (("bottle", 900, 3), ("screw", 1024, 1))  # MVTec's sizes; screw is gray
+TRAIN_PER_CLASS = 8
+TRAIN_CONFIG = os.path.join("train_configs", "loraadapter_simple_myriad_finetune.yaml")
+TRAIN_SAMPLES_PER_STEP = 4  # batch_size_train 4: 2 images a step and their 2 NSA twins
+
+
+def write_train_tree(root, seed):
+    """A synthetic MVTec AD train tree: ``TRAIN_PER_CLASS`` good PNGs a class
+    (a bright object on a darker ground, so NSA's background test keeps
+    patches), each row with a random filter type, and the
+    ``DC_MVTEC_train_normal.jsonl`` annotation."""
+    import numpy as np
+
+    from myriad_tpu_torch.datasets.png import encode_png
+
+    rng = np.random.default_rng(seed + 10)
+    rows = []
+    for cls, size, channels in TRAIN_CLASSES:
+        yy, xx = np.mgrid[0:size, 0:size]
+        disk = (yy - size / 2) ** 2 + (xx - size / 2) ** 2 < (size / 3) ** 2
+        for i in range(TRAIN_PER_CLASS):
+            img = rng.integers(20, 60, (size, size, channels))
+            img[disk] = 210 + (xx[disk, None] // 16 + i * 5) % 40
+            rel = f"mvtec/{cls}/train/good/{i:03d}.png"
+            os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+            with open(os.path.join(root, rel), "wb") as f:
+                img = img.astype(np.uint8)
+                f.write(encode_png(img[..., 0] if channels == 1 else img,
+                                   filters=rng.integers(0, 5, size), idat_chunks=3, level=1))
+            rows.append({"img_path": rel, "caption": "", "is_anomaly": "0"})
+    with open(os.path.join(root, "DC_MVTEC_train_normal.jsonl"), "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+
+
+def _grad_of_projection(module, store):
+    """Keep one frozen projection's dy and dx of the next backward in ``store``."""
+    def hook(mod, inputs, output):
+        x = inputs[0]
+        if x.requires_grad:
+            x.register_hook(lambda g: store.__setitem__("dx", g))
+            output.register_hook(lambda g: store.__setitem__("dy", g))
+    return module.register_forward_hook(hook)
+
+
+def train_slice(dev, seed, checks, card):
+    """Phase 10: ``python -m myriad_tpu_torch.train``'s runner on the repo's
+    stage-2 LoRA config at full width, its checkpoint ring and resume, one
+    AdamW update recomputed in fp64, and one step with int8 LLM weights."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from myriad_tpu_torch import train
+    from myriad_tpu_torch.ops import quant
+
+    root = os.path.join(REPO, "build", "train_data")
+    out_dir = os.path.join(REPO, "build", "train_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    held = torch.cuda.memory_allocated(dev)  # what earlier phases still hold
+    t0 = time.time()
+    write_train_tree(root, seed)
+    n_images = TRAIN_PER_CLASS * len(TRAIN_CLASSES)
+    print(f"wrote {n_images} train PNGs under {root} in {time.time() - t0:.1f} s", flush=True)
+    argv = ["--cfg-path", os.path.join(REPO, TRAIN_CONFIG), "--options",
+            f"datasets.anomaly_detection.build_info.storage={root}",
+            f"datasets.anomaly_detection.seed={seed}", f"model.seed={seed}",
+            "run.max_epoch=2", "run.iters_per_epoch=3", "run.max_checkpoints=1",
+            "run.num_workers=4", f"run.output_dir={out_dir}"]
+    t0 = time.time()
+    runner = train.build(argv)  # train.main is build() then runner.train()
+    model = runner.model
+    torch.cuda.synchronize()
+    check(model.device.type == dev.type, f"train built its model on {model.device}")
+    trainable = dict(model.trainable_parameters())
+    n_train = sum(p.numel() for p in trainable.values())
+    print(f"train.build: {TRAIN_CONFIG} at full width on {model.device} (run.device "
+          f"{runner.run_cfg.device!r}), policy {model.policy}, {len(trainable)} trainable tensors, "
+          f"{n_train} parameters, in {time.time() - t0:.1f} s", flush=True)
+    frozen = [(f"{tag}{n}", p) for mod, tag in ((model.module, ""),
+                                                (model.vision_expert.module, "ve."))
+              for n, p in mod.named_parameters() if not p.requires_grad]
+    t0 = time.time()
+    host = {n: p.detach().to("cpu", copy=True) for n, p in frozen}
+    before = {n: p.detach().clone() for n, p in trainable.items()}
+    print(f"snapshot of {len(frozen)} frozen tensors "
+          f"({sum(t.numel() * t.element_size() for t in host.values()) / 2**30:.2f} GiB) to the "
+          f"host in {time.time() - t0:.1f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    quant.int_mm_counter.count = 0
+    _, wall, launches = drive(checks, "train", runner.train, [])
+    peak = torch.cuda.max_memory_allocated(dev)
+    int_mm = quant.int_mm_counter.count
+    losses = runner.losses
+    check(len(losses) == 6 and all(np.isfinite(losses)), f"losses {losses}")
+    hist = runner.task.timer.history
+    iters = [d + s for d, s in zip(hist["data"], hist["step"])]
+    rate = TRAIN_SAMPLES_PER_STEP / statistics.median(iters[1:])
+    print(f"train: 2 epochs x 3 steps in {wall:.3f} s; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; launches {launches}, torch._int_mm {int_mm} "
+          f"(every projection bf16: no kernel of the port at this width)", flush=True)
+    print(f"train samples/s: {rate:.4f} ({TRAIN_SAMPLES_PER_STEP} a step, median of the 5 steps "
+          f"after the first; data + step s {', '.join(f'{x:.3f}' for x in iters)}); StepTimer "
+          f"means: data {statistics.mean(hist['data']) * 1e3:.1f} ms, step "
+          f"{statistics.mean(hist['step']) * 1e3:.1f} ms; peak device memory "
+          f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB that earlier phases held; card: {card}", flush=True)
+    t0 = time.time()
+    for n, p in frozen:
+        check(p.grad is None and torch.equal(p.detach().cpu(), host[n]),
+              f"frozen {n} changed or holds a gradient")
+    del host
+    for n, p in trainable.items():
+        check(not torch.equal(p.detach(), before[n]), f"trainable {n} did not change")
+    print(f"all {len(frozen)} frozen tensors bit-identical after the run and without .grad; "
+          f"all {len(trainable)} trainable tensors changed ({time.time() - t0:.1f} s)",
+          flush=True)
+    files = sorted(os.listdir(runner.output_dir))
+    check(files == ["checkpoint_1.pth", "log.txt"], f"the ring kept {files}")
+    ckpt = os.path.join(runner.output_dir, "checkpoint_1.pth")
+    state = torch.load(ckpt, map_location="cpu", weights_only=True)
+    check(set(state["model"]) == set(trainable), "the checkpoint's names are not the trainables")
+    check((state["epoch"], state["global_step"]) == (1, 6), "checkpoint epoch / step")
+
+    # resume into the same model: the trainables are wiped first, so the restore shows
+    saved = {n: p.detach().clone() for n, p in trainable.items()}
+    with torch.no_grad():
+        for p in trainable.values():
+            p.zero_()
+    runner.run_cfg.resume_ckpt_path = ckpt
+    runner.run_cfg.max_epoch = 3
+    resumed = type(runner)(cfg=runner.config, task=runner.task, model=model,
+                           datasets=runner.datasets, job_id="resumed")
+    for n, p in trainable.items():
+        check(torch.equal(p.detach(), saved[n]), f"resume did not restore {n}")
+    check((resumed.start_epoch, resumed.global_step, resumed.optimizer.count) == (2, 6, 6),
+          "resume did not continue the step")
+    print(f"ring: {files} under {runner.output_dir}, the {len(trainable)} trainables by name; "
+          f"resume from it restored them bit for bit at epoch {resumed.start_epoch}, global "
+          f"step {resumed.global_step}", flush=True)
+
+    # one more step of the resumed runner, timed by phase, after a warm-up
+    # step of the same prompt stage (the stage sets the sequence length, and a
+    # length's first GEMMs pay the library's set-up); one AdamW update
+    # recomputed in fp64 on the host from its gradient and the optimizer state
+    opt = resumed.optimizer
+    samples = next(resumed.train_loader)
+    resumed.train_iteration(samples, np.random.default_rng(seed))
+    rng = np.random.default_rng(seed)
+    name = next(n for n in opt.names if "lora_a" in n)
+    i = opt.names.index(name)
+    p = opt.params[i]
+    p0, mu0, nu0 = (t.detach().double().cpu() for t in (p, opt.mu[i], opt.nu[i]))
+    count = opt.count
+    torch.cuda.synchronize()
+    t_step = time.perf_counter()
+    arrays, static = model.prepare_train_arrays(samples, rng)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.zero_grad()
+    ev[0].record()
+    loss = model.train_loss(arrays, static)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    loss = float(loss.detach())
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t_step
+    fwd, bwd, upd = (ev[k].elapsed_time(ev[k + 1]) for k in range(3))
+    g = p.grad.double().cpu()
+    k = count + 1
+    mu = opt.b1 * mu0 + (1 - opt.b1) * g
+    nu = opt.b2 * nu0 + (1 - opt.b2) * g * g
+    step = (mu / (1 - opt.b1 ** k)) / (torch.sqrt(nu / (1 - opt.b2 ** k)) + opt.eps)
+    expect = p0 - opt.schedule(count) * (step + opt.weight_decay * p0)
+    err = ((p.detach().double().cpu() - expect).norm() / expect.norm()).item()
+    err_upd = (((p.detach().double().cpu() - p0) - (expect - p0)).norm()
+               / (expect - p0).norm()).item()
+    check(np.isfinite(loss) and err <= 1e-5, f"AdamW update of {name}: rel {err}")
+    print(f"one step (stage {static[0]}, {arrays['text_ids'].shape[0]} sequences of "
+          f"{arrays['text_ids'].shape[1] + 1 + model.module.image_tokens(static[0])} + the "
+          f"prompt's positions), CUDA events: forward {fwd:.1f} ms, backward {bwd:.1f} ms, "
+          f"optimizer {upd:.1f} ms; host clock {t_step * 1e3:.1f} ms with the batch's vision "
+          f"expert and host prep (loss {loss:.4f}); AdamW on {name} {tuple(p.shape)} against fp64 "
+          f"on the host: rel L2 {err:.3e} (tol 1e-5), of the update alone {err_upd:.3e}; "
+          f"card: {card}", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, t_prof = timed(lambda: resumed.train_iteration(samples, np.random.default_rng(seed)))
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((us, e.count, e.key))
+    total = sum(r[0] for r in rows)
+    check(total > 0, "the profiler recorded no device time")
+    print(f"profile of one train step (the same stage): device time {total / 1e3:.1f} ms; "
+          f"profiled wall {t_prof:.3f} s; device busy {total / 1e3 / (t_step * 1e3):.3f} of the "
+          f"unprofiled step's {t_step:.3f} s; top 10 by device time:")
+    for us, n_calls, key in sorted(rows, reverse=True)[:10]:
+        print(f"  {us / 1e3:9.1f} ms {us / total:6.3f} {n_calls:6d} calls  {key[:90]}")
+
+    dataset = runner.datasets["anomaly_detection"]["train"]
+    images = [dataset._resize_crop(dataset.prepare_img(j)) for j in (0, TRAIN_PER_CLASS)]
+    nsa = [_host_ms(lambda j=j, im=im: dataset._twin(j, im))
+           for j, im in zip((0, TRAIN_PER_CLASS), images)]
+    print(f"host NSA twin (patch_ex + normalise, one thread, median of 3): {nsa[0]:.1f} ms "
+          f"bottle, {nsa[1]:.1f} ms screw", flush=True)
+    resumed.train_loader.close()
+
+    # one step with int8 LLM weights: the straight-through backward over 32 layers
+    cfg = runner.config
+    del runner, resumed, model, trainable, before, saved, arrays, loss, opt, p, frozen
+    torch.cuda.empty_cache()
+    cfg.model_cfg.llm_weight_dtype = "int8"
+    t0 = time.time()
+    model8 = train.tasks.setup_task(cfg).build_model(cfg, device=dev)
+    print(f"int8 model built in {time.time() - t0:.1f} s", flush=True)
+    proj = model8.module.llama.model.layers[0].mlp.down_proj
+    store = {}
+    handle = _grad_of_projection(proj, store)
+    arrays, static = model8.prepare_train_arrays(samples, np.random.default_rng(seed))
+    quant.int_mm_counter.count = 0
+
+    def int8_step():
+        loss = model8.train_loss(arrays, static)
+        loss.backward()
+        return loss
+
+    loss8, wall8, launches8 = drive(checks, "train_int8", int8_step, [])
+    loss8 = float(loss8.detach())
+    handle.remove()
+    int_mm8 = quant.int_mm_counter.count
+    layers = model8.arch.llama.num_layers
+    check(int_mm8 == layers * 7, f"torch._int_mm {int_mm8} times for {layers} x 7 projections")
+    adaptor = [p.grad for n, p in model8.trainable_parameters() if n.startswith("expert_adaptor")]
+    check(np.isfinite(loss8) and all(g is not None and float(g.norm()) > 0
+                                            for g in adaptor),
+          "int8 step: loss not finite or no gradient at expert_adaptor")
+    dy, dx = store["dy"], store["dx"]
+    ref = torch.matmul(dy.float().reshape(-1, dy.shape[-1]) * proj.scale,
+                       proj.w_int8.float().t())
+    err8 = rel(dx.float().reshape(ref.shape), ref)
+    check(err8 <= 2e-2, f"int8 down_proj dx against dy @ dequant(W)^T: rel L2 {err8}")
+    rows8 = dx.numel() // dx.shape[-1]
+    print(f"int8 step ({rows8} rows a projection: W8A8 on torch._int_mm, {int_mm8} calls): "
+          f"loss {loss8:.4f}, forward + backward {wall8:.3f} s, launches {launches8}; "
+          f"expert_adaptor grad norms {', '.join(f'{float(g.norm()):.3e}' for g in adaptor)}; "
+          f"layer 0 down_proj dx against dy @ dequant(W)^T in fp32: rel L2 {err8:.3e} "
+          f"(tol 2e-2, bf16); card: {card}", flush=True)
+    del model8, arrays, store
+    torch.cuda.empty_cache()
+
+
 def say(t_start, title) -> None:
     """A phase's header, with the seconds since the build started."""
     print(f"{title} [{time.time() - t_start:.0f} s]", flush=True)
@@ -1943,6 +2217,9 @@ def main(argv=None) -> int:
     say(t_start, "phase 9: the continuous-batching engine at full width")
     engine_slice(dev, args.seed, checks, card, model8, eval_argv, eval_out)
     del model8
+    torch.cuda.empty_cache()
+    say(t_start, "phase 10: stage-2 LoRA fine-tuning at full width")
+    train_slice(dev, args.seed, checks, card)
     say(t_start, "all phases done")
     print(card)
     print(json.dumps({"kernels": [c.record() for c in checks]}))

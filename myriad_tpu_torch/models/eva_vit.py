@@ -4,11 +4,14 @@ Patch 14, embed 1408, depth 39, 16 heads, MLP 6144; fused qkv with the EVA
 quirk of q and v biases and no k bias; absolute position embeddings;
 pre-LN blocks (eps 1e-6) and no final norm (the caller's ln_vision).
 Images are (B, H, W, 3) channels-last at the public interface.
+``use_checkpoint`` recomputes each block in the backward
+(``torch.utils.checkpoint``), as the JAX package's ``nn.remat`` does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from myriad_tpu_torch.models.layers import (Conv2d, Dense, LayerNorm, Mlp, Policy,
@@ -53,9 +56,10 @@ class EvaViT(nn.Module):
 
     def __init__(self, *, img_size: int = 224, patch_size: int = 14, embed_dim: int = 1408,
                  depth: int = 39, num_heads: int = 16, mlp_ratio: float = 4.3637,
-                 policy: Policy, device):
+                 use_checkpoint: bool = False, policy: Policy, device):
         super().__init__()
         self.embed_dim = embed_dim
+        self.use_checkpoint = use_checkpoint
         num_patches = (img_size // patch_size) ** 2
         self.patch_embed = Conv2d(3, embed_dim, patch_size, stride=patch_size,
                                   policy=policy, device=device)
@@ -74,5 +78,8 @@ class EvaViT(nn.Module):
         cls = self.cls_token.to(x.dtype).expand(b, 1, self.embed_dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
         for blk in self.blocks:
-            x = blk(x)
+            if self.use_checkpoint and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
         return x

@@ -1,14 +1,19 @@
 """LLaMA (Vicuna-7B) decoder with a preallocated KV cache (counterpart of
-``myriad_tpu/models/llama.py``), for serving.
+``myriad_tpu/models/llama.py``), for serving and training.
 
 The frozen projections are int8 weight-only (``QuantDense``: kernel B1 at
 decode), int4 group-wise weight-only (``Quant4Dense``: kernel B5 at decode)
 or plain Dense (k/o/gate/up/down, and the q/v bases; ``lm_head`` stays
 float); q_proj/v_proj carry the LoRA pair when
-``use_lora`` (the parameters load; LoRA dropout is a training matter).
-Attention goes through ``ops.attention.mha``: prefill chunks attend
-causally by absolute position (kernel B3), decode steps attend over the
-first ``kv_len`` cache positions with the additive -1e9 mask (kernel B2).
+``use_lora`` (no LoRA dropout: the JAX package trains with
+``deterministic=True``).  Attention goes through ``ops.attention.mha``:
+prefill chunks attend causally by absolute position (kernel B3), decode
+steps attend over the first ``kv_len`` cache positions with the additive
+-1e9 mask (kernel B2).  A forward without a cache (training) runs the whole
+sequence from position 0 under a causal and key-padding mask, with the
+attention in plain torch (``plain_mha``, the arithmetic of the JAX
+package's ``_xla_mha``, whose no-cache path is XLA too); ``remat`` wraps
+each layer in ``torch.utils.checkpoint``.
 
 The cache is preallocated and written in place at its ``index``: unlike
 the JAX package's functional cache, a forward with a cache mutates it.
@@ -25,12 +30,13 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from myriad_tpu_torch.models.layers import (Dense, Policy, maybe_quant_dense, merge_heads,
                                             new_param)
 from myriad_tpu_torch.ops import kv_write
-from myriad_tpu_torch.ops.attention import causal_mask, mha
+from myriad_tpu_torch.ops.attention import causal_mask, mha, plain_mha
 # quantize_kv lives beside kernel B4; it is also reachable here, where the
 # JAX package defines it
 from myriad_tpu_torch.ops.kv_write import quantize_kv  # noqa: F401
@@ -54,6 +60,7 @@ class LlamaConfig:
     lora_alpha: int = 16
     weight_dtype: str = "bf16"   # "bf16", "int8" or "int4" (weight-only)
     kv_cache_dtype: str = "bf16"  # "bf16" or "int8" (fp16 per-position scales)
+    remat: bool = False  # recompute each layer in the backward (no-cache forward)
 
     @property
     def kv_heads(self) -> int:
@@ -165,7 +172,7 @@ class LlamaAttention(nn.Module):
         self.v_proj = LoraDense(cfg, cfg.hidden_size, hk * d, **kw)
         self.o_proj = maybe_quant_dense(cfg.weight_dtype, h * d, cfg.hidden_size, **kw)
 
-    def forward(self, hidden: torch.Tensor, positions: torch.Tensor, cache: Cache,
+    def forward(self, hidden: torch.Tensor, positions: torch.Tensor, cache: Optional[Cache],
                 mask: Optional[torch.Tensor], kv_len: int) -> torch.Tensor:
         cfg = self.cfg
         b, t, _ = hidden.shape
@@ -177,6 +184,11 @@ class LlamaAttention(nn.Module):
         q = apply_rope(q, cos, sin).transpose(1, 2)
         k = apply_rope(k, cos, sin).transpose(1, 2)
         v = v.transpose(1, 2)
+        if cache is None:  # the whole sequence at once: the additive mask, no kernel
+            if hk != h:
+                k, v = k.repeat_interleave(h // hk, 1), v.repeat_interleave(h // hk, 1)
+            out = plain_mha(q, k.to(q.dtype), v.to(q.dtype), mask=mask, scale=d ** -0.5)
+            return self.o_proj(merge_heads(out))
 
         # the write frontier (int or per-row tensor); LlamaModel advances it
         idx = cache["index"]
@@ -260,6 +272,26 @@ class LlamaModel(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, policy=policy, device=device)
 
+    def forward_full(self, inputs_embeds: torch.Tensor,
+                     attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The no-cache forward (training): positions 0..T-1, each query sees
+        the keys at or before it whose ``attention_mask`` (B, T) entry is 1."""
+        b, t, _ = inputs_embeds.shape
+        positions = torch.arange(t, dtype=torch.int32, device=inputs_embeds.device)
+        positions = positions[None].expand(b, t)
+        allowed = positions[:, None, None, :] <= positions[:, None, :, None]
+        if attention_mask is not None:
+            allowed = allowed & attention_mask[:, None, None, :].bool()
+        mask = torch.where(allowed, 0.0, -1e9).to(torch.float32)
+        hidden = inputs_embeds.to(self.dtype)
+        for layer in self.layers:
+            if self.cfg.remat and torch.is_grad_enabled():
+                hidden = torch.utils.checkpoint.checkpoint(layer, hidden, positions, None, mask,
+                                                           t, use_reentrant=False)
+            else:
+                hidden = layer(hidden, positions, None, mask, t)
+        return self.norm(hidden)
+
     def forward(self, inputs_embeds: torch.Tensor, cache: List[Cache],
                 kv_limit: Optional[int] = None) -> torch.Tensor:
         """Run over ``inputs_embeds`` (B, T, D) at the cache's write frontier,
@@ -325,6 +357,26 @@ class LlamaForCausalLM(nn.Module):
             hidden = hidden[:, li:li + 1]
         return self.logits(hidden)
 
-    def forward(self, inputs_embeds: torch.Tensor, cache: List[Cache],
-                kv_limit: Optional[int] = None) -> torch.Tensor:
+    def forward(self, inputs_embeds: torch.Tensor, cache: Optional[List[Cache]],
+                kv_limit: Optional[int] = None,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """fp32 logits (B, T, V).  With a cache: at its frontier, written in
+        place.  Without one (training): the whole sequence under the causal
+        and ``attention_mask`` key-padding mask."""
+        if cache is None:
+            return self.logits(self.model.forward_full(inputs_embeds, attention_mask))
         return self.logits(self.model(inputs_embeds, cache, kv_limit))
+
+
+def lm_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                     ignore_index: int = -100) -> torch.Tensor:
+    """The shifted LM loss in fp32 with ``ignore_index`` masked: logits (B, T,
+    V), targets (B, T); the mean over the unmasked positions."""
+    logits = logits[:, :-1].float()
+    labels = targets[:, 1:]
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp_min(1)

@@ -10,7 +10,10 @@ the hand-written weight-only kernel (B1, ``csrc/int8_matmul.cu``, the
 counterpart of the TPU's Pallas kernel); larger row counts, and every row
 count on the CPU, take the W8A8 product (``w8a8_matmul``: per-row
 activation quant and an int32 sum), which the JAX package leaves to XLA and
-the port to ``torch._int_mm`` on the card.  ``int4_matmul`` has the same
+the port to ``torch._int_mm`` on the card.  Under autograd both routes take
+the JAX package's straight-through derivative (``StraightThroughInt8``):
+the backward treats the layer as x @ dequant(W), and W and its scale get no
+gradient.  ``int4_matmul`` has the same
 rule with kernel B5 (``csrc/int4_matmul.cu``) for the small row counts; the
 other route requantizes the int4 groups to per-column int8 at each call, as
 the JAX package does off the TPU, and runs W8A8.
@@ -28,6 +31,9 @@ from myriad_tpu_torch.ops import _cuda
 SMALL_M = 256  # rows at or below which the card uses the weight-only kernel
 counter = _cuda.LaunchCounter("int8_matmul")
 counter4 = _cuda.LaunchCounter("int4_matmul")
+# calls of torch._int_mm (the W8A8 route on the card): a library call, not a
+# kernel of the port, counted so that a path's products can be told apart
+int_mm_counter = _cuda.LaunchCounter("torch._int_mm")
 INT4_GROUP = 128
 
 
@@ -49,6 +55,7 @@ def w8a8_matmul(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torc
                       f"torch._int_mm needs m > 16 and d, f multiples of 8, got "
                       f"({m}, {d}) @ {tuple(w8.shape)}")
         acc = torch._int_mm(x8, w8.contiguous())
+        int_mm_counter.count += 1
     else:
         acc = torch.matmul(x8.to(torch.int32), w8.to(torch.int32))
     return acc.float() * (x_amax / 127.0) * scale.float()
@@ -113,17 +120,54 @@ def int8_launch(m: int, k: int, n: int) -> dict:
             "blocks_per_sm": out[4]}
 
 
+def takes_kernel(x2: torch.Tensor) -> bool:
+    """The row rule: rows <= SMALL_M on the card take the weight-only kernel
+    (B1 or B5); more rows, and every row count on the CPU, take W8A8."""
+    return x2.is_cuda and x2.shape[0] <= SMALL_M
+
+
+def _int8_forward(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
+                  kernel: bool) -> torch.Tensor:
+    if kernel:
+        return int8_weight_only_matmul(x2.contiguous(), w8, scale)
+    return w8a8_matmul(x2.float(), w8, scale)
+
+
+class StraightThroughInt8(torch.autograd.Function):
+    """An int8 product with the JAX package's straight-through derivative
+    (``_w8a8_matmul`` and ``_int8_pallas_matmul``'s custom JVPs): the forward
+    is either route of the row rule, unchanged (B1 counts its launches); the
+    backward is dx = (dy * scale) @ w8^T, in fp32 on the CPU and in x's
+    dtype (the compute dtype) on the card, and w8 and scale get no gradient.
+    Without it the W8A8 route's rounding would give every upstream
+    trainable a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, x2, w8, scale, kernel):
+        ctx.save_for_backward(w8, scale)
+        ctx.x_dtype = x2.dtype
+        return _int8_forward(x2, w8, scale, kernel)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w8, scale = ctx.saved_tensors
+        dt = ctx.x_dtype if dy.is_cuda else torch.float32
+        dx = torch.matmul(dy.to(dt) * scale.to(dt), w8.to(dt).t())
+        return dx.to(ctx.x_dtype), None, None, None
+
+
 def int8_matmul(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, *,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x (..., in) @ int8 w (in, out) * scale (out,) -> (..., out)."""
+    """x (..., in) @ int8 w (in, out) * scale (out,) -> (..., out);
+    differentiable in x by the straight-through rule."""
     out_dtype = out_dtype or x.dtype
     lead, d = x.shape[:-1], x.shape[-1]
     f = w8.shape[1]
     x2 = x.reshape(-1, d)
-    if x2.is_cuda and x2.shape[0] <= SMALL_M:
-        y = int8_weight_only_matmul(x2.contiguous(), w8, scale)
+    if torch.is_grad_enabled() and x2.requires_grad:
+        y = StraightThroughInt8.apply(x2, w8, scale, takes_kernel(x2))
     else:
-        y = w8a8_matmul(x2.float(), w8, scale)
+        y = _int8_forward(x2, w8, scale, takes_kernel(x2))
     return y.to(out_dtype).reshape(*lead, f)
 
 
@@ -259,12 +303,17 @@ def int4_matmul(x: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor, *,
     """x (..., in) @ int4-packed w (in/2, out) with group scales (in/g, out)
     -> (..., out).  Rows <= SMALL_M on the card take kernel B5; more rows,
     and every row count on the CPU, requantize to per-column int8 (at each
-    call: no int8 copy is kept) and take W8A8."""
+    call: no int8 copy is kept) and take W8A8.  No gradient: an x that
+    requires one raises."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("llm_weight_dtype=int4 under training: a gradient through "
+                                  "int4 weights is not ported (B5 has no derivative in the "
+                                  "JAX package)")
     out_dtype = out_dtype or x.dtype
     lead, d = x.shape[:-1], x.shape[-1]
     f = w4.shape[1]
     x2 = x.reshape(-1, d)
-    if x2.is_cuda and x2.shape[0] <= SMALL_M:
+    if takes_kernel(x2):
         y = int4_weight_only_matmul(x2.contiguous(), w4, scale4)
     else:
         y = w8a8_matmul(x2.float(), *requantize_int4_to_int8(w4, scale4))

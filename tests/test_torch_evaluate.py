@@ -187,8 +187,9 @@ def test_loader_batches_equal_jax(tree):
 
 
 def test_dataset_refuses_what_is_not_ported(tree):
-    with pytest.raises(NotImplementedError, match="stage='train'"):
-        AnomalyDetectionDataset(tree, stage="train")
+    # the train stage is ported (tests/test_torch_train_data.py); other stages raise
+    with pytest.raises(ValueError, match="stage='eval'"):
+        AnomalyDetectionDataset(tree, stage="eval")
     with pytest.raises(NotImplementedError, match="with_mask"):
         AnomalyDetectionDataset(tree, ve_root=tree, with_mask=True)
 

@@ -507,7 +507,10 @@ def test_import_leaves_jax_out():
             "myriad_tpu_torch.common.config, myriad_tpu_torch.common.yaml_subset, "
             "myriad_tpu_torch.datasets.png, myriad_tpu_torch.datasets.anomaly_detection, "
             "myriad_tpu_torch.datasets.loaders, myriad_tpu_torch.processors.functional, "
-            "myriad_tpu_torch.serving, myriad_tpu_torch.serving.myriad_adapter\n"
+            "myriad_tpu_torch.serving, myriad_tpu_torch.serving.myriad_adapter, "
+            "myriad_tpu_torch.train, myriad_tpu_torch.checkpoint, myriad_tpu_torch.tasks, "
+            "myriad_tpu_torch.runners, myriad_tpu_torch.common.optim, "
+            "myriad_tpu_torch.datasets.nsa, myriad_tpu_torch.datasets.builders\n"
             "from myriad_tpu_torch.models.myriad import Myriad\n"
             "m = Myriad.from_config({'arch_preset': 'tiny', 'llm_weight_dtype': 'int8', "
             "'llm_kv_dtype': 'int8', 'llm_spec_k': 2}, device='cpu', class_names=['bottle'])\n"
