@@ -86,6 +86,26 @@ Phases, each printing its own lines:
    turn each, the frontier after it checked; (d) ``evaluate.run`` with
    ``--engine`` over phase 8's tree: 24 rows and the ``--bench`` line,
    images/s printed beside phase 8's;
+11. on phase 8's model, before phase 10 frees it, the vision-expert family:
+   (a) ``evaluate.run`` with ``--k_shot 1`` and ``--k_shot 4`` over phase 8's
+   tree, whose classes hold 4 and 2 ``train/good`` PNGs (the one-shot
+   references; screw's bank is zero-padded at 4): 24 rows each, every row's
+   tokens identical to a direct ``Myriad.generate`` with the same bank, the
+   served maps the one-shot maps and not the zero-shot ones, every kernel
+   launched exactly as often as on phase 8's run, the ``--bench`` line beside
+   phase 8's and the bank's build time; (e) ``--engine`` at ``--k_shot 1``:
+   launches equal to phase 9's ``--engine`` run's, anomaly scores equal to
+   the fixed batches' one-shot ones, outputs compared (reported); (b) the
+   ``aprilgan`` expert over mask PNGs written under build/: maps equal to the
+   masks resized on the host (difference 0); (c) the ``simplenet`` expert at
+   full width (WideResNet-50-2 with seeded random weights, two head npz files
+   under build/), called with TF32 on for cuDNN and cuBLAS (it pins fp32
+   itself): maps within 1e-4 of the largest against the same expert on the
+   CPU in fp32, the expert's time per batch of 8, and what TF32 would move
+   the unpinned trunk by (reported); (d) ``adgpt`` (the zero-shot maps, the
+   fused generate's tokens) and no expert (zero maps, what ``use_ve: False``
+   serves); each generate launching every kernel a third as often as phase
+   8's three batches;
 10. free that model and train: ``python -m myriad_tpu_torch.train``'s runner
    (``train.build`` and ``runner.train``, ``train.main``'s body) in process on
    ``train_configs/loraadapter_simple_myriad_finetune.yaml`` at full width
@@ -1291,11 +1311,13 @@ KERNEL_OF = {"int8_matmul_tc_kernel": "B1", "decode_attention_cluster_kernel": "
 
 def profile_generate(model, samples, card, wall_unprofiled, label):
     """One ``model.generate`` under torch.profiler: device time by kernel,
-    and the device's busy share of an unprofiled run's wall time."""
+    and the device's busy share of an unprofiled run's wall time.  Only
+    device activity is traced: nothing here reads the host's op events."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = timed(lambda: model.generate(samples, max_new_tokens=NEW_TOKENS))
+    t0 = time.perf_counter()
     rows = []
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -1308,7 +1330,8 @@ def profile_generate(model, samples, card, wall_unprofiled, label):
     print(f"profile of one {label} ({BATCH} images, {NEW_TOKENS} new tokens): device time "
           f"{total / 1e3:.1f} ms in all; "
           f"profiled wall {wall:.3f} s; device busy {total / 1e6 / wall_unprofiled:.3f} of the "
-          f"unprofiled run's {wall_unprofiled:.3f} s; card: {card}")
+          f"unprofiled run's {wall_unprofiled:.3f} s; trace read in "
+          f"{time.perf_counter() - t0:.1f} s; card: {card}")
     by_kernel = {}
     for us, _, key in rows:
         tag = next((k for name, k in KERNEL_OF.items() if name in key), "other")
@@ -1515,6 +1538,9 @@ def entry_point_slice(dev, seed, checks, card, model, samples):
 
 EVAL_CLASSES = (("bottle", 900, 3), ("screw", 1024, 1))  # MVTec's sizes; screw is gray
 EVAL_PER_CLASS = 12
+# train/good PNGs a class: the one-shot references of phase 11 (screw has
+# fewer than 4, so its bank is zero-padded at --k_shot 4)
+EVAL_TRAIN_GOOD = {"bottle": 4, "screw": 2}
 # --options of phase 8 over eval_configs/myriad.yaml (the serving profile of SERVING)
 EVAL_OPTIONS = ["model.llm_weight_dtype=int8", "model.llm_kv_dtype=int8"]
 
@@ -1522,7 +1548,9 @@ EVAL_OPTIONS = ["model.llm_weight_dtype=int8", "model.llm_kv_dtype=int8"]
 def write_eval_tree(root, seed):
     """A synthetic MVTec AD test tree: ``EVAL_PER_CLASS`` PNGs a class (half
     anomalous, a dark square), each row with a random filter type, and the
-    ``DC_MVTEC_test_normal.jsonl`` annotation.  Returns {class: a file}."""
+    ``DC_MVTEC_test_normal.jsonl`` annotation, with ``EVAL_TRAIN_GOOD``
+    normal PNGs a class under ``train/good`` (the one-shot references).
+    Returns {class: a file}."""
     import numpy as np
 
     from myriad_tpu_torch.datasets.png import encode_png
@@ -1545,6 +1573,13 @@ def write_eval_tree(root, seed):
                                    filters=rng.integers(0, 5, size), idat_chunks=3, level=1))
             rows.append({"img_path": rel, "caption": "", "is_anomaly": "1" if anomalous else "0"})
             files.setdefault(cls, os.path.join(root, rel))
+        for i in range(EVAL_TRAIN_GOOD[cls]):
+            img = (base + rng.integers(0, 24, base.shape)).astype(np.uint8)
+            rel = f"mvtec/{cls}/train/good/{i:03d}.png"
+            os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+            with open(os.path.join(root, rel), "wb") as f:
+                f.write(encode_png(img[..., 0] if channels == 1 else img,
+                                   filters=rng.integers(0, 5, size), idat_chunks=3, level=1))
     with open(os.path.join(root, "DC_MVTEC_test_normal.jsonl"), "w") as f:
         f.writelines(json.dumps(r) + "\n" for r in rows)
     return files
@@ -1874,6 +1909,248 @@ def engine_slice(dev, seed, checks, card, model, eval_argv, eval_out):
     print(f"eval images/s: --engine {bench['value']:.4f} against phase 8's fixed batches "
           f"{eval_out['bench']['value']:.4f} (each its own --bench rule); card: {card}",
           flush=True)
+
+
+# phase 11: the vision-expert family on phase 8's model
+SHOT_KS = (1, 4)
+SIMPLENET_TOL = 1e-4  # max |card - CPU fp32| over max |CPU fp32| of the SimpleNet maps
+
+
+def check_same_launches(checks, path, like, share=1):
+    """Each kernel launched on ``path`` exactly ``1 / share`` as often as on
+    the path ``like`` (``share``: how many of ``path``'s batches ``like``
+    ran).  Greedy rows of the random model run to ``NEW_TOKENS`` without a
+    stop token, so a path that serves other maps launches the same."""
+    for c in checks:
+        got, want = c.by_path[path], c.by_path[like]
+        check(got * share == want, f"{c.name}: {got} launches on the {path} path, against "
+              f"{want} on {like} for {share} batch(es) of the same shape")
+
+
+def write_mask_tree(root, tree_root, seed):
+    """Gray mask PNGs under ``root`` for the eval tree's test images (every
+    fourth one missing: a zero map), at the images' sizes.  Returns the
+    relative image paths."""
+    import numpy as np
+
+    from myriad_tpu_torch.datasets.png import encode_png
+
+    rng = np.random.default_rng(seed + 11)
+    with open(os.path.join(tree_root, "DC_MVTEC_test_normal.jsonl")) as f:
+        rels = [json.loads(line)["img_path"] for line in f]
+    sizes = {cls: size for cls, size, _ in EVAL_CLASSES}
+    for i, rel in enumerate(rels):
+        if i % 4 == 3:
+            continue
+        size = sizes[rel.split("/")[1]]
+        yy, xx = np.mgrid[0:size, 0:size]
+        mask = ((xx + yy + i * 37) % 256).astype(np.uint8)
+        mask[rng.integers(0, size, 64), rng.integers(0, size, 64)] = 255
+        path = os.path.join(root, os.path.splitext(rel)[0] + ".png")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(encode_png(mask, filters=rng.integers(0, 5, size), level=1))
+    return rels
+
+
+def write_simplenet_heads(root, seed, classes, dim=1536, hidden=1024):
+    """One random head npz a class in the JAX package's ``save_params``
+    layout (Projection ``fc_0``, Discriminator ``block1_fc``, ``block1_bn``,
+    ``tail``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 12)
+    os.makedirs(root, exist_ok=True)
+    for cls in classes:
+        def normal(*shape):
+            return (rng.normal(size=shape) / np.sqrt(shape[0])).astype(np.float32)
+        np.savez(os.path.join(root, f"{cls}.npz"), **{
+            "pre_projection/fc_0/kernel": normal(dim, dim),
+            "pre_projection/fc_0/bias": np.zeros(dim, np.float32),
+            "discriminator/block1_fc/kernel": normal(dim, hidden),
+            "discriminator/block1_fc/bias": np.zeros(hidden, np.float32),
+            "discriminator/block1_bn/scale": np.ones(hidden, np.float32),
+            "discriminator/block1_bn/bias": np.zeros(hidden, np.float32),
+            "discriminator/block1_bn/mean": np.zeros(hidden, np.float32),
+            "discriminator/block1_bn/var": np.ones(hidden, np.float32),
+            "discriminator/tail/kernel": normal(hidden, 1)})
+
+
+def expert_slice(dev, seed, checks, card, model, eval_argv, eval_out):
+    """Phase 11: one-shot maps, the expert mux and no expert on phase 8's model."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from myriad_tpu_torch import evaluate
+    from myriad_tpu_torch.common.config import Config
+    from myriad_tpu_torch.datasets.cv_ops import resize_linear
+    from myriad_tpu_torch.datasets.loaders import DataLoader
+    from myriad_tpu_torch.datasets.png import read_png_gray
+    from myriad_tpu_torch.models.simplenet import SimpleNetInterface
+    from myriad_tpu_torch.models.vision_experts import SimpleNetExpertAdapter
+
+    root = os.path.join(REPO, "build", "aqa_eval")
+    needs = ["B1 int8_matmul", "B2 decode_attention", "B3 prefill_attention", "B4 kv_write"]
+    ve = model.vision_expert
+    keys = ["image_id", "image_path", "is_anomaly", "output", "error", "anomaly_score"]
+
+    # (a) evaluate --k_shot 1 and 4: the bank of train/good references
+    shot_rows = {}
+    for k in SHOT_KS:
+        argv = eval_argv + ["--k_shot", str(k), "--save_path",
+                            os.path.join(root, f"rows_k{k}.jsonl")]
+        args = evaluate.parse_args(argv)
+        cfg = Config(args)
+        dataset = evaluate.build_dataset(args, cfg.datasets_cfg, root)
+        _, t_bank = timed(lambda: evaluate.setup_vision_expert(model, dataset, root,
+                                                               args.round_index, k))
+        banks = [tuple(b.shape) for b in ve._ref_bank]
+        print(f"k_shot {k}: text features and reference bank built in {t_bank:.3f} s (host "
+              f"clock, synchronized; PNG decode and resize of the references included); bank "
+              f"per tap {banks[0]} x {len(banks)} taps, classes {ve.class_names}", flush=True)
+        out, wall, counts = drive(checks, f"aqa_eval_k{k}",
+                                  lambda: evaluate.run(args, cfg, model), needs)
+        check_same_launches(checks, f"aqa_eval_k{k}", "aqa_eval")
+        rows, bench = out["rows"], out["bench"]
+        check(len(rows) == len(eval_out["rows"]), f"k_shot {k}: {len(rows)} rows")
+        for i, row in enumerate(rows):
+            check(list(row) == keys and row["image_id"] == i
+                  and 0.0 <= float(row["anomaly_score"]) <= 1.0, f"k_shot {k} row {row}")
+        check(bench is not None, f"k_shot {k}: no --bench line")
+        same = 0
+        for b, (batch, tokens) in enumerate(zip(DataLoader(dataset, batch_size=BATCH),
+                                                out["token_ids"])):
+            direct = model.generate(batch, max_new_tokens=NEW_TOKENS, do_sample=False)
+            check(np.array_equal(direct["token_ids"].cpu().numpy(), tokens),
+                  f"k_shot {k}: evaluate's tokens differ from a direct generate")
+            same += len(tokens)
+            if b == 0:
+                _, _, _, zero, one = model.prepare_sample(batch, 1)
+                check(torch.equal(one, direct["ve_anomaly_maps"]),
+                      f"k_shot {k}: generate did not serve the one-shot maps")
+                apart = (one - zero).abs().max().item()
+                check(apart > 1e-3, f"k_shot {k}: one-shot maps equal the zero-shot ones")
+        check(same == len(rows), f"k_shot {k}: compared {same} rows")
+        shot_rows[k] = rows
+        print(f"evaluate.run --k_shot {k}: {len(rows)} rows in {wall:.3f} s; launches {counts}; "
+              f"tokens of all {same} rows identical to a direct Myriad.generate with the same "
+              f"bank; one-shot maps of batch 1 differ from its zero-shot maps by up to "
+              f"{apart:.4f}; card: {card}", flush=True)
+        print(f"aqa eval --k_shot {k} --bench: {json.dumps(bench)}", flush=True)
+        print(f"eval images/s: --k_shot {k} {bench['value']:.4f} against phase 8's zero-shot "
+              f"{eval_out['bench']['value']:.4f} (each its own --bench rule); card: {card}",
+              flush=True)
+
+    # (e) --engine at k_shot 1 over the same tree and bank
+    argv = eval_argv + ["--k_shot", "1", "--engine", "--save_path",
+                        os.path.join(root, "engine_rows_k1.jsonl")]
+    args = evaluate.parse_args(argv)
+    out, wall, counts = drive(checks, "aqa_engine_eval_k1",
+                              lambda: evaluate.run(args, Config(args), model), needs)
+    check_same_launches(checks, "aqa_engine_eval_k1", "aqa_engine_eval")
+    fixed = {r["image_id"]: r for r in shot_rows[1]}
+    check(sorted(r["image_id"] for r in out["rows"]) == sorted(fixed),
+          f"--engine --k_shot 1 wrote {len(out['rows'])} rows")
+    for r in out["rows"]:
+        check(r["anomaly_score"] == fixed[r["image_id"]]["anomaly_score"],
+              f"--engine --k_shot 1: image {r['image_id']}'s anomaly score is not the "
+              "one-shot maps' of the fixed batches")
+    agree = sum(r["output"] == fixed[r["image_id"]]["output"] for r in out["rows"])
+    print(f"evaluate.run --engine --k_shot 1: {len(out['rows'])} rows in {wall:.3f} s; launches "
+          f"{counts}; anomaly scores equal to the fixed batches' one-shot ones for all; outputs "
+          f"equal for {agree} of {len(fixed)} (reported); --bench {json.dumps(out['bench'])}; "
+          f"card: {card}", flush=True)
+    model.k_shot = 0
+
+    args = evaluate.parse_args(eval_argv)
+    dataset = evaluate.build_dataset(args, Config(args).datasets_cfg, root)
+    batch = next(iter(DataLoader(dataset, batch_size=BATCH)))
+    rels = [ann["img_path"] for ann in dataset.annotation[:BATCH]]
+
+    def generate_with(label, expert, samples):
+        model.expert = expert
+        try:
+            out, wall, counts = drive(checks, label, lambda: model.generate(
+                samples, max_new_tokens=NEW_TOKENS, do_sample=False), needs)
+        finally:
+            model.expert = model.vision_expert
+        check_same_launches(checks, label, "aqa_eval", len(eval_out["rows"]) // BATCH)
+        check_tokens(out["token_ids"], BATCH, NEW_TOKENS, model.arch.llama.vocab_size)
+        print(f"  {label}: generate {wall:.3f} s, launches {counts}", flush=True)
+        return out
+
+    # (b) aprilgan: precomputed masks (relative image paths, as the annotation holds them)
+    mask_root = os.path.join(REPO, "build", "aqa_masks")
+    write_mask_tree(mask_root, root, seed)
+    out = generate_with("aprilgan_generate", model.build_expert("aprilgan",
+                                                                {"ve_root": mask_root}),
+                        dict(batch, img_path=rels))
+    want = []
+    for rel in rels:
+        path = os.path.join(mask_root, os.path.splitext(rel)[0] + ".png")
+        want.append(resize_linear(read_png_gray(path), (224, 224)).astype(np.float32) / 255.0
+                    if os.path.isfile(path) else np.zeros((224, 224), np.float32))
+    err = np.abs(out["ve_anomaly_maps"][..., 0].cpu().numpy() - np.stack(want)).max()
+    check(err == 0.0, f"aprilgan maps differ from the host-resized masks by {err}")
+    print(f"aprilgan: maps equal the mask PNGs resized on the host (max difference {err}); "
+          f"{sum(os.path.isfile(os.path.join(mask_root, os.path.splitext(r)[0] + '.png')) for r in rels)}"
+          f" of {BATCH} masks present", flush=True)
+
+    # (c) simplenet at full width: WideResNet-50-2 (random, seeded) and two heads
+    heads_root = os.path.join(REPO, "build", "simplenet_heads")
+    write_simplenet_heads(heads_root, seed, [cls for cls, _, _ in EVAL_CLASSES])
+    expert, t_build = timed(lambda: model.build_expert("simplenet", {"ckpt_root": heads_root}))
+    images = torch.as_tensor(batch["image"], device=dev)
+    scenes = list(batch["scene"])
+    intf = expert.interface
+    # with TF32 on for cuDNN and cuBLAS, as a process may leave it (cuDNN's
+    # is PyTorch's default): the expert pins fp32 itself (exact_fp32)
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        walls = [timed(lambda: expert(images, scenes))[1] for _ in range(4)]
+        maps, _ = expert(images, scenes)
+        check(torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32,
+              "the simplenet expert did not restore the TF32 flags")
+        with torch.inference_mode():  # what TF32 does to the trunk (unpinned: reported)
+            x = images.float()
+            _, l3_tf32 = intf.embedder.backbone(x)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            _, l3 = intf.embedder.backbone(x)
+        tf32_err = ((l3_tf32 - l3).abs().max() / l3.abs().max()).item()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    cpu = SimpleNetExpertAdapter(SimpleNetInterface(
+        copy.deepcopy(intf.embedder).to("cpu"),
+        {c: copy.deepcopy(h).to("cpu") for c, h in intf.heads.items()}, map_size=intf.map_size))
+    ref, t_cpu = timed(lambda: cpu(torch.as_tensor(batch["image"]), scenes)[0])
+    rel_err = ((maps.cpu() - ref).abs().max() / ref.abs().max()).item()
+    print(f"simplenet: built in {t_build:.3f} s; expert per batch of {BATCH}: "
+          f"{statistics.median(walls[1:]) * 1e3:.1f} ms median of 3 after a warm-up (host "
+          f"clock, synchronized; the Gaussian smoothing on the host included); maps "
+          f"{tuple(maps.shape)} in [{maps.min().item():.3f}, {maps.max().item():.3f}], against "
+          f"the CPU fp32 path ({t_cpu:.1f} s): max |diff| / max |CPU| = {rel_err:.3e} "
+          f"(tol {SIMPLENET_TOL}; TF32 flags on around the expert's calls, which pin fp32; "
+          f"the unpinned trunk's layer3 under TF32 moves by {tf32_err:.3e} of its largest); "
+          f"card: {card}", flush=True)
+    check(rel_err <= SIMPLENET_TOL, "simplenet maps disagree with the CPU fp32 path")
+    generate_with("simplenet_generate", expert, batch)
+    del expert, cpu
+
+    # (d) adgpt (zero-shot maps only) and no expert (zeros; what use_ve: False serves)
+    with torch.inference_mode():
+        zero, _ = ve(images, scenes)
+    out = generate_with("adgpt_generate", model.build_expert("adgpt"), batch)
+    check(torch.equal(out["ve_anomaly_maps"], zero), "adgpt maps are not the zero-shot maps")
+    fused = model.generate(batch, max_new_tokens=NEW_TOKENS, do_sample=False)
+    check(torch.equal(out["token_ids"], fused["token_ids"]),
+          "adgpt tokens differ from the ImageBind expert's zero-shot generate")
+    out = generate_with("no_expert_generate", None, batch)
+    check(float(out["ve_anomaly_maps"].abs().max()) == 0.0, "no expert: maps are not zeros")
+    print("adgpt: maps equal the zero-shot maps and tokens equal the fused zero-shot "
+          "generate's; no expert: zero maps", flush=True)
 
 
 # phase 10: stage-2 LoRA fine-tuning over a synthetic MVTec train tree
@@ -2216,6 +2493,8 @@ def main(argv=None) -> int:
     model8, eval_argv, eval_out = eval_slice(dev, args.seed, checks, card)
     say(t_start, "phase 9: the continuous-batching engine at full width")
     engine_slice(dev, args.seed, checks, card, model8, eval_argv, eval_out)
+    say(t_start, "phase 11: one-shot maps, the expert mux and no expert on phase 8's model")
+    expert_slice(dev, args.seed, checks, card, model8, eval_argv, eval_out)
     del model8
     torch.cuda.empty_cache()
     say(t_start, "phase 10: stage-2 LoRA fine-tuning at full width")

@@ -10,16 +10,22 @@ trainable parameters by name (``model``), the optimizer's state
 tells the port's files from any other ``.pth``.  ``merge_into`` copies a
 saved state into live parameters by name with the JAX ``merge_trees`` rule
 (strict=False: unknown names and shape mismatches skipped, missing ones
-kept, values cast to the parameter's dtype).
+kept, values cast to the parameter's dtype).  ``load_params`` reads a
+parameter tree that the JAX package's ``save_params`` wrote (``.npz``, flat
+``/``-joined keys), and ``merge_params`` merges such a tree into a module by
+the same rule, through the weights bridge (``convert_from_jax``); other
+formats (Orbax directories, ``.pth`` files) raise.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
 FORMAT = "myriad_tpu_torch.checkpoint/1"
 
@@ -41,6 +47,43 @@ def merge_into(params: Mapping[str, torch.Tensor],
         else:
             target.copy_(value.to(device=target.device, dtype=target.dtype))
             loaded.append(name)
+    return loaded, skipped
+
+
+def unflatten_dict(flat: Mapping[str, Any]) -> Dict:
+    """{'a/b/c': leaf} -> {'a': {'b': {'c': leaf}}}."""
+    out: Dict = {}
+    for key, v in flat.items():
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def load_params(path: str) -> Dict:
+    """A parameter tree (nested dict of numpy arrays) from an ``.npz`` file in
+    the JAX package's ``save_params`` layout."""
+    if not path.endswith(".npz"):
+        raise NotImplementedError(f"{path}: only .npz parameter trees (the JAX package's "
+                                  "save_params layout) are read; Orbax and .pth are not ported")
+    with np.load(path, allow_pickle=False) as f:
+        return unflatten_dict({k: f[k] for k in f.files})
+
+
+def merge_params(module: nn.Module, tree: Mapping) -> Tuple[List[str], List[str]]:
+    """Merge a JAX-layout parameter tree into ``module`` non-strictly: each
+    leaf that names a parameter of the same shape is cast to its dtype and
+    copied in; unknown leaves and shape mismatches are skipped with a
+    warning; parameters the tree lacks keep their values.  Returns (loaded,
+    skipped) state-dict names."""
+    from myriad_tpu_torch.convert_from_jax import state_dict_from_jax
+
+    loaded, skipped = merge_into(module.state_dict(), state_dict_from_jax(tree))
+    if skipped:
+        logging.warning("merge_params: %d leaves skipped (unknown or mismatched), e.g. %s",
+                        len(skipped), skipped[:3])
     return loaded, skipped
 
 

@@ -110,18 +110,19 @@ class Chat:
 
     @torch.inference_mode()
     def upload_img(self, image, conv: Conversation, img_list: List) -> str:
-        """Encode an HWC uint8 image into LLM-space tokens, with the live
-        zero-shot maps of the generic 'object' class."""
+        """Encode an HWC uint8 image into LLM-space tokens, with the expert's
+        maps of the generic 'object' class (``prepare_sample``'s ``maps``: the
+        zero-shot ones of the ImageBind expert; zeros without an expert)."""
         model = self.model
         u8 = torch.as_tensor(np.asarray(image, np.uint8), device=model.device)
         arr = u8_normalize(u8, out_dtype=torch.float32)[None]
         ve = model.vision_expert
-        if "object" not in ve.class_index:
+        if ve is not None and "object" not in ve.class_index:
             ve.class_names = list(ve.class_names) + ["object"]
             ve.class_index["object"] = len(ve.class_names) - 1
             ve._text_feats = None
         samples = {"image": arr, "scene": ["object"],
-                   "question": ["<Img><ImageHere></Img>placeholder"]}
+                   "question": ["<Img><ImageHere></Img>placeholder"], "img_path": ["<chat>"]}
         img, _, _, maps, _ = model.prepare_sample(samples, stage=1, training=False)
         img_list.append(model.module.encode_img(img, maps, 1))
         conv.append_message(conv.roles[0], "<Img><ImageHere></Img>")

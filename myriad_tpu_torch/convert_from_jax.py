@@ -1,17 +1,21 @@
 """Weights bridge: the JAX package's parameter trees -> the port's state dicts.
 
 ``state_dict_from_jax`` takes a nested dict of arrays (``Myriad.params`` or
-``VisionExpert.params["params"]`` from ``myriad_tpu``, leaves as anything
-``np.asarray`` reads) and returns the state dict that the port's
-``MyriadModule`` or ``AnomalyExpertModule`` loads with ``strict=True``.
+``VisionExpert.params["params"]`` from ``myriad_tpu``, or a SimpleNet
+embedder's or head's tree, leaves as anything ``np.asarray`` reads) and
+returns the state dict that the port's ``MyriadModule``,
+``AnomalyExpertModule``, ``SimpleNetEmbedder`` or ``SimpleHead`` loads with
+``strict=True``.
 The port's modules mirror the JAX package's module names, so the bridge only:
 
 * turns list entries ``blocks_3`` / ``layers_3`` / ``layer_3`` / ``conv_3`` /
   ``fc_3`` into ``nn.ModuleList`` keys ``blocks.3``;
 * transposes Dense kernels (in, out) into torch's (out, in) ``weight``, and
   conv kernels (kh, kw, in, out) into (out, in, kh, kw);
-* renames LayerNorm ``scale`` to ``weight`` (an int8 layer's ``scale``, beside
-  its ``w_int8``, stays: int8 weights keep the (in, out) layout).
+* renames LayerNorm's and ``BatchNormInference``'s ``scale`` to ``weight``
+  (an int8 layer's ``scale``, beside its ``w_int8``, stays: int8 weights
+  keep the (in, out) layout); BatchNorm's ``bias``, ``mean`` and ``var``
+  keep their names.
 
 An int4 layer's ``w_int4`` (in/2, out) and ``scale4`` (in/group, out) pass
 through as they are: neither is a ``kernel`` nor a ``scale``, and kernel B5

@@ -10,8 +10,9 @@ At ``stage="train"`` an item also carries an anomalous twin: NSA synthesis
 the image with the per-class tables below, and ``aug_text_input`` says
 whether the twin shows an anomaly (``version`` 0-2 pick the answer texts).
 The dataset's one generator (``seed``) makes every draw, in the JAX dataset's
-order.  Precomputed vision-expert masks (``with_mask``, cv2) are not ported
-and raise.
+order.  With ``with_mask`` and a ``ve_root`` an item carries ``masks``, the
+precomputed vision-expert mask of its image (``prepare_ve``) read as
+``cv2.imread(GRAYSCALE)`` and ``cv2.resize`` read it, when the file exists.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from myriad_tpu_torch.datasets.base_dataset import BaseDataset
-from myriad_tpu_torch.datasets.cv_ops import NORMAL_CLONE
+from myriad_tpu_torch.datasets.cv_ops import NORMAL_CLONE, resize_linear
 from myriad_tpu_torch.datasets.nsa import patch_ex
+from myriad_tpu_torch.datasets.png import read_png_gray
 from myriad_tpu_torch.processors import functional as F
 
 # question prompts, answer templates and NSA tables, copied from
@@ -109,10 +111,7 @@ class AnomalyDetectionDataset(BaseDataset):
                  seed: Optional[int] = None):
         if stage not in ("test", "train"):
             raise ValueError(f"AnomalyDetectionDataset stage={stage!r}: 'test' or 'train'")
-        if with_mask and ve_root:
-            raise NotImplementedError(f"AnomalyDetectionDataset with_mask=True, ve_root="
-                                      f"{ve_root!r}: precomputed vision-expert masks "
-                                      "(prepare_ve, cv2) are not ported")
+        self.with_mask, self.ve_root = with_mask, ve_root
         self.stage = stage
         self.img_size = img_size
         self.crop_size = crop_size
@@ -130,6 +129,19 @@ class AnomalyDetectionDataset(BaseDataset):
                 "intensity_logistic_params": (1 / 12, 24), "skip_background": None,
                 "resize_bounds": (0.5, 2)})
         super().__init__(vis_processor, text_processor, vis_root, ann_paths, is_preload)
+
+    def prepare_ve(self, index: int) -> Optional[np.ndarray]:
+        """The precomputed vision-expert mask of item ``index`` (its
+        annotation's ``ve_path``, else its image path with ``.png``, under
+        ``ve_root``) resized to ``crop_size`` as OpenCV's ``INTER_LINEAR``,
+        float32 in [0, 1]; None when the file is missing."""
+        ann = self.annotation[index]
+        ve_rel = ann.get("ve_path") or os.path.splitext(ann["img_path"])[0] + ".png"
+        path = os.path.join(self.ve_root, ve_rel)
+        if not os.path.isfile(path):
+            return None
+        m = resize_linear(read_png_gray(path), (self.crop_size, self.crop_size))
+        return m.astype(np.float32) / 255.0
 
     def _resize_crop(self, img: np.ndarray) -> np.ndarray:
         return F.center_crop(F.resize_bicubic(img, self.img_size), self.crop_size)
@@ -191,6 +203,10 @@ class AnomalyDetectionDataset(BaseDataset):
             "is_anomaly": ann.get("is_anomaly") == "1" or ann.get("is_anomaly") is True,
             "img_path": os.path.join(self.vis_root, ann["img_path"]),
         }
+        if self.with_mask and self.ve_root:
+            ve = self.prepare_ve(index)
+            if ve is not None:
+                ret["masks"] = ve[..., None]
         if aug_sample is not None:
             ret["aug_image"] = np.asarray(aug_sample["img"], np.float32)
             ret["aug_text_input"] = (NORMAL_DESCRIBE

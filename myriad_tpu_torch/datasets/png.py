@@ -14,6 +14,9 @@ once along anti-diagonals instead: pixel x of row y is done at step x + y,
 when its left, upper and upper-left neighbours are done, each row with its
 own filter's predictor.  That is W + H - 1 numpy steps an image, over a
 skewed copy in which each diagonal is a contiguous slice.
+
+``decode_png_gray`` gives the one-channel image that
+``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` gives (precomputed anomaly masks).
 """
 
 from __future__ import annotations
@@ -107,8 +110,8 @@ def _unfilter(rows: np.ndarray, width: int, bpp: int) -> np.ndarray:
     return skew[xs + ys + 2, ys + 1].astype(np.uint8)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) uint8, as ``Image.open(...).convert("RGB")``."""
+def _decode(data: bytes):
+    """PNG bytes -> (pixels (H, W, channels) uint8, colour type, palette)."""
     if not data.startswith(SIGNATURE):
         raise _not_png(data)
     header, palette, idat = None, None, []
@@ -136,7 +139,10 @@ def decode_png(data: bytes) -> np.ndarray:
     if len(raw) < height * (1 + width * bpp):
         raise ValueError("PNG image data is shorter than its header says")
     rows = np.frombuffer(raw, np.uint8, count=height * (1 + width * bpp))
-    pix = _unfilter(rows.reshape(height, 1 + width * bpp), width, bpp)
+    return _unfilter(rows.reshape(height, 1 + width * bpp), width, bpp), color, palette
+
+
+def _rgb(pix: np.ndarray, color: int, palette) -> np.ndarray:
     if color in (0, 4):
         return np.repeat(pix[..., :1], 3, axis=2)
     if color == 3:
@@ -148,9 +154,35 @@ def decode_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(pix[..., :3])
 
 
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8, as ``Image.open(...).convert("RGB")``."""
+    return _rgb(*_decode(data))
+
+
+def decode_png_gray(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W) uint8, as ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``
+    reads a file: gray as stored (alpha dropped); colour (RGB, RGBA, a
+    palette's colours) by libpng's ``png_set_rgb_to_gray`` with OpenCV's
+    weights, 0.299 and 0.587 in 15-bit fixed point (9797, 19234, and 3737 for
+    blue), the sum truncated, and a pixel whose three channels are equal kept
+    as it is."""
+    pix, color, palette = _decode(data)
+    if color in (0, 4):
+        return np.ascontiguousarray(pix[..., 0])
+    rgb = _rgb(pix, color, palette).astype(np.int32)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    gray = (r * 9797 + g * 19234 + b * 3737) >> 15
+    return np.where((r == g) & (g == b), r, gray).astype(np.uint8)
+
+
 def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode_png(f.read())
+
+
+def read_png_gray(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_png_gray(f.read())
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

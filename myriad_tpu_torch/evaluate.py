@@ -19,8 +19,10 @@ CPU.  The images are decoded and resized on the host exactly as PIL does
 the JAX harness feeds its towers.  ``--engine`` serves every image as a
 request of the continuous-batching engine over ``--bs`` slots
 (``serving.MyriadServing``), with the same rows and a ``--bench`` line of its
-own.  One-shot maps (``--k_shot`` > 0) and VisA's JPEGs are not ported and
-raise.
+own.  ``--k_shot`` > 0 serves one-shot maps against a reference bank of
+each class's ``train/good`` images (``setup_vision_expert``, the JAX
+harness's rule: MVTec's ``{4 * round_index + i:03d}.png``, else the sorted
+listing's first).  VisA's JPEGs are not ported and raise.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ import torch
 from myriad_tpu_torch.common.config import Config, get_model_class
 from myriad_tpu_torch.datasets.anomaly_detection import AnomalyDetectionDataset
 from myriad_tpu_torch.datasets.loaders import DataLoader
+from myriad_tpu_torch.datasets.png import read_png
+from myriad_tpu_torch.models.vision_expert import ReferenceSpec
+from myriad_tpu_torch.processors import functional as F
 
 LIVE_TASKS = ("ad", "ad_few", "1cls", "shot")
 DEAD_TASKS = ("aqa", "roi", "al", "adroi")  # reference classes missing (SURVEY §2.8)
@@ -104,21 +109,44 @@ def build_dataset(args, ds_cfg, data_root: str) -> AnomalyDetectionDataset:
     )
 
 
-def setup_vision_expert(model, dataset, k_shot: int) -> None:
-    """Point the vision expert at the test set's classes (sorted) and build
-    their text features once.  The reference bank of one-shot maps is not
-    ported; at ``k_shot = 0`` generate does not read it."""
-    if k_shot > 0:
-        raise NotImplementedError(f"k_shot={k_shot}: one-shot maps (the reference bank) are "
-                                  "not ported")
+def load_reference_images(paths, size: int = 224) -> np.ndarray:
+    """One-shot reference images as the JAX harness preprocesses them (PIL's
+    bicubic resize of the short edge to ``size``, centre crop, CLIP
+    normalisation): (K, size, size, 3) float32."""
+    return np.stack([F.normalize(F.to_float_hwc(F.center_crop(
+        F.resize_bicubic(read_png(p), size), size))) for p in paths])
+
+
+def setup_vision_expert(model, dataset, data_root: str, round_index: int, k_shot: int) -> None:
+    """Point the vision expert at the test set's classes (sorted), build their
+    text features once, and build the one-shot reference bank, as the JAX
+    harness does (also at ``k_shot = 0``, where generate does not read it):
+    per class the first ``ReferenceSpec.effective_k`` of MVTec's names
+    ``{4 * round_index + i:03d}.png`` under ``{root}/{mvtec|visa}/{class}/
+    train/good`` that exist, else the first of that folder's sorted listing;
+    a class without images gets a zero bank."""
     ve = model.vision_expert
     if ve is None:
         return
     classes = sorted({ann["img_path"].split("/")[1] for ann in dataset.annotation})
     ve.class_names = classes
     ve.class_index = {c: i for i, c in enumerate(classes)}
-    ve._text_feats = None
+    ve._text_feats = ve._ref_bank = None
     ve.build_text_features()
+
+    spec = ReferenceSpec(round_index=round_index, k_shot=k_shot)
+    refs = {}
+    ds_name = "visa" if dataset.is_visa else "mvtec"
+    for cls in classes:
+        good = os.path.join(data_root, ds_name, cls, "train", "good")
+        paths = [os.path.join(good, n) for n in spec.mvtec_names()
+                 if os.path.isfile(os.path.join(good, n))]
+        if not paths and os.path.isdir(good):
+            paths = [os.path.join(good, n) for n in sorted(os.listdir(good))[:spec.effective_k]]
+        if paths:
+            refs[cls] = load_reference_images(paths, model.arch.imagebind.img_size)
+    if refs:
+        ve.build_reference_bank(refs)
 
 
 def build_model(args, cfg: Config):
@@ -179,8 +207,9 @@ def result_row(image_id, img_path: str, is_anomaly, text: str, score=None) -> Di
 
 def run(args, cfg: Config, model) -> Dict:
     """``main`` after the model is built: the dataset, the vision expert's
-    classes, the batched generate loop (or, with ``--engine``, ``run_engine``),
-    the jsonl rows and the ``--bench`` line.  Returns {"save_path", "rows",
+    classes, text features and reference bank (``--k_shot`` and
+    ``--round_index`` also set on the model), the batched generate loop (or,
+    with ``--engine``, ``run_engine``), the jsonl rows and the ``--bench`` line.  Returns {"save_path", "rows",
     "token_ids" (each batch's, real rows only), "bench" (the line's dict, or
     None), "phases" (each batch's phase times, s)}.
 
@@ -199,7 +228,10 @@ def run(args, cfg: Config, model) -> Dict:
     data_root = ds_cfg.get("anomaly_detection", {}).get("build_info", {}).get(
         "storage", "./data/EvalADDataset")
     dataset = build_dataset(args, ds_cfg, data_root)
-    setup_vision_expert(model, dataset, args.k_shot)
+    # the harness's --k_shot and --round_index are the model's, as the JAX
+    # harness sets them in the model's config before building it
+    model.k_shot, model.round_index = args.k_shot, args.round_index
+    setup_vision_expert(model, dataset, data_root, args.round_index, args.k_shot)
     dataloader = DataLoader(dataset, batch_size=args.bs, num_workers=4)
     save_path = _save_path(args, cfg)
     print(f"Results will be saved to {save_path}")

@@ -6,17 +6,19 @@
 
 with the ImageBind vision expert producing the anomaly maps that feed the
 two map encoders.  ``MyriadModule`` holds the weights and the compute;
-``Myriad`` is the host class: prompt tokenisation, the vision expert's
-text-feature cache, ``generate`` (greedy, or speculative when
-``spec_k > 0``) and the training step's pieces (``prepare_train_arrays``,
+``Myriad`` is the host class: prompt tokenisation, the vision expert (its
+text-feature cache and one-shot reference bank, or another expert of the
+mux, ``models/vision_experts.py``, or none), ``generate`` (greedy, or
+speculative when ``spec_k > 0``; one-shot maps when ``k_shot > 0`` and a
+bank is built) and the training step's pieces (``prepare_train_arrays``,
 ``train_loss``, ``forward``).  The trainable parameters are chosen by name
 as the JAX package's ``_trainable_predicate`` chooses its paths; under a
 policy with fp32 parameters and bf16 compute (``Policy.bf16``, the JAX
 package's default) the frozen float parameters are stored in bf16 and the
 trainables and LayerNorm scales in fp32, as its ``_cast_frozen`` leaves
 them.  A model built with ``training=True`` gives its trainables
-``requires_grad``.  One-shot maps and top-p sampling are not ported.
-``Myriad`` builds on the card unless the caller passes another device.
+``requires_grad``.  Top-p sampling is not ported.  ``Myriad`` builds on the
+card unless the caller passes another device.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from myriad_tpu_torch import checkpoint as ckpt_lib
 from myriad_tpu_torch.datasets.anomaly_detection import ABNORMAL_DESCRIBE, NORMAL_DESCRIBE
 from myriad_tpu_torch.generation import (GenerationConfig, greedy_generate,
                                          speculative_generate)
-from myriad_tpu_torch.models.clip_tokenizer import HashTokenizer
+from myriad_tpu_torch.models.clip_tokenizer import ClipBpeTokenizer, HashTokenizer
 from myriad_tpu_torch.models.eva_vit import EvaViT
 from myriad_tpu_torch.models.imagebind import ImageBindConfig
 from myriad_tpu_torch.models.layers import (Dense, LayerNorm, LayerNormFp32, Policy,
@@ -45,6 +47,7 @@ from myriad_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM, lm_cro
 from myriad_tpu_torch.models.networks import LoraAdaptorV2, VEInstructorV2, VETokenizer
 from myriad_tpu_torch.models.qformer import QFormer
 from myriad_tpu_torch.models.vision_expert import AnomalyExpertModule, VisionExpert
+from myriad_tpu_torch.models.vision_experts import PrecomputedMaskExpert, build_vision_expert
 from myriad_tpu_torch.ops.preprocess import u8_normalize
 from myriad_tpu_torch.tokenization import ByteTokenizer
 
@@ -190,16 +193,13 @@ def _bf16_or_unset(value) -> bool:
 
 
 # config keys whose other values the port does not serve: the int8 towers,
-# one-shot maps, a model without the vision expert, and what the JAX
-# from_config would load: npz towers, a local Q-Former file, a checkpoint
-# that the port's own CheckpointManager did not write and (from an existing
-# path) an HF tokenizer
+# and what the JAX from_config would load: npz towers, a local Q-Former file,
+# a checkpoint that the port's own CheckpointManager did not write and (from
+# an existing path) an HF tokenizer
 UNSERVED_KEYS = {
     "qformer_weight_dtype": _bf16_or_unset,
     "vit_weight_dtype": _bf16_or_unset,
     "ve_weight_dtype": _bf16_or_unset,
-    "k_shot": lambda v: not v,
-    "use_ve": lambda v: bool(v),
     "weights": lambda v: not v,
     "ckpt": lambda v: not v or ckpt_lib.is_port_checkpoint(str(v)),
     "q_former_model": lambda v: not v or not os.path.isfile(str(v)),
@@ -222,7 +222,15 @@ def policy_from_config(cfg: Mapping) -> Optional[Policy]:
 
 
 class Myriad:
-    """Host class: the module, the vision expert, prompt ids and ``generate``."""
+    """Host class: the module, the vision expert, prompt ids and ``generate``.
+
+    The vision expert is built as the JAX package builds it: the ImageBind
+    expert when ``use_ve`` and ``init_vision_expert`` (its CLIP tokenizer the
+    BPE of ``clip_bpe_path`` when given, else the hash stand-in), none
+    otherwise (the maps are zeros); ``vis_expert`` other than
+    ``adrefexpert``/``patchcore`` puts another expert of the mux in front of
+    it (``build_expert``).  ``k_shot > 0`` serves the one-shot maps once a
+    reference bank is built (``evaluate.setup_vision_expert``)."""
 
     def __init__(self, arch: Optional[MyriadArch] = None, *, policy: Optional[Policy] = None,
                  device="cuda", prefill_chunks: int = 1, staged_decode: bool = False,
@@ -232,7 +240,11 @@ class Myriad:
                  freeze_qformer: bool = True, freeze_llama: bool = True,
                  use_lora: bool = False, use_grad_checkpoint: bool = False,
                  max_txt_len: int = 32, train_llm_head: bool = False,
-                 train_add_bos: bool = True, training: bool = False):
+                 train_add_bos: bool = True, training: bool = False, use_ve: bool = True,
+                 init_vision_expert: bool = True, clip_bpe_path: str = "",
+                 vis_expert: Optional[str] = "adrefexpert",
+                 vis_expert_args: Optional[Mapping] = None, k_shot: int = 0,
+                 round_index: int = 0):
         self.arch = arch or MyriadArch.full()
         llama = self.arch.llama
         if use_lora:
@@ -257,6 +269,7 @@ class Myriad:
         # training prepends a bos embedding, as the reference's training does
         self.train_add_bos = bool(train_add_bos)
         self.max_txt_len = int(max_txt_len)
+        self.k_shot, self.round_index = int(k_shot), int(round_index)
         # frozen float parameters stored in the compute dtype (the JAX
         # package's _cast_frozen): build in it, then raise the trainables and
         # the LayerNorm scales to the parameter dtype
@@ -264,11 +277,15 @@ class Myriad:
         self.module = MyriadModule(self.arch, policy=build, device=self.device,
                                    use_grad_checkpoint=use_grad_checkpoint)
         self.llama_tokenizer = ByteTokenizer()
-        ve_module = AnomalyExpertModule(self.arch.imagebind, map_size=self.arch.map_size,
-                                        policy=build, device=self.device)
-        self.vision_expert = VisionExpert(
-            ve_module, tokenizer=HashTokenizer(self.arch.imagebind.vocab_size),
-            class_names=class_names)
+        self.vision_expert: Optional[VisionExpert] = None
+        if use_ve and init_vision_expert:
+            ve_module = AnomalyExpertModule(self.arch.imagebind, map_size=self.arch.map_size,
+                                            policy=build, device=self.device)
+            tokenizer = (ClipBpeTokenizer(clip_bpe_path) if clip_bpe_path
+                         else HashTokenizer(self.arch.imagebind.vocab_size))
+            self.vision_expert = VisionExpert(ve_module, tokenizer=tokenizer,
+                                              class_names=class_names)
+        self.expert = self.build_expert(vis_expert, vis_expert_args)
         self.training = bool(training)
         self.ckpt_path = ""  # a port checkpoint merged over the trainables (from_config)
         self.trainable_names: List[str] = self._split_trainable()
@@ -301,10 +318,13 @@ class Myriad:
         when training, ``requires_grad``; returns the trainable names."""
         pred = self.trainable_predicate()
         param_dtype = self.policy.param_dtype
-        scales = {id(m.weight) for mod in (self.module, self.vision_expert.module)
-                  for m in mod.modules() if isinstance(m, LayerNorm)}
+        mods = [(self.module, "")]
+        if self.vision_expert is not None:
+            mods.append((self.vision_expert.module, None))
+        scales = {id(m.weight) for mod, _ in mods for m in mod.modules()
+                  if isinstance(m, LayerNorm)}
         names = []
-        for mod, prefix in ((self.module, ""), (self.vision_expert.module, None)):
+        for mod, prefix in mods:
             for name, p in mod.named_parameters():
                 train = prefix is not None and pred(name)
                 if (train or id(p) in scales) and p.dtype != param_dtype:
@@ -313,6 +333,26 @@ class Myriad:
                 if train:
                     names.append(name)
         return names
+
+    def build_expert(self, vis_expert: Optional[str], vis_expert_args: Optional[Mapping] = None):
+        """The expert that serves the maps, as the JAX ``Myriad`` picks it:
+        the ImageBind expert for ``adrefexpert``, ``patchcore``, "" or None;
+        else ``vision_experts.build_vision_expert`` of the name, with
+        ``vis_expert_args`` (``simplenet``: ``ckpt_root`` and an optional
+        ``backbone`` npz; ``aprilgan``: ``ve_root``).  An unknown name raises
+        ``KeyError``."""
+        if vis_expert in ("adrefexpert", "patchcore", "", None):
+            return self.vision_expert
+        kwargs = dict(vis_expert_args or {})
+        if vis_expert.lower() in ("simplenet", "simplenetv") and \
+                "simplenet_interface" not in kwargs:
+            from myriad_tpu_torch.models.simplenet import load_simplenet_interface
+
+            kwargs["simplenet_interface"] = load_simplenet_interface(
+                kwargs.pop("ckpt_root"), backbone_path=kwargs.pop("backbone", None),
+                map_size=self.arch.map_size, device=self.device)
+        kwargs.setdefault("adrefexpert", self.vision_expert)
+        return build_vision_expert(vis_expert, device=self.device, **kwargs)
 
     def trainable_state_dict(self) -> Dict[str, torch.Tensor]:
         params = dict(self.module.named_parameters())
@@ -346,9 +386,11 @@ class Myriad:
         (the q/v LoRA pair), llm_prefill_chunks, llm_staged_decode, llm_cache_granularity,
         llm_spec_k, end_sym, bos_at_generate, and param_policy or
         vit_precision (``policy`` wins when given; with none of the three the
-        port serves bf16 storage, ``Policy.bf16_params``), and the keys that
-        change training: freeze_vit, freeze_qformer, freeze_llama,
-        train_llm_head, train_add_bos, use_grad_checkpoint and max_txt_len.
+        port serves bf16 storage, ``Policy.bf16_params``), the vision
+        expert's keys: use_ve, init_vision_expert, clip_bpe_path, vis_expert,
+        vis_expert_args, k_shot and round_index, and the keys that change
+        training: freeze_vit, freeze_qformer, freeze_llama, train_llm_head,
+        train_add_bos, use_grad_checkpoint and max_txt_len.
         Keys the port cannot serve raise ``NotImplementedError``; the
         reference's dead knobs (noise_level, ...) and ``prompt_path`` (a
         prompt list no step reads) are accepted and inactive.  ``ckpt`` naming a checkpoint that the
@@ -394,7 +436,14 @@ class Myriad:
                     use_grad_checkpoint=cfg.get("use_grad_checkpoint", False),
                     max_txt_len=cfg.get("max_txt_len", 32),
                     train_llm_head=cfg.get("train_llm_head", False),
-                    train_add_bos=cfg.get("train_add_bos", True), training=training)
+                    train_add_bos=cfg.get("train_add_bos", True), training=training,
+                    use_ve=cfg.get("use_ve", True),
+                    init_vision_expert=cfg.get("init_vision_expert", True),
+                    clip_bpe_path=cfg.get("clip_bpe_path", ""),
+                    vis_expert=cfg.get("vis_expert", "adrefexpert"),
+                    vis_expert_args=(dict(cfg.get("vis_expert_args"))
+                                     if cfg.get("vis_expert_args") else None),
+                    k_shot=cfg.get("k_shot", 0), round_index=cfg.get("round_index", 0))
         model.ckpt_path = str(cfg.get("ckpt") or "")
         model._merge_ckpt()
         return model
@@ -402,10 +451,16 @@ class Myriad:
     # -- weights --------------------------------------------------------------
     def load_state_dicts(self, model_sd: Mapping[str, torch.Tensor],
                          ve_sd: Mapping[str, torch.Tensor]) -> None:
-        """Load with strict=True: every leaf accounted for in both directions."""
+        """Load with strict=True: every leaf accounted for in both directions.
+        A model without the vision expert takes no ``ve_sd`` (None or empty)."""
         self.module.load_state_dict(model_sd, strict=True)
-        self.vision_expert.module.load_state_dict(ve_sd, strict=True)
-        self.vision_expert._text_feats = None
+        if self.vision_expert is None:
+            if ve_sd:
+                raise ValueError("vision-expert weights given, but the model has no vision "
+                                 "expert (use_ve or init_vision_expert is False)")
+        else:
+            self.vision_expert.module.load_state_dict(ve_sd, strict=True)
+            self.vision_expert._text_feats = self.vision_expert._ref_bank = None
         self._merge_ckpt()
 
     def init_random(self, seed: int) -> None:
@@ -413,8 +468,9 @@ class Myriad:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         init_random_(self.module, gen)
-        init_random_(self.vision_expert.module, gen)
-        self.vision_expert._text_feats = None
+        if self.vision_expert is not None:
+            init_random_(self.vision_expert.module, gen)
+            self.vision_expert._text_feats = self.vision_expert._ref_bank = None
         self._merge_ckpt()
 
     def _merge_ckpt(self) -> None:
@@ -436,33 +492,73 @@ class Myriad:
         return self._prompt_cache[prompt]
 
     # -- sample prep ----------------------------------------------------------
-    def prepare_sample(self, samples: Dict, stage: int, training: bool = False):
-        """(image, question, texts, maps, one_maps) for a batch: the zero-shot
-        maps of the vision expert; one_maps are the same maps, as the JAX
-        package gives them when no reference bank is built.  ``training``
-        appends the augmented twins (``aug_image``, their scenes) and takes
-        the target texts (``text_input`` then ``aug_text_input``)."""
+    def _image_question(self, samples: Dict, stage: int, training: bool):
+        """(image on the device (uint8, or float32), the question of
+        ``stage``, the scenes, the image paths); ``training`` appends the
+        augmented twins (``aug_image``) with their scenes and paths."""
         image = samples["image"]
         image = (image if torch.is_tensor(image)
                  else torch.as_tensor(np.asarray(image))).to(self.device)
         if image.dtype != torch.uint8:
             image = image.float()
         scenes = list(samples["scene"])
-        texts = None
+        paths = list(samples.get("img_path", []))
         if training and "aug_image" in samples:
             aug = samples["aug_image"]
             aug = (aug if torch.is_tensor(aug) else torch.as_tensor(np.asarray(aug)))
             image = torch.cat([image, aug.to(device=self.device, dtype=image.dtype)])
-            scenes = scenes + scenes
-        if training and "text_input" in samples:
-            texts = list(samples["text_input"]) + list(samples.get("aug_text_input", []))
+            scenes, paths = scenes + scenes, paths + paths
         q_key = {0: "question", 1: "question2", 2: "question3"}[stage]
         questions = samples.get(q_key) or samples.get("question")
         question = questions[0] if isinstance(questions, (list, tuple)) else questions
-        maps, _ = self.vision_expert(image, scenes)
-        if training:
-            maps = maps.clone()  # out of inference mode: the map encoders train on it
-        return image, question, texts, maps, maps
+        return image, question, scenes, paths
+
+    def _expert_maps(self, image: torch.Tensor, scenes: List[str], paths: List[str],
+                     one_shot: bool) -> torch.Tensor:
+        """The maps of the model's expert: a precomputed-mask expert's by image
+        path; the ImageBind expert's zero-shot maps, or its one-shot maps when
+        ``one_shot`` and a reference bank is built; a muxed expert's one map
+        type; zeros without an expert."""
+        expert = self.expert
+        if expert is None:
+            return torch.zeros((image.shape[0], self.arch.map_size, self.arch.map_size, 1),
+                               dtype=torch.float32, device=self.device)
+        if isinstance(expert, PrecomputedMaskExpert):
+            return expert(paths, scenes)[0]
+        if expert is self.vision_expert:
+            one_shot = one_shot and expert._ref_bank is not None
+            return expert(image, scenes, one_shot=one_shot)[0]
+        return expert(image, scenes)[0]
+
+    def prepare_sample(self, samples: Dict, stage: int, training: bool = False):
+        """(image, question, texts, maps, one_maps) for a batch, as the JAX
+        package's ``prepare_sample`` gives them: ``maps`` the expert's
+        (zero-shot for the ImageBind expert), ``one_maps`` its one-shot maps
+        when a reference bank is built and ``maps`` otherwise.  ``training``
+        appends the augmented twins and takes the target texts
+        (``text_input`` then ``aug_text_input``)."""
+        image, question, scenes, paths = self._image_question(samples, stage, training)
+        texts = None
+        if training and "text_input" in samples:
+            texts = list(samples["text_input"]) + list(samples.get("aug_text_input", []))
+        maps = self._expert_maps(image, scenes, paths, one_shot=False)
+        one_maps = maps
+        ve = self.vision_expert
+        if self.expert is ve and ve is not None and ve._ref_bank is not None:
+            one_maps = self._expert_maps(image, scenes, paths, one_shot=True)
+        if training:  # out of inference mode: the map encoders train on them
+            same = one_maps is maps
+            maps = maps.clone()
+            one_maps = maps if same else one_maps.clone()
+        return image, question, texts, maps, one_maps
+
+    def serving_maps(self, samples: Dict, stage: int):
+        """(image, question, maps) of a batch to serve: the maps that
+        ``generate`` feeds (the one-shot maps when ``k_shot > 0`` and the
+        bank is built, as the JAX generate takes ``one_maps``), computed
+        once."""
+        image, question, scenes, paths = self._image_question(samples, stage, False)
+        return image, question, self._expert_maps(image, scenes, paths, self.k_shot > 0)
 
     def tokenize_targets(self, texts: Sequence[str]) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ids, mask) (B, max_txt_len): each text and ``end_sym`` tokenised,
@@ -563,8 +659,8 @@ class Myriad:
 
     @torch.inference_mode()
     def _generate_fused(self, samples: Dict, stage: int, gen_cfg: GenerationConfig) -> Dict:
-        """VE zero-shot maps + encode_img + prefill + decode."""
-        image, question, _, maps, _ = self.prepare_sample(samples, stage)
+        """The expert's maps (``serving_maps``) + encode_img + prefill + decode."""
+        image, question, maps = self.serving_maps(samples, stage)
         before, after = self.split_prompt(question)
         # served with no bos embedding, as the reference generates, unless
         # bos_at_generate

@@ -2,8 +2,8 @@
 ``myriad_tpu/serving/myriad_adapter.py``).
 
 Turns (image, question) anomaly-QA samples into LLM prompt embeddings
-(zero-shot VE maps, ``encode_img`` and the prompt wrap: the chain
-``Myriad.generate`` runs) and streams them through a ``ServingEngine`` over
+(the expert's maps, one-shot when the model's ``k_shot > 0``, ``encode_img``
+and the prompt wrap: the chain ``Myriad.generate`` runs) and streams them through a ``ServingEngine`` over
 the model's Vicuna decoder.  Where ``Myriad.generate`` serves one fixed
 batch a call, this front end serves an endpoint: requests arrive at any
 time, admit into free KV slots and finish independently.  It runs on the
@@ -146,7 +146,9 @@ class MyriadServing:
                       request_ids: Optional[List[int]] = None) -> List[int]:
         """Embed a same-question batch in one forward and enqueue its rows."""
         m = self.myriad
-        image, question, _, maps, _ = m.prepare_sample(samples, self.stage)
+        # the maps generate feeds: one-shot when k_shot > 0 and the bank is
+        # built, the muxed expert's, or zeros
+        image, question, maps = m.serving_maps(samples, self.stage)
         before, after = m.split_prompt(question)
         eng = self.engine
         if eng.spec_k and eng._lookup_ids is None and eng._segment_prog is None:

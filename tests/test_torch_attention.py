@@ -19,6 +19,7 @@ from myriad_tpu.ops.attention import _xla_mha
 from myriad_tpu.ops.decode_attention import decode_attention as jax_decode_attention
 from myriad_tpu.ops.prefill_attention import prefill_attention as jax_prefill_attention
 from myriad_tpu_torch.ops import attention, decode_attention as da, prefill_attention as pa
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 BF16_ATOL = 2e-2
 FP32_ATOL = 1e-5

@@ -16,6 +16,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from myriad_tpu_torch.tools import bwprobe
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # tools/ is not a package: load the JAX probe by path, under its own name

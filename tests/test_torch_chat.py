@@ -32,6 +32,7 @@ from myriad_tpu.processors.blip_processors import LocImageTrainProcessor
 from myriad_tpu_torch.conversation import CONV_VISION, Chat
 from myriad_tpu_torch.ops.preprocess import u8_normalize
 from test_torch_myriad import pair  # noqa: F401  (the module's JAX/port model pair)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 QUESTIONS = ["Is there any defect?", "Where is it?", "How severe is it?"]
 NEW = 6

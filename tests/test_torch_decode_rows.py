@@ -18,6 +18,7 @@ from myriad_tpu.models.llama import quantize_kv as jax_quantize_kv
 from myriad_tpu.ops.attention import mha as jax_mha
 from myriad_tpu.ops.decode_attention import decode_attention_rows as jax_rows
 from myriad_tpu_torch.ops import attention, decode_attention as da
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 BF16_ATOL = 2e-2
 FP32_ATOL = 1e-5

@@ -35,6 +35,7 @@ from myriad_tpu_torch.common.config import Config, get_model_class
 from myriad_tpu_torch.datasets.anomaly_detection import AnomalyDetectionDataset
 from myriad_tpu_torch.datasets.loaders import DataLoader
 from test_torch_myriad import pair  # noqa: F401  (the module's JAX/port model pair)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG_YAMLS = sorted(
@@ -190,8 +191,12 @@ def test_dataset_refuses_what_is_not_ported(tree):
     # the train stage is ported (tests/test_torch_train_data.py); other stages raise
     with pytest.raises(ValueError, match="stage='eval'"):
         AnomalyDetectionDataset(tree, stage="eval")
-    with pytest.raises(NotImplementedError, match="with_mask"):
-        AnomalyDetectionDataset(tree, ve_root=tree, with_mask=True)
+    # with_mask and ve_root are served (prepare_ve: tests/test_torch_vision_experts.py)
+    kw = dict(with_mask=True, ann_paths=["DC_MVTEC_test_normal.jsonl"], img_size=28,
+              crop_size=28)
+    assert "masks" not in AnomalyDetectionDataset(tree, ve_root=tree + "/none", **kw)[0]
+    # the image's own PNG read as its mask: gray, resized as OpenCV would
+    assert AnomalyDetectionDataset(tree, ve_root=tree, **kw)[0]["masks"].shape == (28, 28, 1)
 
 
 def test_copied_tables_equal_the_originals():
@@ -230,7 +235,7 @@ def _jax_bench_keys():
     return found["line"], found["phases"]
 
 
-def _jax_rows(jm, root):
+def _jax_rows(jm, root, new_tokens=NEW_TOKENS):
     """The JAX harness's rows (evaluation_aqa_dataset.py: the ragged batch
     padded by repeating its last sample, ``flush``) from the JAX model's
     generate on the JAX dataset's batches."""
@@ -244,7 +249,7 @@ def _jax_rows(jm, root):
                 samples[k] = np.concatenate([v, np.repeat(v[-1:], BS - real_bs, axis=0)])
             elif isinstance(v, list):
                 samples[k] = v + [v[-1]] * (BS - real_bs)
-        out = jm.generate(samples, max_new_tokens=NEW_TOKENS, do_sample=False, top_p=0.01,
+        out = jm.generate(samples, max_new_tokens=new_tokens, do_sample=False, top_p=0.01,
                           temperature=1.0)
         token_ids = np.clip(np.asarray(out["token_ids"])[:real_bs], 1, 40000)
         maps = np.asarray(out["ve_anomaly_maps"])
@@ -308,8 +313,10 @@ def test_evaluate_refuses_what_is_not_ported(tree, tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "block KV layout (--engine-block 8) is not ported" in printed
     assert "(segment 32, block 0, spec 0)" in printed
-    with pytest.raises(NotImplementedError, match="k_shot=1"):
-        evaluate.setup_vision_expert(None, None, 1)
+    # --k_shot is served (tests/test_torch_vision_experts.py); a model without
+    # a vision expert has no bank to build
+    evaluate.setup_vision_expert(type("NoExpert", (), {"vision_expert": None})(), None, tree,
+                                 14, 1)
     with pytest.raises(SystemExit, match="task_type 'aqa'"):
         evaluate.build_dataset(evaluate.parse_args(["--cfg-path", cfg, "--task_type", "aqa"]),
                                {}, tree)

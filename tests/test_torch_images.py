@@ -20,6 +20,7 @@ from PIL import Image
 from myriad_tpu.processors import functional as JF
 from myriad_tpu_torch.datasets.png import decode_png, encode_png, read_png
 from myriad_tpu_torch.processors import functional as F
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 COLOR_TYPES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> channels
 

@@ -30,6 +30,7 @@ from myriad_tpu_torch.models.layers import Policy, Quant4Dense, init_random_
 from myriad_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from myriad_tpu_torch.ops import quant
 from test_torch_llama import _float_params
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 STOPS = dict(eos_token_id=2, stop_single=5, stop_pair=(7, 9), pad_token_id=0)
 

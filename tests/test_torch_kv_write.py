@@ -20,6 +20,7 @@ import torch
 from myriad_tpu.models.llama import quantize_kv as jax_quantize_kv
 from myriad_tpu.ops import kv_write as jkw
 from myriad_tpu_torch.ops import kv_write
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 B, H, T = 3, 4, 24
 # per-row starts: in range, past the end (clamped to T - t) and negative (to 0)

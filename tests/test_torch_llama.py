@@ -26,6 +26,7 @@ from myriad_tpu_torch import generation as gen
 from myriad_tpu_torch.convert_from_jax import state_dict_from_jax
 from myriad_tpu_torch.models.layers import Policy
 from myriad_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_cache
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 STOPS = dict(eos_token_id=2, stop_single=5, stop_pair=(7, 9), pad_token_id=0)
 

@@ -38,6 +38,7 @@ from myriad_tpu_torch.models.layers import Policy
 from myriad_tpu_torch.models.llama import LlamaConfig
 from myriad_tpu_torch.models.myriad import Myriad, MyriadArch
 from test_torch_llama import _float_params, _init_like
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUESTION = "<Img><ImageHere></Img>find out if there are defects in this image."
@@ -300,15 +301,15 @@ def test_from_config_llm_vocab_size_as_jax(pair):
 
 
 @pytest.mark.parametrize("cfg", [{"qformer_weight_dtype": "int8"}, {"vit_weight_dtype": "int8"},
-                                 {"ve_weight_dtype": "int8"}, {"use_ve": False},
-                                 {"k_shot": 1},
+                                 {"ve_weight_dtype": "int8"},
                                  # what the JAX from_config would load (F8)
                                  {"weights": {"vit": "eva_vit_g.npz"}},
                                  {"ckpt": "output/myriad/checkpoint_4.pth"},
                                  {"q_former_model": os.path.abspath(__file__)},
                                  {"llama_model": os.path.dirname(os.path.abspath(__file__))}])
 def test_from_config_unserved_keys_raise(cfg):
-    """Keys the port does not serve raise, naming the key and the value."""
+    """Keys the port does not serve raise, naming the key and the value
+    (``use_ve`` and ``k_shot`` are served: tests/test_torch_vision_experts.py)."""
     (key, value), = cfg.items()
     with pytest.raises(NotImplementedError, match=re.escape(f"{key}={value!r}")):
         Myriad.from_config({"arch_preset": "tiny", **cfg}, device="cpu")
@@ -474,9 +475,9 @@ def test_from_config_serving_knobs():
                               policy=Policy.fp32(), device="cpu")
     assert int4.arch.llama.weight_dtype == "int4"
     assert "llama.model.layers.0.mlp.up_proj.w_int4" in int4.module.state_dict()
-    with pytest.raises(NotImplementedError):
-        Myriad.from_config({"arch_preset": "tiny", "k_shot": 1}, policy=Policy.fp32(),
-                           device="cpu")
+    shot = Myriad.from_config({"arch_preset": "tiny", "k_shot": 1, "round_index": 3},
+                              policy=Policy.fp32(), device="cpu")
+    assert (shot.k_shot, shot.round_index) == (1, 3)
 
 
 def test_random_init_is_seeded_and_full():
@@ -510,7 +511,9 @@ def test_import_leaves_jax_out():
             "myriad_tpu_torch.serving, myriad_tpu_torch.serving.myriad_adapter, "
             "myriad_tpu_torch.train, myriad_tpu_torch.checkpoint, myriad_tpu_torch.tasks, "
             "myriad_tpu_torch.runners, myriad_tpu_torch.common.optim, "
-            "myriad_tpu_torch.datasets.nsa, myriad_tpu_torch.datasets.builders\n"
+            "myriad_tpu_torch.datasets.nsa, myriad_tpu_torch.datasets.builders, "
+            "myriad_tpu_torch.models.vision_experts, myriad_tpu_torch.models.simplenet, "
+            "myriad_tpu_torch.models.clip_tokenizer\n"
             "from myriad_tpu_torch.models.myriad import Myriad\n"
             "m = Myriad.from_config({'arch_preset': 'tiny', 'llm_weight_dtype': 'int8', "
             "'llm_kv_dtype': 'int8', 'llm_spec_k': 2}, device='cpu', class_names=['bottle'])\n"

@@ -34,6 +34,7 @@ from myriad_tpu.models.imagebind import (
     LinearLayerDecoder,
 )
 from myriad_tpu.models.qformer import QFormer
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 torch.manual_seed(0)
 FP32 = dict(dtype=jnp.float32, param_dtype=jnp.float32)

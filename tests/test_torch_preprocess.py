@@ -17,6 +17,7 @@ import torch
 
 from myriad_tpu.ops import preprocess as jpp
 from myriad_tpu_torch.ops import preprocess as pp
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _images(rng, shape):

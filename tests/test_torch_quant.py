@@ -16,6 +16,7 @@ from myriad_tpu.models.llama import quantize_kv as jax_quantize_kv
 from myriad_tpu.ops import quant as jq
 from myriad_tpu_torch.models.llama import quantize_kv
 from myriad_tpu_torch.ops import quant
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _bf16_np(a):

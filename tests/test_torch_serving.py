@@ -23,6 +23,7 @@ from myriad_tpu.serving import ServingEngine as JaxEngine
 from myriad_tpu_torch import generation as gen
 from myriad_tpu_torch.serving import Finished, ServingEngine
 from test_torch_llama import _models
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 NO_STOP = dict(eos_token_id=-1, stop_single=-1, stop_pair=(-1, -1))
 CFG = dict(max_new_tokens=10, **NO_STOP)

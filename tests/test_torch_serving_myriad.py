@@ -25,6 +25,7 @@ from myriad_tpu_torch.serving import MyriadServing
 from test_torch_evaluate import _write_config, tree  # noqa: F401  (the synthetic MVTec tree)
 from test_torch_myriad import QUESTION, pair  # noqa: F401  (the module's JAX/port pair)
 from test_torch_serving import keep_jax_programs, share_jax_programs
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(slots=2, segment=4, max_new_tokens=6, admit_widths=(160, 256), bucket=512)

@@ -18,6 +18,7 @@ from myriad_tpu.models.llama import init_cache as jax_init_cache
 from myriad_tpu_torch import generation as gen
 from myriad_tpu_torch.models.llama import init_cache
 from test_torch_llama import _models
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 NO_STOP = dict(eos_token_id=-1, stop_single=-1, stop_pair=(-1, -1))
 NEW = 14

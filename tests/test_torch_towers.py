@@ -32,6 +32,7 @@ from myriad_tpu_torch.models.myriad import Myriad, MyriadArch
 from myriad_tpu_torch.models.vision_expert import upsample_align_corners
 from myriad_tpu_torch.ops.preprocess import u8_normalize
 from test_torch_myriad import TracedInitMyriad
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

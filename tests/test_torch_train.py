@@ -41,6 +41,7 @@ from myriad_tpu_torch.models.llama import LlamaConfig
 from myriad_tpu_torch.models.myriad import Myriad, MyriadArch
 from myriad_tpu_torch.ops import quant
 from test_torch_myriad import SCENES, TracedInitMyriad, _jax_variant, _perturb
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUESTION = "<Img><ImageHere></Img>Any defect?"

@@ -27,6 +27,7 @@ from myriad_tpu_torch.datasets import cv_ops
 from myriad_tpu_torch.datasets import nsa as tnsa
 from myriad_tpu_torch.datasets.loaders import DataLoader
 from myriad_tpu_torch.processors import blip_processors as tbp
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 CLONE_TOL = 2  # grey levels: the Poisson solve is float64 here, float32 in OpenCV
 # the clone tolerance after LocImageTrainProcessor's normalisation

@@ -15,6 +15,7 @@ from fixtures import make_ad_dataset
 from myriad_tpu_torch import train
 from myriad_tpu_torch.datasets import builders
 from myriad_tpu_torch.models.myriad import Myriad
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
