@@ -28,7 +28,8 @@ Phases, each printing its own lines:
    every bound is printed again at that rate.  B3's speculative verify chunk
    (4 rows, ragged positions), B1 and B5 at 8 and 32 rows at each of the
    three projection shapes (and run twice, the same bits), B1 at a chat
-   turn's 132-row delta prefill, B2 and B2' at kv_len 8192, B4's copy (with
+   turn's 132-row delta prefill and at the int8 Q-Former's three shapes at
+   81 rows (a chat upload's query stream), B2 and B2' at kv_len 8192, B4's copy (with
    an indexed assignment as its library call), B4's quantize-and-write at a
    greedy and a chat decode step, a prefill chunk and its launch floor (one
    row of 8), and B6 to bf16 are path shapes of their own, with their times
@@ -120,7 +121,23 @@ Phases, each printing its own lines:
    (top 10 ops by device time), the host's NSA time per twin; then one step
    with int8 LLM weights: W8A8 on ``torch._int_mm`` at every projection, the
    straight-through backward reaching ``expert_adaptor`` across 32 layers,
-   one projection's dx against dy @ dequant(W)^T in fp32 (2e-2, bf16).
+   one projection's dx against dy @ dequant(W)^T in fp32 (2e-2, bf16);
+12. between phases 11 and 10, once phase 8's model is freed: the TPU
+   harness's profile (the ``--options`` of ``BENCH_r05.json``'s harness
+   command: EVA, Q-Former and ImageBind in int8, int8 LLM weights and KV, 9
+   prefill chunks, staged decode) at full width, random weights from --seed
+   but for the Q-Former, ``llama_proj`` and the decoder, written as fp32 npz
+   under build/ and served through ``weights:`` (quantized on load: no leaf
+   missing, every Q-Former payload equal to the npz quantized on the host):
+   (b) ``evaluate.run`` over phase 8's tree at phase 8's batch (rows, tokens
+   identical to a direct generate, the ``--bench`` line beside phase 8's);
+   (c) one generate at the harness's batch of 48 (images/s, median of 3
+   after a warm-up, peak memory); (d) a batch-1 chat: the upload's B1
+   launches (the Q-Former) and ``torch._int_mm`` calls (EVA, ImageBind, the
+   cross-attention's keys and values) equal to the counts the architecture
+   gives, ``encode_img`` gated against the plain path, one turn; (e) top-p
+   0.9 sampling: a generate (one seed) and a chat turn, each twice,
+   identical, and a one-token nucleus equal to the argmax.
 
 With ``--parent DIR`` (a checkout of another tree, such as the parent
 commit's), phase 1 also builds DIR's kernels, compares their SASS with this
@@ -165,6 +182,10 @@ CHAT_QUESTIONS = ["Is there any defect in this image?", "Where is it?",
                   "How severe is it, and what caused it?"]
 CHAT_TOKENS = 32
 PROBE_GIB = 4  # B7's operand, GiB: well past the 50 MB L2
+# the Q-Former's query stream at a batch-1 chat upload: 32 queries and 49
+# VEInstructor tokens, the rows of B1 at its three projection shapes
+QFORMER_ROWS = 81
+QFORMER_SHAPES = ((768, 768), (768, 3072), (3072, 768))
 # published H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_S = 989e12
@@ -282,20 +303,22 @@ def cluster_launch_report(lib_path) -> None:
                 if kernel in entry:
                     print(f"  {name} {entry.split(chr(39))[1]}: "
                           f"{line.split('ptxas info    : ')[-1].strip()}")
-    for m in (1, BATCH, VERIFY_ROWS, CHAT_DELTA_ROWS, 240):
-        for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
-            plan = quant.int8_launch(m, k, n)
-            print(f"  B1 launch at M={m} {k}x{n}: grid ({plan['splits']}, {plan['tiles']}) = "
-                  f"{plan['splits'] * plan['tiles']} blocks of 256 threads, cluster "
-                  f"({plan['splits']}, 1, 1); dynamic shared memory {plan['smem']} B a block, "
-                  f"{plan['blocks_per_sm']} blocks an SM; the card holds {plan['clusters']} "
-                  f"such clusters at once", flush=True)
-            check(plan["splits"] == 1 or plan["clusters"] > 0,
-                  f"the card holds no cluster of B1 at M={m}, {k}x{n}")
-            check(m > 32 or plan["blocks_per_sm"] == 3,
-                  f"B1 at M={m}, {k}x{n}: {plan['blocks_per_sm']} blocks an SM, not 3")
+    llm = ((4096, 4096), (4096, 11008), (11008, 4096))
+    b1_plans = ([(m, k, n) for m in (1, BATCH, VERIFY_ROWS, CHAT_DELTA_ROWS, 240)
+                 for k, n in llm] + [(QFORMER_ROWS, k, n) for k, n in QFORMER_SHAPES])
+    for m, k, n in b1_plans:
+        plan = quant.int8_launch(m, k, n)
+        print(f"  B1 launch at M={m} {k}x{n}: grid ({plan['splits']}, {plan['tiles']}) = "
+              f"{plan['splits'] * plan['tiles']} blocks of 256 threads, cluster "
+              f"({plan['splits']}, 1, 1); dynamic shared memory {plan['smem']} B a block, "
+              f"{plan['blocks_per_sm']} blocks an SM; the card holds {plan['clusters']} "
+              f"such clusters at once", flush=True)
+        check(plan["splits"] == 1 or plan["clusters"] > 0,
+              f"the card holds no cluster of B1 at M={m}, {k}x{n}")
+        check(m > 32 or plan["blocks_per_sm"] == 3,
+              f"B1 at M={m}, {k}x{n}: {plan['blocks_per_sm']} blocks an SM, not 3")
     for m in (1, BATCH, VERIFY_ROWS, 240):
-        for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        for k, n in llm:
             plan = quant.int4_launch(m, k, n, quant.INT4_GROUP)
             print(f"  B5 launch at M={m} {k}x{n} group {quant.INT4_GROUP}: grid "
                   f"({plan['splits']}, {plan['tiles']}) = {plan['splits'] * plan['tiles']} blocks "
@@ -530,8 +553,9 @@ def kernel_checks(dev, seed, only=None):
 def b1_checks(dev, g, b1, inputs):
     """Phase 2's B1 at the int8 projections: q, k, v and o are 4096->4096,
     gate and up 4096->11008, down 11008->4096; a chat turn's delta prefill
-    is 132 rows.  A bf16 output differs by at most one rounding of its
-    largest value."""
+    is 132 rows; the int8 Q-Former's 81-row stream at a chat upload takes
+    768->768, 768->3072 and 3072->768.  A bf16 output differs by at most
+    one rounding of its largest value."""
     import torch
 
     from myriad_tpu_torch.ops import quant
@@ -540,22 +564,25 @@ def b1_checks(dev, g, b1, inputs):
     print("B1: tolerance 2^-7 * max|plain| (one bf16 ulp at the largest output); runs twice "
           "and must give the same bits; library: torch.matmul on the weight dequantized to "
           "bf16 beforehand (it reads twice the weight bytes)")
-    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+    shapes = ([(k, n, (1, BATCH, VERIFY_ROWS, 48) + ((CHAT_DELTA_ROWS,) if k == n else ()))
+               for k, n in ((4096, 4096), (4096, 11008), (11008, 4096))]
+              + [(k, n, (QFORMER_ROWS,)) for k, n in QFORMER_SHAPES])
+    tags = {VERIFY_ROWS: " (verify rows)", CHAT_DELTA_ROWS: " (chat delta)",
+            QFORMER_ROWS: " (Q-Former chat upload)"}
+    for k, n, rows in shapes:
         w8, scale = quant.quantize_per_channel(_randn(g, dev, k, n) * 0.02)
         w_bf16 = (w8.float() * scale).to(bf16)
-        rows = (1, BATCH, VERIFY_ROWS, 48) + ((CHAT_DELTA_ROWS,) if k == n else ())
         for m in rows:
             x = _randn(g, dev, m, k, dtype=bf16)
             is_main = m == BATCH and (k, n) == (4096, 11008)
             work = (m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n)
-            tag = {VERIFY_ROWS: " (verify rows)", CHAT_DELTA_ROWS: " (chat delta)"}.get(m, "")
-            on_path = m in (BATCH, VERIFY_ROWS, CHAT_DELTA_ROWS) and not is_main
+            on_path = m in (BATCH, *tags) and not is_main
             b1.compare(f"M={m} {k}x{n}", lambda: quant.int8_weight_only_matmul(x, w8, scale),
                        lambda: quant.int8_weight_only_matmul_plain(x, w8, scale),
                        lambda ref: 2.0 ** -7 * ref.float().abs().max().item(),
                        library=lambda: torch.matmul(x, w_bf16),
                        main=work if is_main else None,
-                       shape=(f"M={m}{tag} {k}x{n}", work) if on_path else None,
+                       shape=(f"M={m}{tags.get(m, '')} {k}x{n}", work) if on_path else None,
                        deterministic=True)
         del w_bf16
 
@@ -1312,19 +1339,20 @@ KERNEL_OF = {"int8_matmul_tc_kernel": "B1", "decode_attention_cluster_kernel": "
 def profile_generate(model, samples, card, wall_unprofiled, label):
     """One ``model.generate`` under torch.profiler: device time by kernel,
     and the device's busy share of an unprofiled run's wall time.  Only
-    device activity is traced: nothing here reads the host's op events."""
+    device activity is traced, and only the raw events are read."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = timed(lambda: model.generate(samples, max_new_tokens=NEW_TOKENS))
     t0 = time.perf_counter()
-    rows = []
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us, e.count, e.key))
+    # the raw device events, summed by name: key_averages() would first build a
+    # Python event tree of every launch (~115,000 a generate), 30-40 s a read
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA") and not e.is_user_annotation():
+            us, n = sums.get(e.name(), (0.0, 0))
+            sums[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    rows = [(us, n, key) for key, (us, n) in sums.items() if us > 0]
     total = sum(r[0] for r in rows)
     check(total > 0, "the profiler recorded no device time")
     print(f"profile of one {label} ({BATCH} images, {NEW_TOKENS} new tokens): device time "
@@ -1342,13 +1370,13 @@ def profile_generate(model, samples, card, wall_unprofiled, label):
         print(f"  {us / 1e3:9.1f} ms {us / total:6.3f} {count:7d} calls  {key[:90]}")
 
 
-def _samples(seed, size):
+def _samples(seed, size, batch=BATCH, scenes=SCENES):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    return {"image": rng.integers(0, 256, size=(BATCH, size, size, 3), dtype=np.uint8),
-            "scene": [SCENES[i % len(SCENES)] for i in range(BATCH)],
-            "question2": [AQA_QUESTION] * BATCH}
+    return {"image": rng.integers(0, 256, size=(batch, size, size, 3), dtype=np.uint8),
+            "scene": [scenes[i % len(scenes)] for i in range(batch)],
+            "question2": [AQA_QUESTION] * batch}
 
 
 def int4_slice(dev, seed, checks, card):
@@ -2153,6 +2181,250 @@ def expert_slice(dev, seed, checks, card, model, eval_argv, eval_out):
           "generate's; no expert: zero maps", flush=True)
 
 
+# phase 12: the TPU harness's serving profile (the --options of BENCH_r05.json's
+# harness command): every tower and the LLM in int8, an int8 KV cache, 9
+# prefill chunks, staged decode, batch 48
+HARNESS_OPTIONS = ["model.vit_weight_dtype=int8", "model.ve_weight_dtype=int8",
+                   "model.qformer_weight_dtype=int8", "model.llm_weight_dtype=int8",
+                   "model.llm_kv_dtype=int8", "model.llm_prefill_chunks=9",
+                   "model.llm_staged_decode=True", "model.llm_cache_granularity=32"]
+HARNESS_BATCH = 48
+SAMPLE_TOP_P = 0.9  # the JAX demo chat's default
+
+
+def write_tower_npz(root, seed, dev, arch):
+    """The Q-Former tower (with query_tokens and ln_vision), llama_proj and
+    the vision expert's decoder as npz files in the JAX ``save_params``
+    layout, fp32, drawn from ``seed`` by float modules named as the model's
+    own.  Returns ({tower: path}, {tower: the tree written})."""
+    import torch
+    from torch import nn
+
+    from myriad_tpu_torch.checkpoint import save_params
+    from myriad_tpu_torch.convert_from_jax import tree_from_module
+    from myriad_tpu_torch.models.imagebind import LinearLayerDecoder
+    from myriad_tpu_torch.models.layers import (Dense, LayerNorm, LayerNormFp32, Policy,
+                                                init_random_, new_param)
+    from myriad_tpu_torch.models.qformer import QFormer
+
+    kw = dict(policy=Policy.fp32(), device=dev)
+    towers = nn.Module()  # attribute names as MyriadModule's: the JAX paths follow
+    towers.ln_vision = LayerNormFp32(arch.vit_dim, eps=1e-5, **kw)
+    towers.qformer = QFormer(hidden_size=arch.qformer_hidden, encoder_dim=arch.vit_dim,
+                             num_layers=arch.qformer_layers, num_heads=arch.qformer_heads,
+                             intermediate_size=arch.qformer_intermediate, **kw)
+    towers.query_tokens = new_param((1, arch.num_query_token, arch.qformer_hidden),
+                                    torch.float32, dev)
+    towers.llama_proj = Dense(arch.qformer_hidden, arch.llama.hidden_size, **kw)
+    ib = arch.imagebind
+    decoder = LinearLayerDecoder(ib.vision_embed_dim, num_taps=len(ib.out_layers),
+                                 out_dim=ib.out_embed_dim, **kw)
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    init_random_(towers, gen)
+    init_random_(decoder, gen)
+    with torch.no_grad():  # norms other than ones and zeros, so a misplaced scale shows
+        for mod in towers.modules():
+            if isinstance(mod, LayerNorm):
+                mod.weight.normal_(1.0, 0.1, generator=gen)
+                mod.bias.normal_(0.0, 0.1, generator=gen)
+    t = tree_from_module(towers)
+    trees = {"qformer": {"qformer": t["qformer"], "query_tokens": t["query_tokens"],
+                         "ln_vision": t["ln_vision"]},
+             "llama_proj": {"llama_proj": t["llama_proj"]},
+             "decoder": tree_from_module(decoder)}
+    paths = {key: save_params(os.path.join(root, f"{key}.npz"), tree)
+             for key, tree in trees.items()}
+    del towers, decoder
+    return paths, trees
+
+
+def harness_slice(dev, seed, checks, card, eval_out):
+    """Phase 12: the TPU harness's profile at full width, the Q-Former,
+    llama_proj and the decoder loaded through ``weights:`` (quantized on
+    load), the rest random from --seed."""
+    import numpy as np
+    import torch
+
+    from myriad_tpu_torch import evaluate
+    from myriad_tpu_torch.common.config import Config
+    from myriad_tpu_torch.conversation import CONV_VISION, Chat
+    from myriad_tpu_torch.convert_from_jax import state_dict_from_jax
+    from myriad_tpu_torch.datasets.loaders import DataLoader
+    from myriad_tpu_torch.generation import GenerationConfig, _select_token
+    from myriad_tpu_torch.models.myriad import MyriadArch
+    from myriad_tpu_torch.ops import quant
+    from myriad_tpu_torch.ops.preprocess import u8_normalize
+
+    root = os.path.join(REPO, "build", "aqa_eval")
+    argv = ["--cfg-path", os.path.join(REPO, "eval_configs", "myriad.yaml"),
+            "--bs", str(BATCH), "--greedy", "--bench", "--max_new_tokens", str(NEW_TOKENS),
+            "--save_path", os.path.join(root, "rows_harness.jsonl"),
+            "--options", *HARNESS_OPTIONS, f"model.seed={seed}",
+            f"datasets.anomaly_detection.build_info.storage={root}"]
+    preset = Config(evaluate.parse_args(argv)).model_cfg.get("arch_preset", "full")
+    arch = MyriadArch.tiny() if preset == "tiny" else MyriadArch.full()
+    t0 = time.time()
+    paths, trees = write_tower_npz(os.path.join(REPO, "build", "harness_weights"), seed, dev,
+                                   arch)
+    sizes = {k: os.path.getsize(p) / 2**20 for k, p in paths.items()}
+    print(f"wrote the Q-Former, llama_proj and decoder towers as fp32 npz ("
+          + ", ".join(f"{k} {v:.1f} MiB" for k, v in sizes.items())
+          + f") in {time.time() - t0:.1f} s", flush=True)
+
+    # (a) the model through evaluate.build_model with the harness's options
+    argv += [f"model.weights.{k}={p}" for k, p in paths.items()]
+    args = evaluate.parse_args(argv)
+    cfg = Config(args)
+    t0 = time.time()
+    model = evaluate.build_model(args, cfg)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    a = model.arch
+    check((a.vit_weight_dtype, a.qformer_weight_dtype, a.imagebind.weight_dtype,
+           a.llama.weight_dtype, a.llama.kv_cache_dtype) == ("int8",) * 5
+          and model.prefill_chunks == 9 and model.staged_decode
+          and model.cache_granularity == 32, "the harness's options did not reach the model")
+    report = model.weights_report
+    check(report is not None and report["missing"] == []
+          and all(report["loaded"].get(k) for k in paths)
+          and not any(report["skipped"].get(k) for k in paths),
+          f"weights: towers not fully loaded: missing {report and report['missing'][:5]}")
+    want = state_dict_from_jax(quant.quantize_tree(trees["qformer"],
+                                                   quant.QFORMER_QUANT_PATTERN))
+    live = model.module.state_dict()
+    n_int8 = 0
+    for name, t in want.items():
+        check(torch.equal(live[name].cpu(), t.to(live[name].dtype)),
+              f"loaded {name} is not the quantized npz leaf")
+        n_int8 += name.endswith("w_int8")
+    check(n_int8 == 6 * a.qformer_layers + 4 * len(range(0, a.qformer_layers, 2)),
+          f"{n_int8} int8 Q-Former projections")
+    print(f"evaluate.build_model with the harness's options: towers int8 (EVA, Q-Former, "
+          f"ImageBind), int8 LLM and KV, 9 prefill chunks, staged decode; built in "
+          f"{t_build:.1f} s with weights: loaded "
+          + ", ".join(f"{k} {len(v)} leaves" for k, v in report["loaded"].items())
+          + f", missing {len(report['missing'])}; the {n_int8} int8 Q-Former payloads and every "
+          f"other leaf equal the npz quantized on the host; card: {card}", flush=True)
+
+    # (b) the eval over phase 8's tree at phase 8's batch
+    torch.cuda.reset_peak_memory_stats(dev)
+    needs = ["B1 int8_matmul", "B2 decode_attention", "B3 prefill_attention", "B4 kv_write"]
+    quant.int_mm_counter.count = 0
+    out, wall, launches = drive(checks, "harness_eval", lambda: evaluate.run(args, cfg, model),
+                                needs)
+    int_mm = quant.int_mm_counter.count
+    peak = evaluate.device_mem_mb(dev)
+    rows, bench = out["rows"], out["bench"]
+    keys = ["image_id", "image_path", "is_anomaly", "output", "error", "anomaly_score"]
+    check(len(rows) == len(eval_out["rows"]), f"{len(rows)} rows")
+    for i, row in enumerate(rows):
+        check(list(row) == keys and row["image_id"] == i and row["error"] in ("0", "1")
+              and 0.0 <= float(row["anomaly_score"]) <= 1.0, f"row {i}: {row}")
+    check(bench is not None, "no --bench line")
+    dataset = evaluate.build_dataset(args, cfg.datasets_cfg, root)
+    same = 0
+    for batch, tokens in zip(DataLoader(dataset, batch_size=BATCH), out["token_ids"]):
+        direct = model.generate(batch, max_new_tokens=NEW_TOKENS, do_sample=False)
+        direct = direct["token_ids"].cpu().numpy()
+        check_tokens(torch.as_tensor(direct), BATCH, NEW_TOKENS, a.llama.vocab_size)
+        check(np.array_equal(direct, tokens), "the harness eval's tokens differ from a direct "
+              "generate")
+        same += len(tokens)
+    check(same == len(rows), f"compared {same} of {len(rows)} rows")
+    print(f"evaluate.run, harness profile: {len(rows)} rows in {wall:.3f} s; launches "
+          f"{launches}; torch._int_mm calls {int_mm}; peak device memory {peak:.1f} MiB; tokens "
+          f"of all {same} rows identical to a direct Myriad.generate; card: {card}", flush=True)
+    print(f"aqa eval harness profile --bench: {json.dumps(bench)}", flush=True)
+    print(f"eval images/s at batch {BATCH}: harness profile (int8 towers, 9 prefill chunks) "
+          f"{bench['value']:.4f} against phase 8's bf16 towers {eval_out['bench']['value']:.4f} "
+          f"(each its own --bench rule); card: {card}", flush=True)
+
+    # (c) one generate at the harness's batch of 48
+    scenes = [cls for cls, _, _ in EVAL_CLASSES]  # the classes the eval gave the expert
+    samples48 = _samples(seed + 48, a.img_size, HARNESS_BATCH, scenes)
+    model.generate(samples48, max_new_tokens=NEW_TOKENS)  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, wall48, launches48 = drive(checks, "harness_b48", lambda: model.generate(
+        samples48, max_new_tokens=NEW_TOKENS), needs)
+    walls = [wall48] + [timed(lambda: model.generate(samples48, max_new_tokens=NEW_TOKENS))[1]
+                        for _ in range(2)]
+    peak48 = torch.cuda.max_memory_allocated(dev)
+    check_tokens(res["token_ids"], HARNESS_BATCH, NEW_TOKENS, a.llama.vocab_size)
+    print(f"harness profile, batch {HARNESS_BATCH}: {HARNESS_BATCH / statistics.median(walls):.4f} "
+          f"images/s, median of 3 after a warm-up (wall s {', '.join(f'{w:.3f}' for w in walls)}, "
+          f"host clock after synchronize; {NEW_TOKENS} new tokens); launches {launches48}; peak "
+          f"device memory {peak48 / 2**30:.2f} GiB; card: {card}", flush=True)
+    del res, samples48
+
+    # (d) a batch-1 chat: the upload's B1 launches (Q-Former) and torch._int_mm calls
+    rng = np.random.default_rng(seed + 12)
+    image = rng.integers(0, 256, size=(a.img_size, a.img_size, 3), dtype=np.uint8)
+    Chat(model, incremental=True, spec_k=0).upload_img(image, CONV_VISION.copy(), [])  # warm-up
+    chat, conv, img_list = Chat(model, incremental=True, spec_k=0), CONV_VISION.copy(), []
+    quant.int_mm_counter.count = 0
+    _, wall_up, up = drive(checks, "harness_chat_upload",
+                           lambda: chat.upload_img(image, conv, img_list), ["B1 int8_matmul"])
+    up_mm = quant.int_mm_counter.count
+    n_cross = len(range(0, a.qformer_layers, 2))
+    want_b1 = 6 * a.qformer_layers + 2 * n_cross  # q,k,v,o + 2 FFN a layer; q, o a cross
+    want_mm = 4 * a.vit_depth + 4 * a.imagebind.vision_num_blocks + 2 * n_cross
+    check(up["B1 int8_matmul"] == want_b1 and up_mm == want_mm
+          and sum(v for k, v in up.items() if k != "B1 int8_matmul") == 0,
+          f"chat upload: B1 {up['B1 int8_matmul']} (want {want_b1}), torch._int_mm {up_mm} "
+          f"(want {want_mm}), others {up}")
+    print(f"chat upload at batch 1 ({wall_up:.4f} s): B1 launched {want_b1} times (the "
+          f"Q-Former's {QFORMER_ROWS}-row query stream: {4 * a.qformer_layers + 2 * n_cross} at "
+          f"768x768, {a.qformer_layers} at 768x3072, {a.qformer_layers} at 3072x768) and "
+          f"torch._int_mm {want_mm} times (EVA {4 * a.vit_depth}, ImageBind "
+          f"{4 * a.imagebind.vision_num_blocks}, cross-attention K/V {2 * n_cross}, 257 rows "
+          f"each), as the architecture gives them; card: {card}", flush=True)
+    with torch.inference_mode():
+        ve = model.vision_expert
+        x = u8_normalize(torch.as_tensor(image, device=dev), out_dtype=torch.float32)[None]
+        maps = ve(x, ["object"])[0]
+        run = lambda inp: model.module.encode_img(inp, maps, 1).float()
+        sensitivity_gate("chat upload encode_img (B1 in the Q-Former, W8A8 elsewhere)",
+                         run(x), run, x, seed)
+    chat.ask(CHAT_QUESTIONS[0], conv)
+    (text, tokens), wall_turn, turn = drive(
+        checks, "harness_chat_turn", lambda: chat.answer(conv, img_list,
+                                                         max_new_tokens=CHAT_TOKENS), needs)
+    check_tokens(torch.as_tensor(tokens), 1, CHAT_TOKENS, a.llama.vocab_size)
+    print(f"chat turn 1: {wall_turn:.4f} s, launches {turn}; card: {card}", flush=True)
+
+    # (e) top-p sampling: reproducible from its seed
+    samples = _samples(seed, a.img_size, BATCH, scenes)
+    kw = dict(max_new_tokens=NEW_TOKENS, do_sample=True, top_p=SAMPLE_TOP_P, temperature=1.0,
+              seed=seed + 5)
+    (s1, wall_s, _) = drive(checks, "harness_sampled_generate",
+                            lambda: model.generate(samples, **kw), needs)
+    s2 = model.generate(samples, **kw)
+    check_tokens(s1["token_ids"], BATCH, NEW_TOKENS, a.llama.vocab_size)
+    check(torch.equal(s1["token_ids"], s2["token_ids"]), "sampled generate: the same seed gave "
+          "other tokens")
+    greedy = model.generate(samples, max_new_tokens=NEW_TOKENS)["token_ids"]
+    apart = (s1["token_ids"] != greedy).float().mean().item()
+    turns = []
+    for _ in range(2):
+        c, cv, il = Chat(model, incremental=True, spec_k=0), CONV_VISION.copy(), []
+        c.upload_img(image, cv, il)
+        c.ask(CHAT_QUESTIONS[0], cv)
+        turns.append(c.answer(cv, il, max_new_tokens=CHAT_TOKENS, do_sample=True,
+                              top_p=SAMPLE_TOP_P, temperature=1.0)[1])
+    check(np.array_equal(turns[0], turns[1]), "sampled chat turn: a second run gave other "
+          "tokens")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn(BATCH, a.llama.vocab_size, generator=g, device=dev) * 3.0
+    one = _select_token(logits, GenerationConfig(do_sample=True, top_p=1e-9, temperature=1.0),
+                        torch.Generator(device=dev).manual_seed(seed))
+    check(torch.equal(one, logits.argmax(-1)), "a one-token nucleus did not give the argmax")
+    print(f"top-p {SAMPLE_TOP_P}, T = 1: sampled generate ({wall_s:.3f} s, batch {BATCH}) and "
+          f"a sampled chat turn (seeded with 0) each twice: tokens identical; {apart:.3f} of the "
+          f"sampled tokens differ from greedy's; a one-token nucleus gives the argmax; card: "
+          f"{card}", flush=True)
+    del model
+
+
 # phase 10: stage-2 LoRA fine-tuning over a synthetic MVTec train tree
 TRAIN_CLASSES = (("bottle", 900, 3), ("screw", 1024, 1))  # MVTec's sizes; screw is gray
 TRAIN_PER_CLASS = 8
@@ -2496,6 +2768,9 @@ def main(argv=None) -> int:
     say(t_start, "phase 11: one-shot maps, the expert mux and no expert on phase 8's model")
     expert_slice(dev, args.seed, checks, card, model8, eval_argv, eval_out)
     del model8
+    torch.cuda.empty_cache()
+    say(t_start, "phase 12: the TPU harness's profile (int8 towers, weights:) at full width")
+    harness_slice(dev, args.seed, checks, card, eval_out)
     torch.cuda.empty_cache()
     say(t_start, "phase 10: stage-2 LoRA fine-tuning at full width")
     train_slice(dev, args.seed, checks, card)

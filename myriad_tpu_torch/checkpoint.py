@@ -12,9 +12,13 @@ saved state into live parameters by name with the JAX ``merge_trees`` rule
 (strict=False: unknown names and shape mismatches skipped, missing ones
 kept, values cast to the parameter's dtype).  ``load_params`` reads a
 parameter tree that the JAX package's ``save_params`` wrote (``.npz``, flat
-``/``-joined keys), and ``merge_params`` merges such a tree into a module by
-the same rule, through the weights bridge (``convert_from_jax``); other
-formats (Orbax directories, ``.pth`` files) raise.
+``/``-joined keys) or a torch ``.pth`` state dict (a flat dict, unwrapped
+from a ``model`` entry, as the JAX ``load_params`` reads the reference's
+checkpoints); an Orbax directory raises.  ``save_params`` writes the npz
+layout.  ``merge_with_paths`` merges such a tree into a module's tensors
+by the same rule, through the weights bridge (``convert_from_jax``), and
+accounts by the tree's paths, as the JAX one does.  ``unwrap_ring`` takes
+the trainables out of a runner's ring checkpoint.
 """
 
 from __future__ import annotations
@@ -62,14 +66,69 @@ def unflatten_dict(flat: Mapping[str, Any]) -> Dict:
     return out
 
 
+def save_params(path: str, tree: Mapping) -> str:
+    """Write a parameter tree as ``.npz`` with flat '/'-joined keys, the JAX
+    package's ``save_params`` layout; returns the path written."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def rec(node: Mapping, prefix: str) -> None:
+        for k, v in node.items():
+            key = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                rec(v, key)
+            else:
+                flat[key] = np.asarray(v)
+
+    rec(tree, "")
+    path = path if path.endswith(".npz") else path + ".npz"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+    return path
+
+
 def load_params(path: str) -> Dict:
-    """A parameter tree (nested dict of numpy arrays) from an ``.npz`` file in
-    the JAX package's ``save_params`` layout."""
-    if not path.endswith(".npz"):
-        raise NotImplementedError(f"{path}: only .npz parameter trees (the JAX package's "
-                                  "save_params layout) are read; Orbax and .pth are not ported")
-    with np.load(path, allow_pickle=False) as f:
-        return unflatten_dict({k: f[k] for k in f.files})
+    """A parameter tree from an ``.npz`` file in the JAX package's
+    ``save_params`` layout (nested dicts of numpy arrays), or the flat dict of
+    a torch ``.pth``/``.pt``/``.bin`` file (its ``model`` entry when it has
+    one), each tensor as fp32 numpy, read with ``weights_only=True``."""
+    if os.path.isdir(path):
+        raise NotImplementedError(f"{path}: Orbax checkpoint directories are not ported")
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as f:
+            return unflatten_dict({k: f[k] for k in f.files})
+    if path.endswith((".pth", ".pt", ".bin")):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(ckpt, dict) and "model" in ckpt:
+            ckpt = ckpt["model"]
+        return {k: np.asarray(v.float().numpy() if hasattr(v, "float") else v)
+                for k, v in ckpt.items()}
+    raise ValueError(f"Unsupported checkpoint format: {path}")
+
+
+def unwrap_ring(tree: Mapping) -> Mapping:
+    """The trainables of a runner's ring checkpoint (``model`` beside
+    ``optimizer`` or ``epoch``), else ``tree`` itself."""
+    if isinstance(tree, Mapping) and "model" in tree and ("optimizer" in tree
+                                                           or "epoch" in tree):
+        return tree["model"]
+    return tree
+
+
+@torch.no_grad()
+def merge_with_paths(params: Mapping[str, torch.Tensor], tree: Mapping,
+                     prefix: str = "") -> Tuple[List[str], List[str]]:
+    """The JAX package's ``merge_with_paths`` over live tensors: merge a
+    JAX-layout tree into ``params`` (state-dict name -> tensor, copied in
+    place) by ``merge_into``'s rule; returns (loaded, skipped) as the tree's
+    '/'-joined paths, each under ``prefix`` when given."""
+    from myriad_tpu_torch.convert_from_jax import jax_leaves
+
+    incoming, path_of = {}, {}
+    for path, name, value in jax_leaves(tree):
+        incoming[name] = value
+        path_of[name] = f"{prefix}/{path}" if prefix else path
+    loaded, skipped = merge_into(params, incoming)
+    return [path_of[n] for n in loaded], [path_of[n] for n in skipped]
 
 
 def merge_params(module: nn.Module, tree: Mapping) -> Tuple[List[str], List[str]]:
@@ -77,10 +136,8 @@ def merge_params(module: nn.Module, tree: Mapping) -> Tuple[List[str], List[str]
     leaf that names a parameter of the same shape is cast to its dtype and
     copied in; unknown leaves and shape mismatches are skipped with a
     warning; parameters the tree lacks keep their values.  Returns (loaded,
-    skipped) state-dict names."""
-    from myriad_tpu_torch.convert_from_jax import state_dict_from_jax
-
-    loaded, skipped = merge_into(module.state_dict(), state_dict_from_jax(tree))
+    skipped) paths."""
+    loaded, skipped = merge_with_paths(module.state_dict(), tree)
     if skipped:
         logging.warning("merge_params: %d leaves skipped (unknown or mismatched), e.g. %s",
                         len(skipped), skipped[:3])

@@ -3,7 +3,9 @@
 
 ``Conversation`` is the ###-separated Human/Assistant prompt state machine;
 ``Chat`` wires it to a ``Myriad``: upload an image, ask, answer by greedy
-decode (or speculative decode, ``spec_k``).  Chat runs on its model's device.
+decode (or speculative decode, ``spec_k``), or by top-p sampling
+(``do_sample``) from a ``torch.Generator`` seeded with 0 each turn, as the
+JAX package's turns take ``PRNGKey(0)``.  Chat runs on its model's device.
 
 With ``incremental=True`` the conversation's KV cache stays resident on the
 device between turns: each ``answer`` prefills only the prompt units that are
@@ -123,7 +125,10 @@ class Chat:
             ve._text_feats = None
         samples = {"image": arr, "scene": ["object"],
                    "question": ["<Img><ImageHere></Img>placeholder"], "img_path": ["<chat>"]}
-        img, _, _, maps, _ = model.prepare_sample(samples, stage=1, training=False)
+        # prepare_sample's maps, without its one-shot maps: a reference bank
+        # that an eval built holds no 'object' class
+        img, _, scenes, paths = model._image_question(samples, 1, False)
+        maps = model._expert_maps(img, scenes, paths, one_shot=False)
         img_list.append(model.module.encode_img(img, maps, 1))
         conv.append_message(conv.roles[0], "<Img><ImageHere></Img>")
         return "Received."
@@ -214,24 +219,25 @@ class Chat:
                                do_sample=kwargs.get("do_sample", False),
                                top_p=kwargs.get("top_p", 0.9),
                                temperature=kwargs.get("temperature", 1.0))
-        if cfg.do_sample and not (self.incremental and self._spec_k(cfg)):
-            # only speculation turns a sampled turn greedy (_spec_k)
-            raise NotImplementedError("top-p sampling is not ported; greedy only")
+        generator = None
+        if cfg.do_sample:
+            generator = torch.Generator(device=self.model.device)
+            generator.manual_seed(0)
         if self.incremental:
             units, _ = self._context_units(conv, img_list)
-            tokens = self._incremental_generate(cfg, units, img_list)
+            tokens = self._incremental_generate(cfg, units, img_list, generator)
         else:
             tokens = greedy_generate(self.model.module.llama,
                                      self.get_context_emb(conv, img_list), config=cfg,
-                                     cache_dtype=self._cache_dtype())
+                                     cache_dtype=self._cache_dtype(), generator=generator)
         tokens = tokens.cpu().numpy()
         text = self.model.llama_tokenizer.batch_decode(tokens)[0]
         text = text.split("###")[0].split("Assistant:")[-1].strip()
         conv.messages[-1][1] = text
         return text, tokens
 
-    def _incremental_generate(self, cfg: GenerationConfig, units: List,
-                              img_list: List) -> torch.Tensor:
+    def _incremental_generate(self, cfg: GenerationConfig, units: List, img_list: List,
+                              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Prefill only the units past the cached prefix, decode from the
         resident cache, and keep the post-prefill cache for the next turn."""
         llama = self.model.module.llama
@@ -269,7 +275,8 @@ class Chat:
                 spec_k=spec_k, lookup_ids=lookup,
                 cache=self._cache, return_cache=True)
         else:
-            tokens, self._cache = continue_generate(llama, delta, self._cache, config=cfg)
+            tokens, self._cache = continue_generate(llama, delta, self._cache, config=cfg,
+                                                    generator=generator)
         self._frontier = total
         self._units = list(units)
         return tokens

@@ -20,35 +20,46 @@ The port's modules mirror the JAX package's module names, so the bridge only:
 An int4 layer's ``w_int4`` (in/2, out) and ``scale4`` (in/group, out) pass
 through as they are: neither is a ``kernel`` nor a ``scale``, and kernel B5
 reads the JAX package's layout.
+
+``jax_leaves`` gives each leaf's '/'-joined path in the JAX tree beside its
+state-dict name (the weights loaders account by those paths, as the JAX
+package does); ``jax_path_of`` goes the other way for a module's state-dict
+name, and ``tree_from_module`` writes a module's parameters back into the
+JAX layout (numpy, fp32 for any float), the tree that ``save_params`` stores.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _LIST_ENTRY = re.compile(r"^(blocks|layers|layer|conv|fc)_(\d+)$")
 
 
 def _to_tensor(x) -> torch.Tensor:
     a = np.asarray(x)
+    # np.ascontiguousarray makes a 0-d array 1-d: reshape keeps a scalar a scalar
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
         return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a).copy())
+            torch.bfloat16).reshape(a.shape)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).reshape(a.shape)
 
 
-def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    out: Dict[str, torch.Tensor] = {}
+def jax_leaves(tree: Mapping) -> List[Tuple[str, str, torch.Tensor]]:
+    """(JAX path 'a/b/c', state-dict name, tensor in the port's layout) for
+    every leaf of ``tree``, in the tree's order."""
+    out: List[Tuple[str, str, torch.Tensor]] = []
 
-    def rec(node: Mapping, prefix: str) -> None:
+    def rec(node: Mapping, path: str, prefix: str) -> None:
         for name, leaf in node.items():
+            p = f"{path}/{name}" if path else str(name)
             if isinstance(leaf, Mapping):
                 m = _LIST_ENTRY.match(name)
-                rec(leaf, prefix + (f"{m.group(1)}.{m.group(2)}" if m else name) + ".")
+                rec(leaf, p, prefix + (f"{m.group(1)}.{m.group(2)}" if m else name) + ".")
                 continue
             t = _to_tensor(leaf)
             if name == "kernel" and t.dim() == 2:
@@ -57,6 +68,55 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 name, t = "weight", t.permute(3, 2, 0, 1).contiguous()
             elif name == "scale" and "w_int8" not in node:
                 name = "weight"
-            out[prefix + name] = t
-    rec(tree, "")
+            out.append((p, prefix + name, t))
+    rec(tree, "", "")
     return out
+
+
+def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    return {name: t for _, name, t in jax_leaves(tree)}
+
+
+_PORT_ENTRY = re.compile(r"^(blocks|layers|layer|conv|fc)$")
+
+
+def jax_path_of(module: nn.Module, name: str) -> str:
+    """The JAX path of ``module``'s state-dict entry ``name``: list entries
+    ``blocks.3`` -> ``blocks_3``, a Dense or convolution ``weight`` ->
+    ``kernel``, a LayerNorm's ``weight`` -> ``scale``."""
+    from myriad_tpu_torch.models.layers import Conv2d, Dense, LayerNorm
+
+    *mods, leaf = name.split(".")
+    if leaf == "weight":
+        owner = module.get_submodule(".".join(mods))
+        if isinstance(owner, (Dense, Conv2d)):
+            leaf = "kernel"
+        elif isinstance(owner, LayerNorm):
+            leaf = "scale"
+    parts: List[str] = []
+    for part in mods:
+        if part.isdigit() and parts and _PORT_ENTRY.match(parts[-1]):
+            parts[-1] = f"{parts[-1]}_{part}"
+        else:
+            parts.append(part)
+    return "/".join(parts + [leaf])
+
+
+def tree_from_module(module: nn.Module) -> Dict:
+    """``module``'s parameters and buffers as a JAX-layout tree of numpy
+    arrays (floats in fp32)."""
+    tree: Dict = {}
+    for name, t in module.state_dict().items():
+        path = jax_path_of(module, name)
+        t = t.detach().cpu()
+        if path.endswith("/kernel") and t.dim() == 2:
+            t = t.t()
+        elif path.endswith("/kernel") and t.dim() == 4:
+            t = t.permute(2, 3, 1, 0)
+        a = (t.float() if t.is_floating_point() else t).contiguous().numpy()
+        node = tree
+        *dirs, leaf = path.split("/")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = a
+    return tree

@@ -7,9 +7,10 @@
 The image is an ``.npy`` HWC uint8 array of the model's image size (the port
 reads no image files: PIL is not a dependency).  ``--options`` are the JAX
 package's config keys that ``Myriad.from_config`` reads (``arch_preset``,
-``llm_weight_dtype``, ``llm_kv_dtype``, ``llm_spec_k``, ...).  No checkpoint
-loading is ported, so the weights are random, drawn from ``--seed``.  It runs
-on the card unless ``--device`` says otherwise.
+``llm_weight_dtype``, ``llm_kv_dtype``, ``llm_spec_k``, ``weights``, ...).
+The weights are random, drawn from ``--seed``, with the converted towers of
+``weights`` (``weights={'qformer': 'q.npz'}``) and an npz or port ``ckpt``
+loaded over them.  It runs on the card unless ``--device`` says otherwise.
 """
 
 from __future__ import annotations

@@ -7,10 +7,13 @@
 Builds the model from ``--cfg-path`` (``common.config.Config``: the YAML, the
 port's copies of the default YAMLs, ``--options``), runs batched greedy
 decode over the MVTec AD test jsonl and writes one row per image:
-{image_id, image_path, is_anomaly, output, error, anomaly_score}.  No weight
-loading is ported (``Myriad.from_config`` refuses ``ckpt`` and ``weights``),
-so the weights are random, drawn from the model section's ``seed`` (0 when
-unset), as the JAX ``from_config`` seeds its initialisation.
+{image_id, image_path, is_anomaly, output, error, anomaly_score}.  The
+weights are drawn from the model section's ``seed`` (0 when unset), as the
+JAX ``from_config`` seeds its initialisation, and the converted towers of
+``weights:`` (npz paths; ``q_former_model`` a local BLIP-2 file) and an npz
+or port ``ckpt:`` load over them; the towers serve in int8 with
+``model.vit_weight_dtype=int8``, ``ve_weight_dtype`` and
+``qformer_weight_dtype`` (the TPU harness's profile).
 
 It runs on the card named by the config's ``run.device`` (``cuda`` when
 unset; without a card that raises), and ``run.device: cpu`` runs it on the
@@ -151,7 +154,8 @@ def setup_vision_expert(model, dataset, data_root: str, round_index: int, k_shot
 
 def build_model(args, cfg: Config):
     """The model of ``cfg``'s model section on ``run.device`` (``cuda`` when
-    unset), with random weights drawn from its ``seed``."""
+    unset), with random weights drawn from its ``seed`` and the configured
+    ``weights`` and ``ckpt`` loaded over them."""
     run = cfg.run_cfg if cfg.config.get("run") else {}
     device = torch.device(run.get("device") or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -1,12 +1,15 @@
-"""Greedy generation: chunked prefill + an eager decode loop (counterpart of
+"""Generation: chunked prefill + an eager decode loop (counterpart of
 ``myriad_tpu/generation.py``).
 
 The multimodal prefix is prefilled into a preallocated KV cache, then the
 decode loop emits tokens until every row has produced a stop sequence or
 ``max_new_tokens`` is reached.  Stop handling follows the reference
 protocol: eos, '###' as the single id 835 or the pair (2277, 29937); rows
-finish independently and finished rows emit ``pad_token_id``.  Only greedy
-selection is ported; top-p sampling waits.
+finish independently and finished rows emit ``pad_token_id``.  Tokens are
+the greedy argmax, or with ``do_sample`` a draw from the JAX package's
+nucleus (``top_p_filter``) by an explicit ``torch.Generator``: the same
+seed gives the same tokens (the JAX package's random stream is another, so
+sampled ids are compared with it only where the nucleus holds one token).
 
 ``continue_generate`` decodes from a cache that already holds a prompt
 prefix (the resident-cache chat), and ``speculative_generate`` verifies
@@ -73,11 +76,41 @@ def _prefill(model: LlamaForCausalLM, inputs_embeds: torch.Tensor, cache,
     return last
 
 
-def _select_token(logits: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
-    """logits (B, V) fp32 -> (B,) int64 greedy ids."""
-    if cfg.do_sample:
-        raise NotImplementedError("top-p sampling is not ported; greedy only")
-    return torch.argmax(logits, dim=-1)
+def top_p_filter(logits: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
+    """logits (B, V) fp32 -> the temperature-scaled logits with every token
+    outside the nucleus at -inf, by the JAX package's rule: sort descending,
+    keep while the cumulative probability before the token is below
+    ``top_p``, then keep every logit at or above the smallest kept one."""
+    logits = logits / max(cfg.temperature, 1e-6)
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < cfg.top_p
+    threshold = torch.where(keep, sorted_logits, torch.inf).amin(dim=-1, keepdim=True)
+    return torch.where(logits >= threshold, logits, -torch.inf)
+
+
+def _select_token(logits: torch.Tensor, cfg: GenerationConfig,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """logits (B, V) fp32 -> (B,) int64 ids: the greedy argmax, or with
+    ``do_sample`` a categorical draw over ``top_p_filter``'s nucleus (the
+    Gumbel-max rule, as ``jax.random.categorical`` draws) from
+    ``generator``, which must be on the logits' device."""
+    if not cfg.do_sample:
+        return torch.argmax(logits, dim=-1)
+    masked = top_p_filter(logits, cfg)
+    u = torch.rand(masked.shape, generator=generator, device=masked.device)
+    tiny = torch.finfo(torch.float32).tiny
+    return torch.argmax(masked - torch.log(-torch.log(u.clamp_min(tiny))), dim=-1)
+
+
+def _sampler(cfg: GenerationConfig, generator: Optional[torch.Generator],
+             device) -> Optional[torch.Generator]:
+    """The decode's generator: the caller's, or one seeded with 0 when a
+    sampled decode is given none (the JAX package's ``PRNGKey(0)``)."""
+    if cfg.do_sample and generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+    return generator
 
 
 def _stopped(prev: torch.Tensor, nxt: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
@@ -102,7 +135,8 @@ def decode_stages(p: int, cfg: GenerationConfig) -> List[Tuple[int, int]]:
 
 
 def _decode_loop(model: LlamaForCausalLM, cfg: GenerationConfig, last: torch.Tensor,
-                 cache, stages: Sequence[Tuple[int, int]]) -> torch.Tensor:
+                 cache, stages: Sequence[Tuple[int, int]],
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     b = last.shape[0]
     tokens = torch.full((b, cfg.max_new_tokens), cfg.pad_token_id, dtype=torch.int64,
                         device=last.device)
@@ -112,7 +146,7 @@ def _decode_loop(model: LlamaForCausalLM, cfg: GenerationConfig, last: torch.Ten
         while step < stage_end and not bool(done.all()):
             tokens[:, step] = torch.where(done, cfg.pad_token_id, last)
             logits = model(model.embed(last[:, None]), cache, kv_limit=kv_limit)
-            nxt = _select_token(logits[:, -1].float(), cfg)
+            nxt = _select_token(logits[:, -1].float(), cfg, generator)
             done = done | _stopped(last, nxt, cfg)
             last = nxt
             step += 1
@@ -122,24 +156,29 @@ def _decode_loop(model: LlamaForCausalLM, cfg: GenerationConfig, last: torch.Ten
 
 @torch.inference_mode()
 def greedy_generate(model: LlamaForCausalLM, inputs_embeds: torch.Tensor, *,
-                    config: Optional[GenerationConfig] = None,
-                    cache_dtype=torch.bfloat16) -> torch.Tensor:
+                    config: Optional[GenerationConfig] = None, cache_dtype=torch.bfloat16,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """inputs_embeds (B, P, D) equal-length rows -> (B, max_new_tokens) token
-    ids with ``pad_token_id`` after each row's stop."""
+    ids with ``pad_token_id`` after each row's stop; a sampled config draws
+    from ``generator`` (on the embeddings' device; seeded with 0 when
+    None)."""
     cfg = config or GenerationConfig()
     b, p, _ = inputs_embeds.shape
+    generator = _sampler(cfg, generator, inputs_embeds.device)
     max_len = _round_up(p + cfg.max_new_tokens, cfg.cache_granularity)
     cache = init_cache(model.config, b, max_len, cache_dtype, inputs_embeds.device)
     logits = _prefill(model, inputs_embeds, cache, cfg.prefill_chunks)
-    last = _select_token(logits[:, -1].float(), cfg)
-    return _decode_loop(model, cfg, last, cache, decode_stages(p, cfg))
+    last = _select_token(logits[:, -1].float(), cfg, generator)
+    return _decode_loop(model, cfg, last, cache, decode_stages(p, cfg), generator)
 
 
 @torch.inference_mode()
 def continue_generate(model: LlamaForCausalLM, new_embeds: torch.Tensor, cache, *,
                       config: Optional[GenerationConfig] = None,
-                      valid_len: Optional[int] = None):
-    """Generate from a cache that already holds earlier-prompt K/V.
+                      valid_len: Optional[int] = None,
+                      generator: Optional[torch.Generator] = None):
+    """Generate from a cache that already holds earlier-prompt K/V (a sampled
+    config draws from ``generator``, as in ``greedy_generate``).
 
     ``new_embeds`` (B, T_new, D) is prefilled at the cache's frontier
     (positions and causality follow the frontier, so this is token-exact
@@ -161,6 +200,7 @@ def continue_generate(model: LlamaForCausalLM, new_embeds: torch.Tensor, cache, 
     cfg = config or GenerationConfig()
     if cache[0]["k"].shape[0] != new_embeds.shape[0]:
         raise ValueError("cache batch mismatch")
+    generator = _sampler(cfg, generator, new_embeds.device)
     if valid_len is not None:
         if _chunk_count(new_embeds.shape[1], cfg.prefill_chunks) != 1:
             raise ValueError("valid_len needs a single-chunk prefill")
@@ -170,8 +210,9 @@ def continue_generate(model: LlamaForCausalLM, new_embeds: torch.Tensor, cache, 
     else:
         logits = _prefill(model, new_embeds, cache, cfg.prefill_chunks)
     frontier = cache[0]["index"]
-    last = _select_token(logits[:, -1].float(), cfg)
-    tokens = _decode_loop(model, cfg, last, cache, [(None, cfg.max_new_tokens - 1)])
+    last = _select_token(logits[:, -1].float(), cfg, generator)
+    tokens = _decode_loop(model, cfg, last, cache, [(None, cfg.max_new_tokens - 1)],
+                          generator)
     set_frontier(cache, frontier)
     return tokens, cache
 

@@ -6,7 +6,9 @@ over time into a 2-D patch conv; pre-LN trunk returning the raw block
 outputs at ``out_layers``; head LN -> cls -> projection -> L2 norm.  Text:
 causal trunk, EOS pooling at the argmax token id, projection, L2 norm times
 the learned logit scale.  ``LinearLayerDecoder`` projects each tap's patch
-tokens with its own Dense.
+tokens with its own Dense.  ``ImageBindConfig.weight_dtype`` "int8" quantizes
+the trunks' projections (``in_proj``, ``out_proj``, ``fc1``, ``fc2``;
+``IMAGEBIND_QUANT_PATTERN``); ``head_proj`` and the decoder stay float.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 from torch import nn
 
 from myriad_tpu_torch.models.layers import (Conv2d, Dense, LayerNorm, Policy, dot_attention,
-                                            gelu_exact, merge_heads, new_param, split_heads)
+                                            gelu_exact, merge_heads, new_param, split_heads,
+                                            tower_dense)
 from myriad_tpu_torch.ops.preprocess import u8_normalize
 
 
@@ -36,6 +39,7 @@ class ImageBindConfig:
     context_length: int = 77
     vocab_size: int = 49408
     out_layers: Tuple[int, ...] = (7, 15, 23, 31)
+    weight_dtype: str = "bf16"  # "int8": the trunks' projections quantized
 
     @staticmethod
     def tiny(**overrides) -> "ImageBindConfig":
@@ -49,11 +53,12 @@ class ImageBindConfig:
 class TorchMha(nn.Module):
     """torch.nn.MultiheadAttention layout: packed in_proj + out_proj."""
 
-    def __init__(self, dim: int, num_heads: int, *, policy: Policy, device):
+    def __init__(self, dim: int, num_heads: int, *, weight_dtype: str = "bf16",
+                 policy: Policy, device):
         super().__init__()
         self.num_heads = num_heads
-        self.in_proj = Dense(dim, 3 * dim, policy=policy, device=device)
-        self.out_proj = Dense(dim, dim, policy=policy, device=device)
+        self.in_proj = tower_dense(weight_dtype, dim, 3 * dim, policy=policy, device=device)
+        self.out_proj = tower_dense(weight_dtype, dim, dim, policy=policy, device=device)
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         q, k, v = self.in_proj(x).split(x.shape[-1], dim=-1)
@@ -62,16 +67,17 @@ class TorchMha(nn.Module):
 
 
 class SimpleBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, *, policy: Policy, device):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, *,
+                 weight_dtype: str = "bf16", policy: Policy, device):
         super().__init__()
         self.dtype = policy.compute_dtype
         kw = dict(policy=policy, device=device)
         self.norm_1 = LayerNorm(dim, 1e-6, **kw)
-        self.attn = TorchMha(dim, num_heads, **kw)
+        self.attn = TorchMha(dim, num_heads, weight_dtype=weight_dtype, **kw)
         self.norm_2 = LayerNorm(dim, 1e-6, **kw)
         hidden = int(dim * mlp_ratio)
-        self.fc1 = Dense(dim, hidden, **kw)
-        self.fc2 = Dense(hidden, dim, **kw)
+        self.fc1 = tower_dense(weight_dtype, dim, hidden, **kw)
+        self.fc2 = tower_dense(weight_dtype, hidden, dim, **kw)
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         x = x + self.attn(self.norm_1(x).to(self.dtype), mask)
@@ -80,14 +86,16 @@ class SimpleBlock(nn.Module):
 
 class SimpleTrunk(nn.Module):
     def __init__(self, dim: int, num_blocks: int, num_heads: int, *, pre_transformer_ln: bool,
-                 out_layers: Sequence[int], policy: Policy, device, mlp_ratio: float = 4.0):
+                 out_layers: Sequence[int], policy: Policy, device, mlp_ratio: float = 4.0,
+                 weight_dtype: str = "bf16"):
         super().__init__()
         self.dtype = policy.compute_dtype
         self.out_layers = tuple(out_layers)
         self.pre_ln = (LayerNorm(dim, 1e-6, policy=policy, device=device)
                        if pre_transformer_ln else None)
         self.blocks = nn.ModuleList(
-            SimpleBlock(dim, num_heads, mlp_ratio, policy=policy, device=device)
+            SimpleBlock(dim, num_heads, mlp_ratio, weight_dtype=weight_dtype, policy=policy,
+                        device=device)
             for _ in range(num_blocks))
 
     def forward(self, x: torch.Tensor, mask=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -116,7 +124,7 @@ class ImageBindVision(nn.Module):
         self.pos_embed = new_param((1, n_tok, dim), policy.param_dtype, device)
         self.trunk = SimpleTrunk(dim, cfg.vision_num_blocks, cfg.vision_num_heads,
                                  pre_transformer_ln=True, out_layers=cfg.out_layers,
-                                 policy=policy, device=device)
+                                 weight_dtype=cfg.weight_dtype, policy=policy, device=device)
         self.head_ln = LayerNorm(dim, 1e-6, policy=policy, device=device)
         self.head_proj = Dense(dim, cfg.out_embed_dim, use_bias=False, policy=policy,
                                device=device, compute_dtype=torch.float32)
@@ -147,8 +155,8 @@ class ImageBindText(nn.Module):
         self.pos_embed = new_param((1, cfg.context_length, cfg.text_embed_dim),
                                    policy.param_dtype, device)
         self.trunk = SimpleTrunk(cfg.text_embed_dim, cfg.text_num_blocks, cfg.text_num_heads,
-                                 pre_transformer_ln=False, out_layers=(), policy=policy,
-                                 device=device)
+                                 pre_transformer_ln=False, out_layers=(),
+                                 weight_dtype=cfg.weight_dtype, policy=policy, device=device)
         self.head_ln = LayerNorm(cfg.text_embed_dim, 1e-6, policy=policy, device=device)
         self.head_proj = Dense(cfg.text_embed_dim, cfg.out_embed_dim, use_bias=False,
                                policy=policy, device=device, compute_dtype=torch.float32)

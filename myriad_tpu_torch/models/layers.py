@@ -6,8 +6,9 @@ Parameters are stored in ``Policy.param_dtype``; products run in
 in fp32.  Modules allocate their parameters uninitialised on an explicit
 device: a state dict (``convert_from_jax``) or ``init_random_`` fills them.
 Dense weights are stored (out, in) as torch's; int8 weights stay (in, out)
-with a per-column scale, the layout kernel B1 reads; int4 weights stay
-packed (in/2, out) with (in/group, out) scales, the layout kernel B5 reads.
+with a per-column scale (and an optional bias), the layout kernel B1 reads;
+int4 weights stay packed (in/2, out) with (in/group, out) scales, the layout
+kernel B5 reads.
 """
 
 from __future__ import annotations
@@ -65,18 +66,22 @@ class Dense(nn.Module):
 
 
 class QuantDense(nn.Module):
-    """Int8 weight-only Dense with no bias: w_int8 (in, out), scale (out,)."""
+    """Int8 weight-only Dense: w_int8 (in, out), scale (out,) and, with
+    ``use_bias``, a bias added after the product in the output dtype."""
 
-    def __init__(self, in_features: int, features: int, *, policy: Policy, device):
+    def __init__(self, in_features: int, features: int, *, use_bias: bool = False,
+                 policy: Policy, device):
         super().__init__()
         self.dtype = policy.compute_dtype
         self.register_buffer("w_int8", torch.empty((in_features, features), dtype=torch.int8,
                                                    device=device))
         self.register_buffer("scale", torch.empty((features,), dtype=torch.float32,
                                                   device=device))
+        self.bias = new_param((features,), policy.param_dtype, device) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return int8_matmul(x.to(self.dtype), self.w_int8, self.scale, out_dtype=self.dtype)
+        y = int8_matmul(x.to(self.dtype), self.w_int8, self.scale, out_dtype=self.dtype)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 class Quant4Dense(nn.Module):
@@ -97,16 +102,26 @@ class Quant4Dense(nn.Module):
 
 
 def maybe_quant_dense(weight_dtype: str, in_features: int, features: int, *,
-                      policy: Policy, device) -> nn.Module:
-    """A bias-free Dense, or its int8 or int4 serving twin, switched by
-    ``weight_dtype``."""
+                      use_bias: bool = False, policy: Policy, device) -> nn.Module:
+    """A Dense, or its int8 or int4 serving twin, switched by ``weight_dtype``
+    (the int4 twin, the LLaMA's, has no bias)."""
     if weight_dtype == "int8":
-        return QuantDense(in_features, features, policy=policy, device=device)
+        return QuantDense(in_features, features, use_bias=use_bias, policy=policy,
+                          device=device)
     if weight_dtype == "int4":
         return Quant4Dense(in_features, features, policy=policy, device=device)
     if weight_dtype != "bf16":
         raise NotImplementedError(f"weight_dtype {weight_dtype!r} is not ported")
-    return Dense(in_features, features, use_bias=False, policy=policy, device=device)
+    return Dense(in_features, features, use_bias=use_bias, policy=policy, device=device)
+
+
+def tower_dense(weight_dtype: str, in_features: int, features: int, *, use_bias: bool = True,
+                policy: Policy, device) -> nn.Module:
+    """A frozen tower's projection: the int8 ``QuantDense`` when
+    ``weight_dtype`` is "int8", the float Dense for any other value (the
+    JAX package's ``maybe_quant_dense``: a tower has no int4 twin)."""
+    return maybe_quant_dense("int8" if weight_dtype == "int8" else "bf16", in_features,
+                             features, use_bias=use_bias, policy=policy, device=device)
 
 
 class Conv2d(nn.Module):
@@ -161,12 +176,14 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact (erf) GELU -> fc2."""
+    """fc1 -> exact (erf) GELU -> fc2; ``weight_dtype`` "int8" quantizes both."""
 
-    def __init__(self, dim: int, hidden: int, *, policy: Policy, device):
+    def __init__(self, dim: int, hidden: int, *, weight_dtype: str = "bf16", policy: Policy,
+                 device):
         super().__init__()
-        self.fc1 = Dense(dim, hidden, policy=policy, device=device)
-        self.fc2 = Dense(hidden, dim, policy=policy, device=device)
+        kw = dict(policy=policy, device=device)
+        self.fc1 = tower_dense(weight_dtype, dim, hidden, **kw)
+        self.fc2 = tower_dense(weight_dtype, hidden, dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu_exact(self.fc1(x)))

@@ -8,17 +8,19 @@ with the ImageBind vision expert producing the anomaly maps that feed the
 two map encoders.  ``MyriadModule`` holds the weights and the compute;
 ``Myriad`` is the host class: prompt tokenisation, the vision expert (its
 text-feature cache and one-shot reference bank, or another expert of the
-mux, ``models/vision_experts.py``, or none), ``generate`` (greedy, or
-speculative when ``spec_k > 0``; one-shot maps when ``k_shot > 0`` and a
-bank is built) and the training step's pieces (``prepare_train_arrays``,
-``train_loss``, ``forward``).  The trainable parameters are chosen by name
-as the JAX package's ``_trainable_predicate`` chooses its paths; under a
-policy with fp32 parameters and bf16 compute (``Policy.bf16``, the JAX
-package's default) the frozen float parameters are stored in bf16 and the
-trainables and LayerNorm scales in fp32, as its ``_cast_frozen`` leaves
-them.  A model built with ``training=True`` gives its trainables
-``requires_grad``.  Top-p sampling is not ported.  ``Myriad`` builds on the
-card unless the caller passes another device.
+mux, ``models/vision_experts.py``, or none), ``generate`` (greedy, top-p
+sampling from a seeded ``torch.Generator``, or speculative when
+``spec_k > 0``; one-shot maps when ``k_shot > 0`` and a bank is built), the
+pretrained towers (``load_pretrained_weights``: converted npz trees,
+quantized on load for the int8 towers and the int8 or int4 LLaMA) and the
+training step's pieces (``prepare_train_arrays``, ``train_loss``,
+``forward``).  The trainable parameters are chosen by name as the JAX
+package's ``_trainable_predicate`` chooses its paths; under a policy with
+fp32 parameters and bf16 compute (``Policy.bf16``, the JAX package's
+default) the frozen float parameters are stored in bf16 and the trainables
+and LayerNorm scales in fp32, as its ``_cast_frozen`` leaves them.  A model
+built with ``training=True`` gives its trainables ``requires_grad``.
+``Myriad`` builds on the card unless the caller passes another device.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import torch
 from torch import nn
 
 from myriad_tpu_torch import checkpoint as ckpt_lib
+from myriad_tpu_torch.convert import convert_qformer_state_dict
+from myriad_tpu_torch.convert_from_jax import jax_path_of
 from myriad_tpu_torch.datasets.anomaly_detection import ABNORMAL_DESCRIBE, NORMAL_DESCRIBE
 from myriad_tpu_torch.generation import (GenerationConfig, greedy_generate,
                                          speculative_generate)
@@ -48,6 +52,7 @@ from myriad_tpu_torch.models.networks import LoraAdaptorV2, VEInstructorV2, VETo
 from myriad_tpu_torch.models.qformer import QFormer
 from myriad_tpu_torch.models.vision_expert import AnomalyExpertModule, VisionExpert
 from myriad_tpu_torch.models.vision_experts import PrecomputedMaskExpert, build_vision_expert
+from myriad_tpu_torch.ops import quant
 from myriad_tpu_torch.ops.preprocess import u8_normalize
 from myriad_tpu_torch.tokenization import ByteTokenizer
 
@@ -69,6 +74,9 @@ class MyriadArch:
     qformer_intermediate: int = 3072
     adaptor_rank: int = 4
     map_size: int = 224
+    # "int8": the frozen towers' projections quantized (QuantDense)
+    vit_weight_dtype: str = "bf16"
+    qformer_weight_dtype: str = "bf16"
     llama: LlamaConfig = dataclasses.field(default_factory=LlamaConfig)
     imagebind: ImageBindConfig = dataclasses.field(default_factory=ImageBindConfig)
 
@@ -99,12 +107,14 @@ class MyriadModule(nn.Module):
         self.visual_encoder = EvaViT(img_size=a.img_size, patch_size=a.vit_patch,
                                      embed_dim=a.vit_dim, depth=a.vit_depth,
                                      num_heads=a.vit_heads, mlp_ratio=a.vit_mlp_ratio,
-                                     use_checkpoint=use_grad_checkpoint, **kw)
+                                     use_checkpoint=use_grad_checkpoint,
+                                     weight_dtype=a.vit_weight_dtype, **kw)
         self.expert_adaptor = LoraAdaptorV2(dims=a.vit_dim, input_dim=a.adaptor_rank, **kw)
         self.ln_vision = LayerNormFp32(a.vit_dim, eps=1e-5, **kw)
         self.qformer = QFormer(hidden_size=a.qformer_hidden, encoder_dim=a.vit_dim,
                                num_layers=a.qformer_layers, num_heads=a.qformer_heads,
-                               intermediate_size=a.qformer_intermediate, **kw)
+                               intermediate_size=a.qformer_intermediate,
+                               weight_dtype=a.qformer_weight_dtype, **kw)
         self.query_tokens = new_param((1, a.num_query_token, a.qformer_hidden),
                                       policy.param_dtype, device)
         self.ve_instructor = VEInstructorV2(out_dim=a.qformer_hidden, **kw)
@@ -188,23 +198,24 @@ class MyriadModule(nn.Module):
         return lm_cross_entropy(logits, torch.cat([ignore, text_targets], dim=1))
 
 
-def _bf16_or_unset(value) -> bool:
-    return not value or value == "bf16"
-
-
-# config keys whose other values the port does not serve: the int8 towers,
-# and what the JAX from_config would load: npz towers, a local Q-Former file,
-# a checkpoint that the port's own CheckpointManager did not write and (from
-# an existing path) an HF tokenizer
+# config keys whose other values the port does not serve: a checkpoint that
+# is neither an npz tree nor the port's own CheckpointManager's file (an
+# Orbax directory, another .pth), and (from an existing path) an HF tokenizer
 UNSERVED_KEYS = {
-    "qformer_weight_dtype": _bf16_or_unset,
-    "vit_weight_dtype": _bf16_or_unset,
-    "ve_weight_dtype": _bf16_or_unset,
-    "weights": lambda v: not v,
-    "ckpt": lambda v: not v or ckpt_lib.is_port_checkpoint(str(v)),
-    "q_former_model": lambda v: not v or not os.path.isfile(str(v)),
+    "ckpt": lambda v: (not v or str(v).endswith(".npz")
+                       or ckpt_lib.is_port_checkpoint(str(v))),
     "llama_model": lambda v: not v or not os.path.exists(str(v)),
 }
+# the towers ``load_pretrained_weights`` reads, the root a tower-local tree
+# merges under, and the projections an int8 tower quantizes
+WEIGHT_TOWERS = ("vit", "qformer", "llama", "llama_proj", "imagebind", "decoder")
+_TOWER_ROOT = {"vit": "visual_encoder", "llama": "llama", "decoder": "image_decoder"}
+_TOWER_PATTERN = {"vit": quant.EVA_QUANT_PATTERN, "qformer": quant.QFORMER_QUANT_PATTERN,
+                  "imagebind": quant.IMAGEBIND_QUANT_PATTERN}
+# the frozen roots each tower covers (the missing-leaf accounting)
+_COVERED_ROOTS = {"vit": ["visual_encoder"], "qformer": ["qformer", "query_tokens", "ln_vision"],
+                  "llama": ["llama"], "llama_proj": ["llama_proj"],
+                  "imagebind": ["ve/visual", "ve/text"], "decoder": ["ve/image_decoder"]}
 
 
 def policy_from_config(cfg: Mapping) -> Optional[Policy]:
@@ -287,7 +298,11 @@ class Myriad:
                                               class_names=class_names)
         self.expert = self.build_expert(vis_expert, vis_expert_args)
         self.training = bool(training)
-        self.ckpt_path = ""  # a port checkpoint merged over the trainables (from_config)
+        # what from_config loads over every initialisation (init_random,
+        # load_state_dicts): the pretrained towers, then a checkpoint
+        self.weights: Dict = {}
+        self.weights_report: Optional[Dict] = None
+        self.ckpt_path = ""
         self.trainable_names: List[str] = self._split_trainable()
         self._prompt_cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -364,16 +379,98 @@ class Myriad:
 
     @torch.no_grad()
     def load_checkpoint(self, path: str) -> Tuple[List[str], List[str]]:
-        """Merge a checkpoint that the port's ``CheckpointManager`` wrote into
-        the trainables, as the JAX ``load_checkpoint`` merges (strict=False:
-        unknown names ignored, missing ones kept).  Returns (loaded, skipped)."""
-        state = ckpt_lib.load_checkpoint(path)
-        loaded, skipped = ckpt_lib.merge_into(self.trainable_state_dict(), state["model"])
+        """Merge a checkpoint into the trainables, as the JAX
+        ``load_checkpoint`` merges (strict=False: unknown leaves ignored,
+        missing ones kept): a file of the port's ``CheckpointManager`` by
+        name, or an npz tree in the JAX layout by path (a runner ring's
+        ``model`` unwrapped).  Returns (loaded, skipped)."""
+        if path.endswith(".npz"):
+            tree = ckpt_lib.unwrap_ring(ckpt_lib.load_params(path))
+            loaded, skipped = ckpt_lib.merge_with_paths(self.trainable_state_dict(), tree)
+        else:
+            state = ckpt_lib.load_checkpoint(path)
+            loaded, skipped = ckpt_lib.merge_into(self.trainable_state_dict(), state["model"])
         if not loaded:
             logging.warning("load checkpoint from %s matched no trainable parameter", path)
         logging.info("load checkpoint from %s (%d loaded, %d unknown)", path, len(loaded),
                      len(skipped))
         return loaded, skipped
+
+    # -- pretrained towers --------------------------------------------------------
+    def _check_ve_weights(self, weights: Mapping) -> None:
+        if (weights.get("imagebind") or weights.get("decoder")) and self.vision_expert is None:
+            raise ValueError("imagebind/decoder weights given but use_ve=False")
+
+    def _tower_tree(self, key: str, value) -> Dict:
+        """A tower's tree, read when ``value`` is a path, converted from a raw
+        BLIP-2 state dict, rooted where it merges and quantized as the model
+        serves it (the JAX ``load_pretrained_weights`` steps, in its order)."""
+        tree = dict(ckpt_lib.load_params(value) if isinstance(value, str) else value)
+        if key == "qformer" and any("." in str(k) for k in tree):
+            # a raw BLIP-2 torch checkpoint (flat 'Qformer.bert.*' names)
+            prefix = ("Qformer.bert." if any(str(k).startswith("Qformer.") for k in tree)
+                      else "bert.")
+            tree = convert_qformer_state_dict(tree, num_layers=self.arch.qformer_layers,
+                                              prefix=prefix)["params"]
+        if key == "qformer" and "qformer" not in tree:
+            # a tower-local tree: query_tokens and ln_vision travel with it
+            rooted = {"qformer": {k: v for k, v in tree.items()
+                                  if k not in ("query_tokens", "ln_vision")}}
+            rooted.update({k: tree[k] for k in ("query_tokens", "ln_vision") if k in tree})
+            tree = rooted
+        a = self.arch
+        if key == "llama" and a.llama.weight_dtype in ("int8", "int4"):
+            tree = quant.quantize_tree(tree, mode=a.llama.weight_dtype)
+        tower_dtype = {"vit": a.vit_weight_dtype, "qformer": a.qformer_weight_dtype,
+                       "imagebind": a.imagebind.weight_dtype}.get(key)
+        if tower_dtype == "int8":
+            tree = quant.quantize_tree(tree, _TOWER_PATTERN[key])
+        return {_TOWER_ROOT[key]: tree} if key in _TOWER_ROOT else tree
+
+    @torch.no_grad()
+    def load_pretrained_weights(self, weights: Mapping) -> Dict:
+        """Merge converted pretrained towers into the frozen parameters, as
+        the JAX ``load_pretrained_weights`` does: ``weights`` maps tower names
+        (``WEIGHT_TOWERS``) to npz paths or loaded trees in the JAX layout;
+        ``qformer`` may also be a raw BLIP-2 ``.pth`` (converted in place).
+        Each int8 tower (and an int8 or int4 LLaMA) is quantized on load
+        (``ops.quant.quantize_tree``).  Vision-expert towers on a model
+        without the expert raise ``ValueError``.  Returns the report:
+        ``loaded`` and ``skipped`` path lists by tower and ``missing``, the
+        frozen leaves under the given towers' roots that none supplied."""
+        for key in weights:
+            if key not in WEIGHT_TOWERS:
+                logging.warning("load_pretrained_weights: unknown tower '%s' (known: %s)", key,
+                                WEIGHT_TOWERS)
+        self._check_ve_weights(weights)
+        report: Dict = {"loaded": {}, "skipped": {}}
+        trainable = set(self.trainable_names)
+        frozen = {n: t for n, t in self.module.state_dict().items() if n not in trainable}
+        targets = [(("vit", "qformer", "llama", "llama_proj"), self.module, frozen, "")]
+        ve = self.vision_expert
+        if ve is not None:
+            targets.append((("imagebind", "decoder"), ve.module, ve.module.state_dict(), "ve"))
+        loaded_paths, paths = set(), []
+        for keys, module, params, prefix in targets:
+            for key in keys:
+                if weights.get(key):
+                    tree = self._tower_tree(key, weights[key])
+                    loaded, skipped = ckpt_lib.merge_with_paths(params, tree, prefix=prefix)
+                    report["loaded"][key], report["skipped"][key] = loaded, skipped
+                    loaded_paths.update(loaded)
+            paths += [f"{prefix}/{jax_path_of(module, n)}".lstrip("/") for n in params]
+        if ve is not None and ("imagebind" in report["loaded"] or "decoder" in report["loaded"]):
+            ve._text_feats = ve._ref_bank = None  # computed with the old weights
+        expect = [r for k, roots in _COVERED_ROOTS.items() if weights.get(k) for r in roots]
+        report["missing"] = [p for p in paths
+                             if any(p == r or p.startswith(r + "/") for r in expect)
+                             and p not in loaded_paths]
+        for p in report["missing"][:20]:
+            logging.warning("pretrained weights missing frozen leaf: %s", p)
+        logging.info("load_pretrained_weights: %d leaves loaded across %d towers, %d missing",
+                     sum(len(v) for v in report["loaded"].values()), len(report["loaded"]),
+                     len(report["missing"]))
+        return report
 
     @classmethod
     def from_config(cls, cfg: Mapping, *, device="cuda", policy: Optional[Policy] = None,
@@ -383,22 +480,30 @@ class Myriad:
         there reads them: arch_preset, image_size, num_query_token (full
         preset only), llm_vocab_size, llm_weight_dtype (int8 when unset and
         low_resource), llm_kv_dtype or its alias kv_cache_dtype, use_lora
-        (the q/v LoRA pair), llm_prefill_chunks, llm_staged_decode, llm_cache_granularity,
-        llm_spec_k, end_sym, bos_at_generate, and param_policy or
-        vit_precision (``policy`` wins when given; with none of the three the
-        port serves bf16 storage, ``Policy.bf16_params``), the vision
-        expert's keys: use_ve, init_vision_expert, clip_bpe_path, vis_expert,
-        vis_expert_args, k_shot and round_index, and the keys that change
-        training: freeze_vit, freeze_qformer, freeze_llama, train_llm_head,
+        (the q/v LoRA pair), vit_weight_dtype, qformer_weight_dtype and
+        ve_weight_dtype ("int8" quantizes the tower), llm_prefill_chunks,
+        llm_staged_decode, llm_cache_granularity, llm_spec_k, end_sym,
+        bos_at_generate, and param_policy or vit_precision (``policy`` wins
+        when given; with none of the three the port serves bf16 storage,
+        ``Policy.bf16_params``), the vision expert's keys: use_ve,
+        init_vision_expert, clip_bpe_path, vis_expert, vis_expert_args,
+        k_shot and round_index, and the keys that change training:
+        freeze_vit, freeze_qformer, freeze_llama, train_llm_head,
         train_add_bos, use_grad_checkpoint and max_txt_len.
-        Keys the port cannot serve raise ``NotImplementedError``; the
-        reference's dead knobs (noise_level, ...) and ``prompt_path`` (a
-        prompt list no step reads) are accepted and inactive.  ``ckpt`` naming a checkpoint that the
-        port's ``CheckpointManager`` wrote is merged into the trainables
-        (again after ``init_random`` or ``load_state_dicts``, as the JAX
-        from_config merges it after its seeded initialisation); ``weights``,
-        any other ``ckpt``, a ``q_former_model`` that names a local file and a
-        ``llama_model`` that names an existing path raise."""
+        The reference's dead knobs (noise_level, ...) and ``prompt_path`` (a
+        prompt list no step reads) are accepted and inactive.
+
+        The model comes back uninitialised: ``init_random`` or
+        ``load_state_dicts`` fills it, and each then loads what the JAX
+        from_config loads after its seeded initialisation: ``weights``
+        (``{vit, qformer, llama, llama_proj, imagebind, decoder}``, npz
+        paths; ``load_pretrained_weights``, report in ``weights_report``),
+        with a ``q_former_model`` that names a local file folded into
+        ``weights.qformer``, then ``ckpt`` (an npz tree or a file of the
+        port's ``CheckpointManager``) merged into the trainables.  Keys the
+        port cannot serve raise ``NotImplementedError``: another ``ckpt``
+        (an Orbax directory, a .pth the port did not write) and a
+        ``llama_model`` that names an existing path."""
         for key, ok in UNSERVED_KEYS.items():
             if key in cfg and not ok(cfg[key]):
                 raise NotImplementedError(f"config {key}={cfg[key]!r} is not ported")
@@ -422,6 +527,12 @@ class Myriad:
             llama = dataclasses.replace(llama, kv_cache_dtype=kv_dtype)
         if cfg.get("use_lora"):
             llama = dataclasses.replace(llama, use_lora=True)
+        for key in ("vit_weight_dtype", "qformer_weight_dtype"):
+            if cfg.get(key):
+                arch = dataclasses.replace(arch, **{key: cfg[key]})
+        if cfg.get("ve_weight_dtype"):
+            arch = dataclasses.replace(arch, imagebind=dataclasses.replace(
+                arch.imagebind, weight_dtype=cfg["ve_weight_dtype"]))
         model = cls(dataclasses.replace(arch, llama=llama),
                     policy=policy or policy_from_config(cfg), device=device,
                     prefill_chunks=cfg.get("llm_prefill_chunks", 1),
@@ -444,15 +555,25 @@ class Myriad:
                     vis_expert_args=(dict(cfg.get("vis_expert_args"))
                                      if cfg.get("vis_expert_args") else None),
                     k_shot=cfg.get("k_shot", 0), round_index=cfg.get("round_index", 0))
+        weights = dict(cfg.get("weights") or {})
+        q_former_model = str(cfg.get("q_former_model") or "")
+        if q_former_model and "qformer" not in weights:
+            if os.path.isfile(q_former_model):
+                weights["qformer"] = q_former_model
+            else:
+                logging.warning("q_former_model '%s' is not a local file: convert it and "
+                                "point weights.qformer at the npz", q_former_model)
+        model._check_ve_weights(weights)
+        model.weights = weights
         model.ckpt_path = str(cfg.get("ckpt") or "")
-        model._merge_ckpt()
         return model
 
     # -- weights --------------------------------------------------------------
     def load_state_dicts(self, model_sd: Mapping[str, torch.Tensor],
                          ve_sd: Mapping[str, torch.Tensor]) -> None:
         """Load with strict=True: every leaf accounted for in both directions.
-        A model without the vision expert takes no ``ve_sd`` (None or empty)."""
+        A model without the vision expert takes no ``ve_sd`` (None or empty).
+        Then the configured towers and checkpoint load over it."""
         self.module.load_state_dict(model_sd, strict=True)
         if self.vision_expert is None:
             if ve_sd:
@@ -461,20 +582,24 @@ class Myriad:
         else:
             self.vision_expert.module.load_state_dict(ve_sd, strict=True)
             self.vision_expert._text_feats = self.vision_expert._ref_bank = None
-        self._merge_ckpt()
+        self._load_configured()
 
     def init_random(self, seed: int) -> None:
-        """Seeded random weights, drawn on the model's device."""
+        """Seeded random weights, drawn on the model's device; then the
+        configured towers and checkpoint load over them."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         init_random_(self.module, gen)
         if self.vision_expert is not None:
             init_random_(self.vision_expert.module, gen)
             self.vision_expert._text_feats = self.vision_expert._ref_bank = None
-        self._merge_ckpt()
+        self._load_configured()
 
-    def _merge_ckpt(self) -> None:
-        if getattr(self, "ckpt_path", ""):
+    def _load_configured(self) -> None:
+        """What from_config configured: the pretrained towers, then ``ckpt``."""
+        if self.weights:
+            self.weights_report = self.load_pretrained_weights(self.weights)
+        if self.ckpt_path:
             self.load_checkpoint(self.ckpt_path)
 
     # -- host-side text plumbing ----------------------------------------------
@@ -617,22 +742,27 @@ class Myriad:
             ids.extend(int(i) for i in t_ids)
         return torch.tensor(ids, dtype=torch.int64, device=self.device)
 
-    def _decode_fn(self, gen_cfg: GenerationConfig, cache_dtype, lookup_ids):
-        """``greedy_generate``, or its speculative twin when spec_k > 0 and
-        decoding is greedy: a function embeds -> (tokens, stats), stats being
-        the acceptance counters ({} on the plain path)."""
+    def _decode_fn(self, gen_cfg: GenerationConfig, cache_dtype, lookup_ids,
+                   generator: Optional[torch.Generator] = None):
+        """``greedy_generate`` (top-p sampling from ``generator`` when
+        ``do_sample``), or its speculative twin when spec_k > 0 and decoding
+        is greedy: a function embeds -> (tokens, stats), stats being the
+        acceptance counters ({} on the plain path)."""
         llama = self.module.llama
         if self.spec_k > 0 and not gen_cfg.do_sample:
             return lambda embeds: speculative_generate(
                 llama, embeds, config=gen_cfg, spec_k=self.spec_k, lookup_ids=lookup_ids,
                 cache_dtype=cache_dtype, return_stats=True)
         return lambda embeds: (greedy_generate(llama, embeds, config=gen_cfg,
-                                               cache_dtype=cache_dtype), {})
+                                               cache_dtype=cache_dtype,
+                                               generator=generator), {})
 
     def generate(self, samples: Dict, **generate_kwargs) -> Dict:
         """Greedy (or speculative, ``spec_k > 0``) decode of the AQA answer
-        for a batch of images; ``spec_stats`` joins the result on the
-        speculative path."""
+        for a batch of images, or top-p sampling (``do_sample``) from a
+        ``torch.Generator`` on the model's device seeded with ``seed``
+        (default 0); ``spec_stats`` joins the result on the speculative
+        path."""
         defaults = GenerationConfig()
         gen_cfg = GenerationConfig(
             max_new_tokens=generate_kwargs.get("max_new_tokens", 90),
@@ -653,12 +783,15 @@ class Myriad:
             # greedy in effect: route them to the deterministic greedy path,
             # where speculative decoding (spec_k) engages
             gen_cfg = dataclasses.replace(gen_cfg, do_sample=False)
+        generator = None
         if gen_cfg.do_sample:
-            raise NotImplementedError("top-p sampling is not ported; greedy only")
-        return self._generate_fused(samples, 1, gen_cfg)
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(int(generate_kwargs.get("seed", 0)))
+        return self._generate_fused(samples, 1, gen_cfg, generator)
 
     @torch.inference_mode()
-    def _generate_fused(self, samples: Dict, stage: int, gen_cfg: GenerationConfig) -> Dict:
+    def _generate_fused(self, samples: Dict, stage: int, gen_cfg: GenerationConfig,
+                        generator: Optional[torch.Generator] = None) -> Dict:
         """The expert's maps (``serving_maps``) + encode_img + prefill + decode."""
         image, question, maps = self.serving_maps(samples, stage)
         before, after = self.split_prompt(question)
@@ -668,7 +801,7 @@ class Myriad:
                                             add_bos=self.bos_at_generate)
         cache_dtype = serving_cache_dtype(self.arch.llama, self.policy.compute_dtype)
         lookup = self._spec_lookup_ids(after) if self.spec_k > 0 else None
-        tokens, stats = self._decode_fn(gen_cfg, cache_dtype, lookup)(embeds)
+        tokens, stats = self._decode_fn(gen_cfg, cache_dtype, lookup, generator)(embeds)
         out = {"token_ids": tokens, "ve_anomaly_maps": maps}
         if stats:
             out["spec_stats"] = stats

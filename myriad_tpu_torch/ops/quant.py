@@ -17,13 +17,20 @@ gradient.  ``int4_matmul`` has the same
 rule with kernel B5 (``csrc/int4_matmul.cu``) for the small row counts; the
 other route requantizes the int4 groups to per-column int8 at each call, as
 the JAX package does off the TPU, and runs W8A8.
+
+``quantize_tree`` turns a float parameter tree in the JAX package's layout
+(nested dicts of numpy arrays) into its serving layout, as that package's
+``quantize_tree`` does, byte for byte: the weights loaders quantize each
+tower with it on load.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import re
+from typing import Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from myriad_tpu_torch.ops import _cuda
@@ -318,3 +325,53 @@ def int4_matmul(x: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor, *,
     else:
         y = w8a8_matmul(x2.float(), *requantize_int4_to_int8(w4, scale4))
     return y.to(out_dtype).reshape(*lead, f)
+
+
+# ---------------------------------------------------------------------------
+# quantize-on-load over numpy trees (the JAX package's ``quantize_tree``)
+# ---------------------------------------------------------------------------
+LLAMA_QUANT_PATTERN = (
+    r"(k_proj|o_proj|gate_proj|up_proj|down_proj)/kernel$"
+    r"|(q_proj|v_proj)/base/kernel$"
+)
+# EVA-ViT trunk projections (attn qkv/proj + MLP) — patch_embed is 4-D
+# and skipped by the ndim check
+EVA_QUANT_PATTERN = r"(qkv|attn/proj|fc1|fc2)/kernel$"
+# ImageBind trunk projections; head_proj (the CLIP-space head) stays bf16
+IMAGEBIND_QUANT_PATTERN = r"(in_proj|out_proj|fc1|fc2)/kernel$"
+# Q-Former projections (self/cross attention + query FFN)
+QFORMER_QUANT_PATTERN = (
+    r"(query|key|value|attn_out|intermediate_query|output_query)/kernel$"
+)
+
+
+def quantize_tree(params: Mapping, path_pattern: str = LLAMA_QUANT_PATTERN,
+                  mode: str = "int8") -> dict:
+    """Replace each 2-D ``kernel`` leaf whose '/'-joined path matches
+    ``path_pattern`` by the quantized Dense layout, on the CPU in fp32 (numpy
+    leaves in and out): ``mode`` "int8" gives {'w_int8' (in, out) int8,
+    'scale' (out,) fp32}, "int4" {'w_int4' (in/2, out) uint8, 'scale4'
+    (in/group, out) fp32}.  Other leaves (a bias beside the kernel among
+    them) pass through."""
+    pat = re.compile(path_pattern)
+
+    def rec(node, path=""):
+        if not isinstance(node, Mapping):
+            return node
+        out = {}
+        for k, v in node.items():
+            p = f"{path}/{k}" if path else k
+            if (k == "kernel" and not isinstance(v, Mapping) and np.ndim(v) == 2
+                    and pat.search(p)):
+                w = torch.from_numpy(np.asarray(v, np.float32))
+                quantize = quantize_int4_grouped if mode == "int4" else quantize_per_channel
+                names = ("w_int4", "scale4") if mode == "int4" else ("w_int8", "scale")
+                for name, t in zip(names, quantize(w)):
+                    out[name] = t.numpy()
+            elif isinstance(v, Mapping):
+                out[k] = rec(v, p)
+            else:
+                out[k] = v
+        return out
+
+    return rec(params)

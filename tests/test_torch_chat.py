@@ -15,9 +15,10 @@ side a compile per turn.  The upload's normalisation equals the JAX
 processor's bit for bit.
 
 A sampled turn (``do_sample=True, top_p=0.01``) on flat logits: without
-speculation the port raises (top-p sampling is not ported), where it used to
-return the greedy transcript; with speculation both sides decode greedily at
-any temperature, and the transcripts are identical.
+speculation each token is drawn from its step's nucleus, which equals the
+JAX package's on the same logits (tolerance 0), and the turn's seed fixes
+the transcript; with speculation both sides decode greedily at any
+temperature, and the transcripts are identical.
 """
 
 import numpy as np
@@ -29,9 +30,12 @@ from myriad_tpu import checkpoint as ckpt_lib
 from myriad_tpu.conversation import CONV_VISION as JAX_CONV_VISION
 from myriad_tpu.conversation import Chat as JaxChat
 from myriad_tpu.processors.blip_processors import LocImageTrainProcessor
+from myriad_tpu_torch import generation
 from myriad_tpu_torch.conversation import CONV_VISION, Chat
+from myriad_tpu_torch.generation import top_p_filter
 from myriad_tpu_torch.ops.preprocess import u8_normalize
 from test_torch_myriad import pair  # noqa: F401  (the module's JAX/port model pair)
+from test_torch_sampling import jax_nucleus
 import torch_threads  # noqa: F401  (one torch thread a test process)
 
 QUESTIONS = ["Is there any defect?", "Where is it?", "How severe is it?"]
@@ -166,11 +170,36 @@ def flat_pair(pair):  # noqa: F811
 
 
 @pytest.mark.parametrize("incremental", [True, False])
-def test_chat_sampled_turn_without_speculation_raises(flat_pair, incremental):
+def test_chat_sampled_turn_without_speculation_raises(flat_pair, incremental, monkeypatch):
+    """A sampled turn without speculation (before top-p sampling was ported,
+    it raised): every token lies in its step's nucleus, the nucleus is the
+    JAX package's on the same logits and holds several tokens somewhere, and
+    a second run gives the same turn (each turn seeds its generator with 0,
+    as the JAX one takes ``PRNGKey(0)``), on the resident cache and off it."""
     _, pm = flat_pair
-    chat = Chat(pm, incremental=incremental, spec_k=0)
-    with pytest.raises(NotImplementedError):
-        _run(chat, CONV_VISION, QUESTIONS[:1], _image(1), new=12, temperature=1.0, **SAMPLED)
+    steps = []
+    real = generation._select_token
+
+    def record(logits, cfg, generator=None):
+        ids = real(logits, cfg, generator)
+        steps.append((logits.clone(), cfg, ids.clone()))
+        return ids
+
+    monkeypatch.setattr(generation, "_select_token", record)
+    kw = dict(new=12, temperature=1.0, **SAMPLED)
+    out, _ = _run(Chat(pm, incremental=incremental, spec_k=0), CONV_VISION, QUESTIONS[:1],
+                  _image(1), **kw)
+    assert len(steps) >= 2
+    widest = 0
+    for logits, cfg, ids in steps:
+        kept = jax_nucleus(logits, cfg.top_p, cfg.temperature)
+        np.testing.assert_array_equal(torch.isfinite(top_p_filter(logits, cfg)).numpy(), kept)
+        assert kept[np.arange(len(ids)), ids.numpy()].all()
+        widest = max(widest, int(kept.sum(-1).max()))
+    assert widest > 1
+    again, _ = _run(Chat(pm, incremental=incremental, spec_k=0), CONV_VISION, QUESTIONS[:1],
+                    _image(1), **kw)
+    _assert_same(again, out)
 
 
 @pytest.mark.parametrize("seed,temperature", [(1, 1.0), (1, 1.5), (2, 1.0), (2, 1.5)])
@@ -185,3 +214,29 @@ def test_chat_sampled_turn_with_speculation_matches_jax(flat_pair, seed, tempera
     out, _ = _run(chat, CONV_VISION, QUESTIONS, _image(seed), **kw)
     _assert_same(out, ref)
     assert chat._delta_log == jchat._delta_log
+
+
+def test_chat_upload_after_a_reference_bank(pair):  # noqa: F811
+    """F10: an upload on a model whose expert holds a one-shot reference bank
+    (as ``evaluate`` builds one for its classes, which the chat's 'object'
+    class is not among) encodes the image with the zero-shot maps, as the
+    JAX ``Chat`` does; the port used to index the bank past its classes
+    (IndexError).  The embedding equals an upload's without a bank, and the
+    bank is left as it was."""
+    _, pm = pair
+    ve = pm.vision_expert
+    saved = (list(ve.class_names), dict(ve.class_index), ve._text_feats, ve._ref_bank)
+    try:
+        ref_list = []
+        Chat(pm).upload_img(_image(4), CONV_VISION.copy(), ref_list)
+        ve.class_names, ve.class_index = list(saved[0]), dict(saved[1])
+        ve._text_feats = None
+        refs = np.random.default_rng(5).normal(size=(2, 28, 28, 3)).astype(np.float32)
+        ve.build_reference_bank({c: refs for c in ve.class_names})
+        bank = ve._ref_bank
+        img_list = []
+        Chat(pm).upload_img(_image(4), CONV_VISION.copy(), img_list)
+        assert ve._ref_bank is bank and "object" in ve.class_index
+        torch.testing.assert_close(img_list[0], ref_list[0], rtol=0, atol=0)
+    finally:
+        ve.class_names, ve.class_index, ve._text_feats, ve._ref_bank = saved

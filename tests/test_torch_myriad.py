@@ -208,9 +208,11 @@ def _resolved(cfg):
     jpol, ppol = j["policy"], p["policy"] or Policy.bf16_params()
     jax_side = (ja.img_size, ja.num_query_token, ja.llama.vocab_size, ja.llama.weight_dtype,
                 ja.llama.kv_cache_dtype, bool(j["use_lora"]), j["bos_at_generate"],
+                ja.vit_weight_dtype, ja.qformer_weight_dtype, ja.imagebind.weight_dtype,
                 jnp.dtype(jpol.param_dtype).name, jnp.dtype(jpol.compute_dtype).name)
     port_side = (pa.img_size, pa.num_query_token, pa.llama.vocab_size, pa.llama.weight_dtype,
                  pa.llama.kv_cache_dtype, pa.llama.use_lora, p["bos_at_generate"],
+                 pa.vit_weight_dtype, pa.qformer_weight_dtype, pa.imagebind.weight_dtype,
                  str(ppol.param_dtype).split(".")[-1], str(ppol.compute_dtype).split(".")[-1])
     return jax_side, port_side
 
@@ -230,6 +232,10 @@ WIRED = {
     "vit_precision_fp32": {"vit_precision": "fp32"},
     "vit_precision_fp16": {"vit_precision": "fp16"},
     "use_lora": {"use_lora": True},
+    # the int8 towers (tests/test_torch_weights.py serves them)
+    "vit_weight_dtype": {"vit_weight_dtype": "int8"},
+    "qformer_weight_dtype": {"qformer_weight_dtype": "int8"},
+    "ve_weight_dtype": {"ve_weight_dtype": "int8"},
     "dead_knobs": {"noise_level": 0.15, "use_ref": True, "vit_model": "eva_clip_g"},
 }
 
@@ -300,16 +306,16 @@ def test_from_config_llm_vocab_size_as_jax(pair):
     assert int(np.asarray(ref["token_ids"]).max()) < 300
 
 
-@pytest.mark.parametrize("cfg", [{"qformer_weight_dtype": "int8"}, {"vit_weight_dtype": "int8"},
-                                 {"ve_weight_dtype": "int8"},
-                                 # what the JAX from_config would load (F8)
-                                 {"weights": {"vit": "eva_vit_g.npz"}},
-                                 {"ckpt": "output/myriad/checkpoint_4.pth"},
-                                 {"q_former_model": os.path.abspath(__file__)},
+@pytest.mark.parametrize("cfg", [{"ckpt": "output/myriad/checkpoint_4.pth"},
+                                 {"ckpt": os.path.dirname(os.path.abspath(__file__))},
                                  {"llama_model": os.path.dirname(os.path.abspath(__file__))}])
 def test_from_config_unserved_keys_raise(cfg):
-    """Keys the port does not serve raise, naming the key and the value
-    (``use_ve`` and ``k_shot`` are served: tests/test_torch_vision_experts.py)."""
+    """Keys the port does not serve raise, naming the key and the value: a
+    ``ckpt`` that is a .pth the port did not write or an Orbax directory,
+    and a ``llama_model`` that names an existing path (the int8 towers,
+    ``weights``, a local ``q_former_model`` and an npz ``ckpt`` are served:
+    tests/test_torch_weights.py; ``use_ve`` and ``k_shot``:
+    tests/test_torch_vision_experts.py)."""
     (key, value), = cfg.items()
     with pytest.raises(NotImplementedError, match=re.escape(f"{key}={value!r}")):
         Myriad.from_config({"arch_preset": "tiny", **cfg}, device="cpu")
@@ -356,13 +362,18 @@ def test_from_config_int4_generate_and_spec_match_jax(pair):
 
 
 def test_reference_sampling_kwargs_route_to_greedy(pair):
+    """The shipped kwargs (top_p 0.01, T = 1) are greedy; top_p 0.9 samples,
+    the same tokens for the same seed (tests/test_torch_sampling.py holds
+    the nucleus to the JAX package's)."""
     _, pm = pair
     greedy = pm.generate(_samples(), max_new_tokens=4)["token_ids"]
     shipped = pm.generate(_samples(), max_new_tokens=4, do_sample=True, top_p=0.01,
                           temperature=1.0)["token_ids"]
     torch.testing.assert_close(shipped, greedy, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        pm.generate(_samples(), max_new_tokens=4, do_sample=True, top_p=0.9)
+    kw = dict(max_new_tokens=4, do_sample=True, top_p=0.9, seed=5)
+    sampled = pm.generate(_samples(), **kw)["token_ids"]
+    torch.testing.assert_close(pm.generate(_samples(), **kw)["token_ids"], sampled, rtol=0,
+                               atol=0)
 
 
 def test_split_prompt_matches_jax(pair):

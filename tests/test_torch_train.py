@@ -5,8 +5,9 @@
   ``Myriad.pure_loss`` (fp32, weights through ``convert_from_jax``), for a
   float LLaMA with LoRA (the config's model) and an int8 LLaMA with LoRA at
   <= 256 rows (kernel B1's route, whose plain version the CPU runs) and at
-  > 256 rows (W8A8): loss within 1e-5 relative, gradients within 1e-4
-  relative L2, the trainable names equal to the JAX split's;
+  > 256 rows (W8A8), and an int8 Q-Former (``qformer_weight_dtype: int8``):
+  loss within 1e-5 relative, gradients within 1e-4 relative L2, the
+  trainable names equal to the JAX split's;
 * the optimizer: 5 AdamW steps (weight decay 0.05, clip 1.0, accumulation 2)
   on the tiny trainable tree within 1e-6 relative of ``make_optimizer``'s optax
   result; both schedules within 1e-7 over 50 steps;
@@ -14,7 +15,7 @@
   train -> serve loop (``ckpt:``), and ``myriad_tpu_torch.train.main`` on a
   tiny YAML (finite losses, the ring, a resume that continues the step).
 
-Three JAX ``value_and_grad`` compiles in all (one a case).
+Four JAX ``value_and_grad`` compiles in all (one a case).
 """
 
 import dataclasses
@@ -32,6 +33,7 @@ from myriad_tpu import checkpoint as jax_ckpt
 from myriad_tpu.common import optim as jax_optim
 from myriad_tpu.models.layers import Policy as JaxPolicy
 from myriad_tpu.models.myriad import MyriadArch as JaxArch
+from myriad_tpu.models.myriad import MyriadModule as JaxMyriadModule
 from myriad_tpu.ops import quant as jax_quant
 from myriad_tpu_torch import checkpoint as ckpt_lib
 from myriad_tpu_torch.common import optim
@@ -205,6 +207,29 @@ def test_train_step_int8_lora_matches_jax(pair, batch, route, monkeypatch):
     _check_step(jv, pv, arrays, stage)
     if launches is not None:
         assert len(launches) == 2 * 7  # every projection of both layers took B1's route
+
+
+def test_train_step_int8_qformer_matches_jax(pair, batch):
+    """``qformer_weight_dtype: int8`` (the TPU harness's tower profile) under
+    training: the gradients of the VE instructor and the expert adaptor
+    cross the frozen int8 Q-Former by the straight-through rule (W8A8 on
+    both sides on the CPU; on the card, <= 256 rows take B1's route)."""
+    jm, pm = pair
+    params = jax.tree_util.tree_map(np.asarray, jm.params)
+    params["qformer"] = jax_quant.quantize_tree(params["qformer"],
+                                                jax_quant.QFORMER_QUANT_PATTERN)
+    jv = _jax_variant(jm)
+    jv.arch = dataclasses.replace(jm.arch, qformer_weight_dtype="int8")
+    jv.module = JaxMyriadModule(jv.arch, dtype=jm.policy.compute_dtype,
+                                param_dtype=jm.policy.param_dtype)
+    jv.trainable, jv.frozen = jax_ckpt.split_by_predicate(params, jv._trainable_predicate())
+    pv = _port(MyriadArch.tiny(qformer_weight_dtype="int8"), params,
+               pm.vision_expert.module.state_dict())
+    assert pv.module.qformer.layer[0].attention.query.w_int8.dtype == torch.int8
+    _check_step(jv, pv, batch, 1)
+    grads = _port_grads(pv, batch, 1)[1]
+    for name in ("ve_instructor", "expert_adaptor"):
+        assert any(n.startswith(name) and np.linalg.norm(g) > 0 for n, g in grads.items())
 
 
 def test_straight_through_backward_is_the_dequantized_product():

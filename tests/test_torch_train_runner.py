@@ -171,15 +171,20 @@ def test_ckpt_serves_the_trained_trainables(cfg_path, tmp_path):
 
 
 def test_ckpt_that_the_port_did_not_write_raises(tmp_path):
+    """A .pth that the port did not write and an Orbax directory raise; an
+    npz tree is read (the JAX layout: tests/test_torch_weights.py holds it to
+    the JAX load), here one whose only leaf names no trainable."""
     npz = tmp_path / "trainables.npz"
     np.savez(npz, x=np.zeros(2))
     ref_pth = tmp_path / "checkpoint_4.pth"
     torch.save({"model": {"llama_proj.weight": torch.zeros(2)}, "epoch": 4}, ref_pth)
     orbax_dir = tmp_path / "checkpoint_3"
     orbax_dir.mkdir()
-    for value in (str(npz), str(ref_pth), str(orbax_dir)):
+    for value in (str(ref_pth), str(orbax_dir)):
         with pytest.raises(NotImplementedError, match=re.escape(f"ckpt={value!r}")):
             Myriad.from_config({"arch_preset": "tiny", "ckpt": value}, device="cpu")
+    model = Myriad.from_config({"arch_preset": "tiny", "ckpt": str(npz)}, device="cpu")
+    assert model.load_checkpoint(str(npz)) == ([], ["x"])
 
 
 @pytest.mark.parametrize("device,error", [(None, RuntimeError), ("cuda", RuntimeError),
@@ -204,3 +209,23 @@ def test_world_size_above_one_and_int4_training_raise(cfg_path, tmp_path):
     with pytest.raises(NotImplementedError, match="llm_weight_dtype=int4"):
         runner.train_iteration(samples, np.random.default_rng(0))
     runner.train_loader.close()
+
+
+def test_train_build_keeps_the_weights_towers(cfg_path, tmp_path):
+    """``weights:`` under training: the runner's model holds the loaded
+    (frozen) tower after its seeded initialisation, as the JAX from_config
+    loads after its own; the report accounts for every leaf."""
+    rng = np.random.default_rng(4)
+    kernel = rng.normal(size=(16, 64)).astype(np.float32)  # tiny qformer_hidden -> llama
+    bias = rng.normal(size=(64,)).astype(np.float32)
+    path = tmp_path / "llama_proj.npz"
+    np.savez(path, **{"llama_proj/kernel": kernel, "llama_proj/bias": bias})
+    runner = train.build(["--cfg-path", cfg_path, "--options", f"run.output_dir={tmp_path}",
+                          f"model.weights.llama_proj={path}"])
+    proj = runner.model.module.llama_proj
+    assert torch.equal(proj.weight.detach(), torch.from_numpy(kernel.T))
+    assert torch.equal(proj.bias.detach(), torch.from_numpy(bias))
+    assert "llama_proj.weight" not in runner.model.trainable_names
+    report = runner.model.weights_report
+    assert report["loaded"]["llama_proj"] == ["llama_proj/kernel", "llama_proj/bias"]
+    assert report["missing"] == []
