@@ -137,7 +137,22 @@ Phases, each printing its own lines:
    cross-attention's keys and values) equal to the counts the architecture
    gives, ``encode_img`` gated against the plain path, one turn; (e) top-p
    0.9 sampling: a generate (one seed) and a chat turn, each twice,
-   identical, and a one-token nucleus equal to the argmax.
+   identical, and a one-token nucleus equal to the argmax;
+13. between phases 12 and 10: the reference's own checkpoint files, written
+   from --seed under a temporary directory of build/ (LAVIS
+   ``eva_vit_g.pth`` and ``imagebind_huge.pth`` in fp16, the BLIP-2
+   Q-Former, MiniGPT-4's ``llama_proj`` and the AnomalyGPT decoder in fp32,
+   a bf16 ``checkpoint_1.pth`` of the trainables, and a Vicuna directory of
+   fp16 ``*.safetensors`` shards, full width but 4 of its 32 layers, with a
+   32000-piece ``tokenizer.model``), converted by ``python -m
+   myriad_tpu_torch.tools.convert_weights all`` and served by
+   ``Myriad.from_config`` through the ``weights.yaml`` it writes, ``ckpt:``
+   and ``llama_model``: every loaded leaf bit-equal to converting the
+   in-memory state dicts (the LLaMA quantized to int8), nothing missing but
+   the cut layers, a greedy generate (batch 8, 90 tokens) launching B1-B4
+   whose tokens differ from the same seed's model without the files, and the
+   prompt's ids surviving decode and re-encode; prints the seconds spent
+   writing, converting, loading and generating, the npz bytes and images/s.
 
 With ``--parent DIR`` (a checkout of another tree, such as the parent
 commit's), phase 1 also builds DIR's kernels, compares their SASS with this
@@ -2684,6 +2699,380 @@ def train_slice(dev, seed, checks, card):
     torch.cuda.empty_cache()
 
 
+# phase 13: the reference's checkpoint files, written from --seed
+REFERENCE_LLAMA_LAYERS = 4  # of Vicuna-7B's 32: a 32-layer fp32 npz is 27 GB of disk
+TOKENIZER_PIECES = 32000
+# each tower's file (or directory) under the reference's names; the starred
+# ones hold their state dict under a 'model' entry
+REFERENCE_FILES = {"vit": "eva_vit_g.pth", "qformer": "blip2_pretrained.pth",
+                   "llama_proj": "pretrained_minigpt4.pth", "imagebind": "imagebind_huge.pth",
+                   "decoder": "pytorch_mvtec_model.pt", "trainables": "checkpoint_1.pth",
+                   "llama": "vicuna-7b"}
+WRAPPED = ("qformer", "llama_proj", "decoder", "trainables")
+
+
+def reference_state_dicts(arch, randn, llama_layers=None):
+    """The reference's checkpoints of ``arch``'s towers under their own key
+    names: LAVIS EVA-ViT-g, the BLIP-2 Q-Former ('Qformer.bert.*' with
+    query_tokens and ln_vision), MiniGPT-4's llama_proj, ImageBind-huge, the
+    AnomalyGPT decoder, a trainables checkpoint (LoraAdaptorV2,
+    VEInstructorV2, VETokenizer) and an HF LLaMA of ``llama_layers`` layers
+    (all of them by default).  ``randn(shape)`` draws each leaf as an fp32
+    tensor; weights are scaled to 0.02, norms sit about 1.  {tower: sd}."""
+    def w(*shape, scale=0.02):
+        return randn(shape) * scale
+
+    def norm(sd, name, dim):
+        sd[name + ".weight"] = 1 + w(dim, scale=0.1)
+        sd[name + ".bias"] = w(dim, scale=0.1)
+
+    def lin(sd, name, d_in, d_out, bias=True):
+        sd[name + ".weight"] = w(d_out, d_in)
+        if bias:
+            sd[name + ".bias"] = w(d_out)
+
+    out = {}
+    d, p = arch.vit_dim, arch.vit_patch
+    hid, n_tok = int(d * arch.vit_mlp_ratio), (arch.img_size // p) ** 2 + 1
+    sd = {"patch_embed.proj.weight": w(d, 3, p, p), "patch_embed.proj.bias": w(d),
+          "cls_token": w(1, 1, d), "pos_embed": w(1, n_tok, d)}
+    for i in range(arch.vit_depth):
+        pre = f"blocks.{i}."
+        norm(sd, pre + "norm1", d)
+        norm(sd, pre + "norm2", d)
+        lin(sd, pre + "attn.qkv", d, 3 * d, bias=False)
+        sd[pre + "attn.q_bias"], sd[pre + "attn.v_bias"] = w(d), w(d)
+        lin(sd, pre + "attn.proj", d, d)
+        lin(sd, pre + "mlp.fc1", d, hid)
+        lin(sd, pre + "mlp.fc2", hid, d)
+    out["vit"] = sd
+
+    h, inter = arch.qformer_hidden, arch.qformer_intermediate
+    sd = {"query_tokens": w(1, arch.num_query_token, h)}
+    norm(sd, "ln_vision", d)
+    norm(sd, "Qformer.bert.embeddings.LayerNorm", h)
+    for i in range(arch.qformer_layers):
+        pre = f"Qformer.bert.encoder.layer.{i}."
+        for att, kv in (("attention.", h),) + ((("crossattention.", d),) if i % 2 == 0 else ()):
+            lin(sd, pre + att + "self.query", h, h)
+            lin(sd, pre + att + "self.key", kv, h)
+            lin(sd, pre + att + "self.value", kv, h)
+            lin(sd, pre + att + "output.dense", h, h)
+            norm(sd, pre + att + "output.LayerNorm", h)
+        lin(sd, pre + "intermediate_query.dense", h, inter)
+        lin(sd, pre + "output_query.dense", inter, h)
+        norm(sd, pre + "output_query.LayerNorm", h)
+    out["qformer"] = sd
+
+    cfg = arch.llama
+    out["llama_proj"] = {}
+    lin(out["llama_proj"], "llama_proj", h, cfg.hidden_size)
+
+    ib = arch.imagebind
+    dv, dt, ps = ib.vision_embed_dim, ib.text_embed_dim, ib.patch_size
+    sd = {"modality_preprocessors.vision.rgbt_stem.proj.1.weight": w(dv, 3, 2, ps, ps),
+          "modality_preprocessors.vision.cls_token": w(1, 1, dv),
+          "modality_preprocessors.vision.pos_embedding_helper.pos_embed":
+              w(1, (ib.img_size // ps) ** 2 + 1, dv),
+          "modality_heads.vision.2.weight": w(ib.out_embed_dim, dv),
+          "modality_preprocessors.text.token_embedding.weight": w(ib.vocab_size, dt),
+          "modality_preprocessors.text.pos_embed": w(1, ib.context_length, dt),
+          "modality_heads.text.proj.1.weight": w(ib.out_embed_dim, dt),
+          "modality_postprocessors.text.1.log_logit_scale": 2.6593 + w(scale=0.1)}
+    norm(sd, "modality_trunks.vision.pre_transformer_layer.0", dv)
+    norm(sd, "modality_heads.vision.0", dv)
+    norm(sd, "modality_heads.text.proj.0", dt)
+    for tower, dim, blocks in (("vision", dv, ib.vision_num_blocks),
+                               ("text", dt, ib.text_num_blocks)):
+        for i in range(blocks):
+            pre = f"modality_trunks.{tower}.blocks.{i}."
+            norm(sd, pre + "norm_1", dim)
+            norm(sd, pre + "norm_2", dim)
+            sd[pre + "attn.in_proj_weight"], sd[pre + "attn.in_proj_bias"] = (
+                w(3 * dim, dim), w(3 * dim))
+            lin(sd, pre + "attn.out_proj", dim, dim)
+            lin(sd, pre + "mlp.fc1", dim, 4 * dim)
+            lin(sd, pre + "mlp.fc2", 4 * dim, dim)
+    out["imagebind"] = sd
+    out["decoder"] = {}
+    for i in range(len(ib.out_layers)):
+        lin(out["decoder"], f"image_decoder.fc.{i}", dv, ib.out_embed_dim)
+
+    sd = {"expert_adaptor.conv1.weight": w(arch.adaptor_rank, d),
+          "expert_adaptor.conv2.weight": w(d, arch.adaptor_rank),
+          "VETokenizer.base_prompts": w(9, cfg.hidden_size)}
+    for net, head_out, k in (("VEInstructor", h, 1), ("VETokenizer", cfg.hidden_size, 5)):
+        for idx, c_in, c_out in zip((0, 3, 6, 9, 12), (1, 4, 16, 64, 256),
+                                    (4, 16, 64, 256, 1024)):
+            sd[f"{net}.meta_net.{idx}.weight"] = w(c_out, c_in, 3, 3)
+            sd[f"{net}.meta_net.{idx}.bias"] = w(c_out)
+        sd[f"{net}.meta_net.15.weight"] = w(head_out, 1024, k, k)
+        sd[f"{net}.meta_net.15.bias"] = w(head_out)
+    out["trainables"] = sd
+
+    e, f = cfg.hidden_size, cfg.intermediate_size
+    sd = {"model.embed_tokens.weight": w(cfg.vocab_size, e), "lm_head.weight": w(cfg.vocab_size, e),
+          "model.norm.weight": 1 + w(e, scale=0.1)}
+    for i in range(cfg.num_layers if llama_layers is None else llama_layers):
+        pre = f"model.layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            sd[pre + f"self_attn.{name}.weight"] = w(e, e)
+        sd[pre + "mlp.gate_proj.weight"], sd[pre + "mlp.up_proj.weight"] = w(f, e), w(f, e)
+        sd[pre + "mlp.down_proj.weight"] = w(e, f)
+        sd[pre + "input_layernorm.weight"] = 1 + w(e, scale=0.1)
+        sd[pre + "post_attention_layernorm.weight"] = 1 + w(e, scale=0.1)
+    out["llama"] = sd
+    return out
+
+
+def write_safetensors(path, tensors) -> None:
+    """A ``.safetensors`` file (8-byte header length, JSON header, the bytes
+    in order) without the safetensors package, which the card lacks."""
+    import torch
+
+    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+    header, offset, blobs = {}, 0, []
+    for name, t in tensors.items():
+        raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        offset += len(raw)
+        blobs.append(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def _varint(n: int) -> bytes:
+    n &= (1 << 64) - 1  # negative int32 fields take ten bytes, as protobuf writes them
+    out = bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out)
+
+
+def _field(number: int, value) -> bytes:
+    """One protobuf field: bytes are length-delimited, a float fixed32, an
+    int a varint."""
+    import struct
+
+    if isinstance(value, bytes):
+        return _varint(number << 3 | 2) + _varint(len(value)) + value
+    if isinstance(value, float):
+        return _varint(number << 3 | 5) + struct.pack("<f", value)
+    return _varint(number << 3) + _varint(value)
+
+
+def write_tokenizer_model(path, seed, n_pieces) -> list:
+    """A sentencepiece BPE ``tokenizer.model`` in LLaMA's layout: <unk>, <s>,
+    </s>, the 256 byte pieces, seeded merges of printable ASCII and '▁'
+    (scores falling with their order), then the characters.  Byte fallback
+    on, the dummy prefix added.  Returns the pieces."""
+    import random
+
+    rng = random.Random(seed)
+    chars = ["▁"] + [chr(c) for c in range(33, 127)]
+    special = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)] + [
+        (f"<0x{b:02X}>", 0.0, 6) for b in range(256)]
+    n_merges = n_pieces - len(special) - len(chars)
+    merged, known = [], set(chars) | {p[0] for p in special}
+    while len(merged) < n_merges:
+        pool = merged[-2000:] if merged and rng.random() < 0.5 else chars
+        piece = rng.choice(pool) + rng.choice(chars if rng.random() < 0.7 else merged or chars)
+        if piece not in known and len(piece) <= 12:
+            known.add(piece)
+            merged.append(piece)
+    pieces = special + [(p, -float(i), 1) for i, p in enumerate(merged + chars)]
+    body = b"".join(_field(1, _field(1, text.encode()) + _field(2, score) + _field(3, kind))
+                    for text, score, kind in pieces)
+    trainer = (_field(3, 2) + _field(35, 1) + _field(40, 0) + _field(41, 1) + _field(42, 2)
+               + _field(43, -1))
+    normalizer = _field(1, b"identity") + _field(3, 1) + _field(4, 0)
+    with open(path, "wb") as f:
+        f.write(body + _field(2, trainer) + _field(3, normalizer))
+    return pieces
+
+
+def write_reference_tree(root, sds, seed, dtypes=None) -> dict:
+    """Write ``reference_state_dicts``'s towers under ``root`` by the
+    reference's file names: torch files (``WRAPPED`` under 'model'), the
+    LLaMA as an HF directory of two ``*.safetensors`` shards and a
+    ``tokenizer.model``.  ``dtypes`` maps a tower to its stored dtype
+    (fp32 where absent).  Returns {tower: path}."""
+    import torch
+
+    dtypes = dtypes or {}
+    os.makedirs(root, exist_ok=True)
+    paths = {}
+    for tower, sd in sds.items():
+        dtype = dtypes.get(tower, torch.float32)
+        sd = {k: v.to(dtype) for k, v in sd.items()}
+        path = paths[tower] = os.path.join(root, REFERENCE_FILES[tower])
+        if tower == "llama":
+            os.makedirs(path, exist_ok=True)
+            names = list(sd)
+            half = len(names) // 2
+            for i, part in enumerate((names[:half], names[half:])):
+                write_safetensors(os.path.join(path, f"model-0000{i + 1}-of-00002.safetensors"),
+                                  {k: sd[k] for k in part})
+            write_tokenizer_model(os.path.join(path, "tokenizer.model"), seed, TOKENIZER_PIECES)
+        else:
+            torch.save({"model": sd} if tower in WRAPPED else sd, path)
+    return paths
+
+
+def _expected_leaves(tower, tree):
+    """A converted tower rooted where the model holds it (LLaMA int8 as the
+    serving profile quantizes it): (tree, on the vision expert)."""
+    from myriad_tpu_torch.ops import quant
+
+    if tower == "qformer":
+        rest = ("query_tokens", "ln_vision")
+        return dict({"qformer": {k: v for k, v in tree.items() if k not in rest}},
+                    **{k: tree[k] for k in rest}), False
+    if tower == "llama":
+        return {"llama": quant.quantize_tree(tree, mode="int8")}, False
+    roots = {"vit": "visual_encoder", "decoder": "image_decoder"}
+    tree = {roots[tower]: tree} if tower in roots else tree
+    return tree, tower in ("imagebind", "decoder")
+
+
+def _disk_bytes(path) -> int:
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def reference_slice(dev, seed, checks, card):
+    """Phase 13: the reference's own checkpoint files, written from --seed
+    at full width (the LLaMA at REFERENCE_LLAMA_LAYERS of its layers),
+    converted by ``python -m myriad_tpu_torch.tools.convert_weights all``
+    and served through the ``weights.yaml`` it writes, ``ckpt:`` and
+    ``llama_model`` (the Vicuna directory's ``tokenizer.model``)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from myriad_tpu_torch.common import yaml_subset
+    from myriad_tpu_torch.convert_from_jax import jax_leaves
+    from myriad_tpu_torch.models.myriad import Myriad, MyriadArch
+    from myriad_tpu_torch.tokenization import LlamaTokenizer
+    from myriad_tpu_torch.tools import convert_weights
+
+    arch = MyriadArch.tiny() if SERVING["arch_preset"] == "tiny" else MyriadArch.full()
+    if SERVING.get("llm_vocab_size"):
+        arch = dataclasses.replace(arch, llama=dataclasses.replace(
+            arch.llama, vocab_size=SERVING["llm_vocab_size"]))
+    layers = min(REFERENCE_LLAMA_LAYERS, arch.llama.num_layers)
+    # fp16 where the reference ships fp16 (EVA-ViT-g, Vicuna) or the bytes
+    # are many (ImageBind); a bf16 trainables checkpoint (a bf16 run's)
+    dtypes = {"vit": torch.float16, "imagebind": torch.float16, "llama": torch.float16,
+              "trainables": torch.bfloat16}
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="reference_", dir=os.path.join(REPO, "build"))
+    try:
+        t0 = time.time()
+        sds = {t: {k: v.to(dtypes.get(t, torch.float32)).cpu() for k, v in sd.items()}
+               for t, sd in reference_state_dicts(
+                   arch, lambda shape: torch.randn(shape, generator=gen, device=dev),
+                   layers).items()}
+        paths = write_reference_tree(os.path.join(root, "src"), sds, seed, dtypes)
+        src_bytes = sum(_disk_bytes(p) for p in paths.values())
+        t_write = time.time() - t0
+        print(f"wrote the reference's files ({', '.join(REFERENCE_FILES.values())}; "
+              f"{src_bytes / 2**30:.2f} GiB; LLaMA {layers} of {arch.llama.num_layers} layers) "
+              f"in {t_write:.1f} s", flush=True)
+
+        out = os.path.join(root, "npz")
+        t0 = time.time()
+        check(convert_weights.main(["all", "--src", os.path.join(root, "src"), "--out", out])
+              == 0, "convert_weights all failed")
+        t_convert = time.time() - t0
+        with open(os.path.join(out, "manifest.json")) as f:
+            manifest = json.load(f)
+        check(set(manifest) == set(REFERENCE_FILES), f"towers converted: {sorted(manifest)}")
+        npz_bytes = sum(os.path.getsize(m["npz"]) for m in manifest.values())
+        stanza = yaml_subset.load_file(os.path.join(out, "weights.yaml"))["model"]
+        cfg = dict(SERVING, weights=dict(stanza["weights"]), ckpt=stanza["ckpt"],
+                   llama_model=paths["llama"])
+
+        model = Myriad.from_config(cfg, device=dev, class_names=SCENES)
+        tok = model.llama_tokenizer
+        check(isinstance(tok, LlamaTokenizer) and tok.vocab_size == TOKENIZER_PIECES,
+              f"llama_model gave {type(tok).__name__}")
+        samples = _samples(seed, arch.img_size)
+        weights, ckpt = model.weights, model.ckpt_path
+        model.weights, model.ckpt_path = {}, ""  # the same seed's model without the files
+        model.init_random(seed)
+        model.vision_expert.build_text_features()
+        bare = model.generate(samples, max_new_tokens=NEW_TOKENS)["token_ids"]
+        model.weights, model.ckpt_path = weights, ckpt
+        t0 = time.time()
+        model.init_random(seed)
+        torch.cuda.synchronize()
+        t_load = time.time() - t0
+
+        report = model.weights_report
+        cut = [p for p in report["missing"]
+               if not (p.startswith("llama/model/layers_")
+                       and int(p.split("/")[2].split("_")[1]) >= layers)]
+        check(not cut, f"weights missing beyond the cut LLaMA layers: {cut[:5]}")
+        n_cut = len(report["missing"])
+        n_leaves = 0
+        params = {False: model.module.state_dict(),
+                  True: model.vision_expert.module.state_dict()}
+        for tower, sd in sds.items():
+            tree, on_ve = _expected_leaves(tower, convert_weights.convert_tower(tower, sd))
+            for path, name, want in jax_leaves(tree):
+                live = params[on_ve][name]
+                check(torch.equal(live, want.to(live.device).to(live.dtype)),
+                      f"{tower}: loaded {path} differs from the in-memory conversion")
+                n_leaves += 1
+        del params
+        print(f"converted in {t_convert:.1f} s ({npz_bytes / 2**30:.2f} GiB of npz, "
+              f"{len(manifest)} towers, {sum(m['params'] for m in manifest.values()) / 1e9:.3f}"
+              f"e9 params); loaded through weights:, ckpt: and llama_model in {t_load:.1f} s; "
+              f"{n_leaves} leaves bit-equal to converting the in-memory state dicts (LLaMA "
+              f"quantized to int8); missing: {n_cut} leaves, all in the cut LLaMA layers",
+              flush=True)
+
+        model.vision_expert.build_text_features()
+        model.generate(samples, max_new_tokens=4)  # warm-up
+        names = ["B1 int8_matmul", "B2 decode_attention", "B3 prefill_attention", "B4 kv_write"]
+        res, wall, launches = drive(
+            checks, "reference_weights",
+            lambda: model.generate(samples, max_new_tokens=NEW_TOKENS), names)
+        tokens = res["token_ids"]
+        check_tokens(tokens, BATCH, NEW_TOKENS, model.arch.llama.vocab_size)
+        changed = (tokens != bare).float().mean().item()
+        check(changed > 0, "the loaded weights left the tokens as the random model's")
+        for ids in model.split_prompt(AQA_QUESTION):
+            ids = ids.tolist()
+            text = tok.batch_decode([ids])[0]
+            check(tok(text, add_special_tokens=False)["input_ids"] == ids,
+                  f"decoding and re-encoding the prompt piece {text!r} changed its ids")
+        print(f"generate with the reference's weights: {BATCH / wall:.4f} images/s ({wall:.3f} "
+              f"s, one run, batch {BATCH}, {NEW_TOKENS} new tokens); launches {launches}; "
+              f"{changed:.4f} of the tokens differ from the same seed's model without the "
+              f"files; prompt ids survive decode and re-encode; row 0 decodes to "
+              f"{tok.batch_decode(tokens[:1].tolist())[0][:80]!r}", flush=True)
+        print(f"phase 13 seconds: write {t_write:.1f}, convert {t_convert:.1f}, load "
+              f"{t_load:.1f}, generate {wall:.3f}; npz bytes {npz_bytes}; card: {card}",
+              flush=True)
+        del model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def say(t_start, title) -> None:
     """A phase's header, with the seconds since the build started."""
     print(f"{title} [{time.time() - t_start:.0f} s]", flush=True)
@@ -2771,6 +3160,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     say(t_start, "phase 12: the TPU harness's profile (int8 towers, weights:) at full width")
     harness_slice(dev, args.seed, checks, card, eval_out)
+    torch.cuda.empty_cache()
+    say(t_start, "phase 13: the reference's checkpoint files, converted and served")
+    reference_slice(dev, args.seed, checks, card)
     torch.cuda.empty_cache()
     say(t_start, "phase 10: stage-2 LoRA fine-tuning at full width")
     train_slice(dev, args.seed, checks, card)

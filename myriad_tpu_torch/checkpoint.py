@@ -23,6 +23,7 @@ the trainables out of a runner's ring checkpoint.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 from typing import Any, Dict, List, Mapping, Tuple
@@ -103,6 +104,48 @@ def load_params(path: str) -> Dict:
         return {k: np.asarray(v.float().numpy() if hasattr(v, "float") else v)
                 for k, v in ckpt.items()}
     raise ValueError(f"Unsupported checkpoint format: {path}")
+
+
+# safetensors dtype names -> torch dtypes (the dtypes a checkpoint holds)
+SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a ``.safetensors`` file by name, on the CPU, without
+    the ``safetensors`` package: an 8-byte little-endian header length, a
+    JSON header of ``{name: {dtype, shape, data_offsets}}`` (offsets from
+    the end of the header), then the little-endian bytes.  The tensors
+    share one buffer holding the file."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(os.path.getsize(path) - 8 - n)
+        if f.readinto(data) != len(data):
+            raise ValueError(f"{path}: the file ended before its tensors' bytes")
+    out: Dict[str, torch.Tensor] = {}
+    for name, spec in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = SAFETENSORS_DTYPES.get(spec["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has dtype {spec['dtype']}, which the reader "
+                             f"does not take ({', '.join(SAFETENSORS_DTYPES)})")
+        begin, end = spec["data_offsets"]
+        shape = [int(d) for d in spec["shape"]]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if end - begin != itemsize * int(np.prod(shape)) or end > len(data):
+            raise ValueError(f"{path}: {name}'s byte range {begin}..{end} does not hold "
+                             f"{spec['dtype']} {shape}")
+        if begin == end:
+            out[name] = torch.empty(shape, dtype=dtype)
+        else:
+            out[name] = torch.frombuffer(data, dtype=dtype, count=(end - begin) // itemsize,
+                                         offset=begin).reshape(shape)
+    return out
 
 
 def unwrap_ring(tree: Mapping) -> Mapping:

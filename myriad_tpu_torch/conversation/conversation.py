@@ -74,6 +74,10 @@ CONV_VISION = Conversation(
 class Chat:
     """Chat driver over a ``Myriad`` (``myriad_tpu_torch.models.myriad``).
 
+    ``vis_processor``: the image normalisation of an upload, on the host (the
+    reference demo's ``LocImageTrainProcessor(identity=True)``); None
+    normalises on the model's device (``ops.preprocess.u8_normalize``, the
+    same bytes).
     ``spec_k``: speculative decoding depth for incremental turns; None follows
     the model's ``spec_k`` (``llm_spec_k``), 0 disables.  It engages only on
     greedy turns.  The resident cache is re-prefilled from scratch when the
@@ -84,8 +88,10 @@ class Chat:
 
     BUCKET = 256  # the resident cache grows in steps of this many positions
 
-    def __init__(self, model, incremental: bool = True, spec_k: Optional[int] = None):
+    def __init__(self, model, vis_processor=None, incremental: bool = True,
+                 spec_k: Optional[int] = None):
         self.model = model
+        self.vis_processor = vis_processor
         self.incremental = incremental
         self.spec_k = spec_k
         # incremental state: the resident cache, its frontier, and the token
@@ -116,8 +122,12 @@ class Chat:
         maps of the generic 'object' class (``prepare_sample``'s ``maps``: the
         zero-shot ones of the ImageBind expert; zeros without an expert)."""
         model = self.model
-        u8 = torch.as_tensor(np.asarray(image, np.uint8), device=model.device)
-        arr = u8_normalize(u8, out_dtype=torch.float32)[None]
+        if self.vis_processor is None:
+            u8 = torch.as_tensor(np.asarray(image, np.uint8), device=model.device)
+            arr = u8_normalize(u8, out_dtype=torch.float32)[None]
+        else:
+            arr = self.vis_processor({"img": np.asarray(image)})["img"]
+            arr = torch.as_tensor(np.asarray(arr, np.float32), device=model.device)[None]
         ve = model.vision_expert
         if ve is not None and "object" not in ve.class_index:
             ve.class_names = list(ve.class_names) + ["object"]

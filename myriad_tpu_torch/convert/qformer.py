@@ -12,12 +12,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
-
-
-def _t(x) -> np.ndarray:
-    arr = np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach") else x)
-    return arr.astype(np.float32)
+from myriad_tpu_torch.convert.common import f32 as _t
 
 
 def convert_qformer_state_dict(state_dict: Dict, num_layers: int = 12,

@@ -1,66 +1,61 @@
 """Terminal chat over the port's Myriad (counterpart of the repository's
-``demo.py``): a stdin REPL over ``conversation.Chat``.
+``demo.py``, with its command line): a stdin REPL over ``conversation.Chat``.
 
-    python -m myriad_tpu_torch.demo --image image.npy [--seed 0] \\
-        [--options arch_preset=tiny llm_spec_k=3 ...] [--device cuda]
+    python -m myriad_tpu_torch.demo --cfg-path eval_configs/myriad.yaml --image x.png \\
+        [--max-new-tokens 90] [--options model.llm_weight_dtype=int8 run.device=cpu ...] \\
+        [--seed 0]
 
-The image is an ``.npy`` HWC uint8 array of the model's image size (the port
-reads no image files: PIL is not a dependency).  ``--options`` are the JAX
-package's config keys that ``Myriad.from_config`` reads (``arch_preset``,
-``llm_weight_dtype``, ``llm_kv_dtype``, ``llm_spec_k``, ``weights``, ...).
-The weights are random, drawn from ``--seed``, with the converted towers of
-``weights`` (``weights={'qformer': 'q.npz'}``) and an npz or port ``ckpt``
-loaded over them.  It runs on the card unless ``--device`` says otherwise.
+The steps are the reference demo's: the YAML is merged with the dotted
+``--options`` (``common.config.Config``); the model is ``model.arch``'s,
+built by its ``from_config`` on ``run.device`` (the card when unset; ``cpu``
+runs it on the CPU), its weights random from ``--seed`` where ``weights:``
+and ``ckpt:`` supply none; the image is decoded (PNG; a JPEG raises
+``NotImplementedError``) and resized to the model's image size with PIL's
+bicubic filter (``processors.functional.pil_resize``); ``Chat`` normalises
+it with ``LocImageTrainProcessor(identity=True)``.
 """
 
 from __future__ import annotations
 
 import argparse
-import ast
 import sys
-from typing import Dict, Optional, Sequence
 
-import numpy as np
-
-
-def parse_options(pairs: Optional[Sequence[str]]) -> Dict[str, object]:
-    """``key=value`` strings -> a config dict; values are Python literals
-    where they parse as one (``3``, ``True``), else strings (``int8``)."""
-    cfg: Dict[str, object] = {}
-    for pair in pairs or ():
-        key, sep, value = pair.partition("=")
-        if not sep or not key:
-            raise ValueError(f"option {pair!r} is not key=value")
-        try:
-            cfg[key] = ast.literal_eval(value)
-        except (ValueError, SyntaxError):
-            cfg[key] = value
-    return cfg
+import torch
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Myriad chat demo (PyTorch port)")
-    parser.add_argument("--image", required=True, help=".npy HWC uint8 image to chat about")
-    parser.add_argument("--options", nargs="+", help="config overrides, key=value")
-    parser.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    parser.add_argument("--cfg-path", required=True, help="path to the configuration YAML")
+    parser.add_argument("--image", required=True,
+                        help="PNG image to chat about (JPEG decoding is not ported yet)")
     parser.add_argument("--max-new-tokens", type=int, default=90)
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--options", nargs="+",
+                        help="override settings of the YAML, as dotted key=value pairs "
+                             "(model.llm_weight_dtype=int8 run.device=cpu)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the random weights that weights: and ckpt: do not replace")
     args = parser.parse_args(argv)
 
+    from myriad_tpu_torch.common.config import Config, get_model_class
     from myriad_tpu_torch.conversation import CONV_VISION, Chat
-    from myriad_tpu_torch.models.myriad import Myriad
+    from myriad_tpu_torch.datasets.png import read_png
+    from myriad_tpu_torch.processors.blip_processors import LocImageTrainProcessor
+    from myriad_tpu_torch.processors.functional import pil_resize
 
-    model = Myriad.from_config(parse_options(args.options), device=args.device)
+    cfg = Config(args)
+    run = cfg.run_cfg if cfg.config.get("run") else {}
+    device = torch.device(run.get("device") or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"the demo runs on the card (run.device is {run.get('device')!r}), "
+                           "and torch sees no CUDA device; set run.device: cpu to run it on "
+                           "the CPU")
+    model = get_model_class(cfg.model_cfg.arch).from_config(cfg.model_cfg, device=device)
     model.init_random(args.seed)
-    image = np.load(args.image)
-    size = model.arch.img_size
-    if image.dtype != np.uint8 or image.shape != (size, size, 3):
-        raise ValueError(f"--image must hold a ({size}, {size}, 3) uint8 array, got "
-                         f"{image.dtype} {image.shape}")
-    chat = Chat(model)
+    chat = Chat(model, LocImageTrainProcessor(identity=True))
     conv = CONV_VISION.copy()
     img_list = []
-    print(chat.upload_img(image, conv, img_list))
+    size = model.arch.img_size
+    print(chat.upload_img(pil_resize(read_png(args.image), size, size), conv, img_list))
     print("Type a question ('quit' to exit).")
     for line in sys.stdin:
         q = line.strip()

@@ -54,7 +54,7 @@ from myriad_tpu_torch.models.vision_expert import AnomalyExpertModule, VisionExp
 from myriad_tpu_torch.models.vision_experts import PrecomputedMaskExpert, build_vision_expert
 from myriad_tpu_torch.ops import quant
 from myriad_tpu_torch.ops.preprocess import u8_normalize
-from myriad_tpu_torch.tokenization import ByteTokenizer
+from myriad_tpu_torch.tokenization import load_llama_tokenizer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,11 +200,10 @@ class MyriadModule(nn.Module):
 
 # config keys whose other values the port does not serve: a checkpoint that
 # is neither an npz tree nor the port's own CheckpointManager's file (an
-# Orbax directory, another .pth), and (from an existing path) an HF tokenizer
+# Orbax directory, another .pth)
 UNSERVED_KEYS = {
     "ckpt": lambda v: (not v or str(v).endswith(".npz")
                        or ckpt_lib.is_port_checkpoint(str(v))),
-    "llama_model": lambda v: not v or not os.path.exists(str(v)),
 }
 # the towers ``load_pretrained_weights`` reads, the root a tower-local tree
 # merges under, and the projections an int8 tower quantizes
@@ -235,7 +234,9 @@ def policy_from_config(cfg: Mapping) -> Optional[Policy]:
 class Myriad:
     """Host class: the module, the vision expert, prompt ids and ``generate``.
 
-    The vision expert is built as the JAX package builds it: the ImageBind
+    The LLaMA tokenizer is ``llama_model``'s (``load_llama_tokenizer``: a
+    Vicuna directory's ``tokenizer.model``, else ``ByteTokenizer``).  The
+    vision expert is built as the JAX package builds it: the ImageBind
     expert when ``use_ve`` and ``init_vision_expert`` (its CLIP tokenizer the
     BPE of ``clip_bpe_path`` when given, else the hash stand-in), none
     otherwise (the maps are zeros); ``vis_expert`` other than
@@ -244,7 +245,8 @@ class Myriad:
     reference bank is built (``evaluate.setup_vision_expert``)."""
 
     def __init__(self, arch: Optional[MyriadArch] = None, *, policy: Optional[Policy] = None,
-                 device="cuda", prefill_chunks: int = 1, staged_decode: bool = False,
+                 device="cuda", llama_model: str = "", prefill_chunks: int = 1,
+                 staged_decode: bool = False,
                  cache_granularity: int = 32, spec_k: int = 0, end_sym: str = "\n",
                  bos_at_generate: bool = False,
                  class_names: Optional[Sequence[str]] = None, freeze_vit: bool = True,
@@ -287,7 +289,7 @@ class Myriad:
         build = Policy(self.policy.compute_dtype, self.policy.compute_dtype)
         self.module = MyriadModule(self.arch, policy=build, device=self.device,
                                    use_grad_checkpoint=use_grad_checkpoint)
-        self.llama_tokenizer = ByteTokenizer()
+        self.llama_tokenizer = load_llama_tokenizer(llama_model)
         self.vision_expert: Optional[VisionExpert] = None
         if use_ve and init_vision_expert:
             ve_module = AnomalyExpertModule(self.arch.imagebind, map_size=self.arch.map_size,
@@ -500,10 +502,11 @@ class Myriad:
         paths; ``load_pretrained_weights``, report in ``weights_report``),
         with a ``q_former_model`` that names a local file folded into
         ``weights.qformer``, then ``ckpt`` (an npz tree or a file of the
-        port's ``CheckpointManager``) merged into the trainables.  Keys the
-        port cannot serve raise ``NotImplementedError``: another ``ckpt``
-        (an Orbax directory, a .pth the port did not write) and a
-        ``llama_model`` that names an existing path."""
+        port's ``CheckpointManager``) merged into the trainables.  The LLaMA
+        tokenizer is ``llama_model``'s ``tokenizer.model`` where it names one
+        (``tokenization.load_llama_tokenizer``), else ``ByteTokenizer``.  A
+        ``ckpt`` the port cannot serve (an Orbax directory, a .pth the port
+        did not write) raises ``NotImplementedError``."""
         for key, ok in UNSERVED_KEYS.items():
             if key in cfg and not ok(cfg[key]):
                 raise NotImplementedError(f"config {key}={cfg[key]!r} is not ported")
@@ -535,6 +538,7 @@ class Myriad:
                 arch.imagebind, weight_dtype=cfg["ve_weight_dtype"]))
         model = cls(dataclasses.replace(arch, llama=llama),
                     policy=policy or policy_from_config(cfg), device=device,
+                    llama_model=str(cfg.get("llama_model") or ""),
                     prefill_chunks=cfg.get("llm_prefill_chunks", 1),
                     staged_decode=cfg.get("llm_staged_decode", True),
                     cache_granularity=cfg.get("llm_cache_granularity", 32),

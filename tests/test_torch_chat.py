@@ -116,31 +116,112 @@ def test_chat_replaced_image_forces_reprefill(pair):  # noqa: F811
     assert chat._delta_log[1] == chat._frontier
 
 
-def test_demo_chats_over_stdin_on_the_cpu(tmp_path):
-    """``python -m myriad_tpu_torch.demo`` answers each stdin line; the
-    options reach ``Myriad.from_config``; built with no ``--device`` it would
-    go to the card."""
-    import os
-    import subprocess
+DEMO_YAML = """model:
+  arch: myriad
+  arch_preset: tiny
+  image_size: 28
+  llm_kv_dtype: int8
+  param_policy: fp32
+"""
+
+
+def _demo_files(tmp_path, run_device="cpu"):
+    """A tiny demo YAML (``run.device`` when given) and a 30x40 PNG."""
+    from myriad_tpu_torch.datasets.png import encode_png
+
+    cfg = tmp_path / "demo.yaml"
+    cfg.write_text(DEMO_YAML + (f"run:\n  device: {run_device}\n" if run_device else ""))
+    png = tmp_path / "image.png"
+    png.write_bytes(encode_png(np.random.default_rng(3).integers(0, 255, (30, 40, 3),
+                                                                 dtype=np.uint8)))
+    return str(cfg), str(png)
+
+
+def test_demo_chats_over_stdin_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """``python -m myriad_tpu_torch.demo`` with the reference demo's command
+    line (``--cfg-path``, a PNG, dotted ``--options``) answers each stdin
+    line on ``run.device: cpu``; without ``run.device`` it goes to the card,
+    which raises here."""
+    import io
     import sys
 
-    from myriad_tpu_torch.demo import parse_options
+    from myriad_tpu_torch import demo
 
-    assert parse_options(["arch_preset=tiny", "llm_spec_k=3", "llm_staged_decode=False"]) == {
-        "arch_preset": "tiny", "llm_spec_k": 3, "llm_staged_decode": False}
-    with pytest.raises(ValueError):
-        parse_options(["llm_spec_k"])
-    image = tmp_path / "image.npy"
-    np.save(image, _image(3))
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    res = subprocess.run(
-        [sys.executable, "-m", "myriad_tpu_torch.demo", "--image", str(image), "--device", "cpu",
-         "--max-new-tokens", "4", "--options", "arch_preset=tiny", "llm_weight_dtype=int8",
-         "llm_kv_dtype=int8", "llm_spec_k=2"],
-        input="Any defect?\nWhere?\nquit\n", cwd=repo, capture_output=True, text=True,
-        timeout=120)
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.count("myriad>") == 2 and "Received." in res.stdout
+    cfg, png = _demo_files(tmp_path)
+    monkeypatch.setattr(sys, "stdin", io.StringIO("Any defect?\nWhere?\nquit\n"))
+    assert demo.main(["--cfg-path", cfg, "--image", png, "--max-new-tokens", "4", "--options",
+                      "model.llm_weight_dtype=int8", "model.llm_spec_k=2"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("myriad>") == 2 and "Received." in out
+    cfg, png = _demo_files(tmp_path, run_device=None)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="run.device"):
+            demo.main(["--cfg-path", cfg, "--image", png])
+
+
+def test_demo_matches_the_reference_demo(pair, tmp_path, monkeypatch):  # noqa: F811
+    """F11: ``demo.main`` over a tiny YAML with ``run.device: cpu``, a PNG of
+    another size than the model's and ``model.llm_weight_dtype=int8``, one
+    question on stdin, the weights the pair's: the first upload's embedding
+    (within 1e-5 of each token's largest entry, or 1e-5 where that is below
+    1: the VETokenizer's tokens reach ~1e3 on these weights) and the answer
+    (tokens and text identical) equal the JAX
+    ``Chat``'s fed by the reference demo's steps (PIL's RGB conversion and
+    resize, ``LocImageTrainProcessor(identity=True)``); the model's resolved
+    keys equal the JAX ``from_config``'s."""
+    import io
+    import sys
+
+    from PIL import Image
+
+    from myriad_tpu_torch import demo
+    from myriad_tpu_torch.common.config import Config
+    from myriad_tpu_torch.models.myriad import Myriad
+    from test_torch_myriad import _resolved
+
+    jm, pm = pair
+    cfg, png = _demo_files(tmp_path)
+    options = ["model.llm_weight_dtype=int8"]
+    seen = {}
+
+    def load_the_pair(model, seed):
+        seen["model"] = model
+        model.load_state_dicts(pm.module.state_dict(), pm.vision_expert.module.state_dict())
+
+    upload, answer = Chat.upload_img, Chat.answer
+
+    def recording_upload(chat, image, conv, img_list):
+        res = upload(chat, image, conv, img_list)
+        seen.setdefault("embedding", img_list[-1])
+        return res
+
+    def recording_answer(chat, conv, img_list, **kw):
+        seen["answer"] = answer(chat, conv, img_list, **kw)
+        return seen["answer"]
+
+    monkeypatch.setattr(Myriad, "init_random", load_the_pair)
+    monkeypatch.setattr(Chat, "upload_img", recording_upload)
+    monkeypatch.setattr(Chat, "answer", recording_answer)
+    monkeypatch.setattr(sys, "stdin", io.StringIO(QUESTIONS[0] + "\nquit\n"))
+    assert demo.main(["--cfg-path", cfg, "--image", png, "--max-new-tokens", str(NEW),
+                      "--options", *options]) == 0
+
+    size = jm.arch.img_size
+    image = Image.open(png).convert("RGB").resize((size, size))
+    jchat = JaxChat(jm, LocImageTrainProcessor(identity=True))
+    conv, img_list = JAX_CONV_VISION.copy(), []
+    jchat.upload_img(np.asarray(image), conv, img_list)
+    jchat.ask(QUESTIONS[0], conv)
+    text, tokens = jchat.answer(conv, img_list, max_new_tokens=NEW)
+    ref = np.asarray(img_list[0])
+    scale = np.maximum(np.abs(ref).max(axis=-1, keepdims=True), 1.0)
+    assert (np.abs(seen["embedding"].numpy() - ref) <= 1e-5 * scale).all()
+    assert seen["answer"][0] == text
+    np.testing.assert_array_equal(seen["answer"][1], np.asarray(tokens))
+    model_cfg = Config(cfg_path=cfg, options=options).model_cfg
+    jax_side, port_side = _resolved(dict(model_cfg))
+    assert jax_side == port_side
+    assert seen["model"].arch.llama.weight_dtype == "int8"
 
 
 SAMPLED = dict(do_sample=True, top_p=0.01)

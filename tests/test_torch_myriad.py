@@ -308,14 +308,14 @@ def test_from_config_llm_vocab_size_as_jax(pair):
 
 @pytest.mark.parametrize("cfg", [{"ckpt": "output/myriad/checkpoint_4.pth"},
                                  {"ckpt": os.path.dirname(os.path.abspath(__file__))},
-                                 {"llama_model": os.path.dirname(os.path.abspath(__file__))}])
+                                 {"ckpt": "output/myriad/model.safetensors"}])
 def test_from_config_unserved_keys_raise(cfg):
     """Keys the port does not serve raise, naming the key and the value: a
-    ``ckpt`` that is a .pth the port did not write or an Orbax directory,
-    and a ``llama_model`` that names an existing path (the int8 towers,
-    ``weights``, a local ``q_former_model`` and an npz ``ckpt`` are served:
-    tests/test_torch_weights.py; ``use_ve`` and ``k_shot``:
-    tests/test_torch_vision_experts.py)."""
+    ``ckpt`` that is a .pth the port did not write, an Orbax directory or
+    another format (the int8 towers, ``weights``, a local ``q_former_model``
+    and an npz ``ckpt`` are served: tests/test_torch_weights.py; ``use_ve``
+    and ``k_shot``: tests/test_torch_vision_experts.py; an existing
+    ``llama_model``: tests/test_torch_tokenizer.py)."""
     (key, value), = cfg.items()
     with pytest.raises(NotImplementedError, match=re.escape(f"{key}={value!r}")):
         Myriad.from_config({"arch_preset": "tiny", **cfg}, device="cpu")
@@ -524,7 +524,8 @@ def test_import_leaves_jax_out():
             "myriad_tpu_torch.runners, myriad_tpu_torch.common.optim, "
             "myriad_tpu_torch.datasets.nsa, myriad_tpu_torch.datasets.builders, "
             "myriad_tpu_torch.models.vision_experts, myriad_tpu_torch.models.simplenet, "
-            "myriad_tpu_torch.models.clip_tokenizer\n"
+            "myriad_tpu_torch.models.clip_tokenizer, myriad_tpu_torch.tokenization, "
+            "myriad_tpu_torch.convert, myriad_tpu_torch.tools.convert_weights\n"
             "from myriad_tpu_torch.models.myriad import Myriad\n"
             "m = Myriad.from_config({'arch_preset': 'tiny', 'llm_weight_dtype': 'int8', "
             "'llm_kv_dtype': 'int8', 'llm_spec_k': 2}, device='cpu', class_names=['bottle'])\n"
@@ -554,7 +555,8 @@ def test_import_leaves_jax_out():
             "res = evaluate.main(['--cfg-path', cfg, '--bs', '2', '--max_new_tokens', '3', "
             "'--save_path', os.path.join(root, 'rows.jsonl')])\n"
             "assert len(res['rows']) == 2\n"
-            "bad = [n for n in ('jax', 'flax', 'yaml', 'PIL', 'cv2', 'transformers') "
+            "bad = [n for n in ('jax', 'flax', 'yaml', 'PIL', 'cv2', 'transformers', "
+            "'safetensors', 'sentencepiece', 'google.protobuf') "
             "if n in sys.modules]\n"
             "bad += [n for n in sys.modules if n == 'myriad_tpu' or n.startswith('myriad_tpu.')]\n"
             "print('BAD', bad)")
@@ -589,28 +591,28 @@ def test_port_sources_reach_nothing_of_the_jax_package():
     # every subpackage is walked, tools/ included
     assert Path(REPO, "myriad_tpu_torch", "tools", "bwprobe.py") in files
     assert Path(REPO, "myriad_tpu_torch", "serving", "engine.py") in files
+    assert Path(REPO, "myriad_tpu_torch", "tools", "convert_weights.py") in files
+    assert Path(REPO, "myriad_tpu_torch", "convert", "networks.py") in files
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
-            where = f"{path.relative_to(REPO)}:{getattr(node, 'lineno', 0)}"
+            hit = False
             if isinstance(node, ast.Import):
-                found += [where for a in node.names if _reaches_jax_package(a.name)]
+                hit = any(_reaches_jax_package(a.name) or a.name == "importlib"
+                          for a in node.names)
             elif isinstance(node, ast.ImportFrom):
-                if _reaches_jax_package(node.module or "") or node.module == "importlib":
-                    found.append(where)
+                hit = _reaches_jax_package(node.module or "") or node.module == "importlib"
             elif isinstance(node, ast.Call) and _call_name(node.func) in _PATH_CALLS:
                 args = node.args + [kw.value for kw in node.keywords]
-                if any(_reaches_jax_package(c.value) for a in args for c in ast.walk(a)
-                       if isinstance(c, ast.Constant)):
-                    found.append(where)
+                hit = any(_reaches_jax_package(c.value) for a in args for c in ast.walk(a)
+                          if isinstance(c, ast.Constant))
             elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
-                if any(_reaches_jax_package(getattr(side, "value", None))
-                       for side in (node.left, node.right)):
-                    found.append(where)
-            elif isinstance(node, ast.Constant) and node.value == "myriad_tpu":
-                found.append(where)
-            if isinstance(node, ast.Import) and any(a.name == "importlib" for a in node.names):
-                found.append(where)
+                hit = any(_reaches_jax_package(getattr(side, "value", None))
+                          for side in (node.left, node.right))
+            elif isinstance(node, ast.Constant):
+                hit = node.value == "myriad_tpu"
+            if hit:
+                found.append(f"{path.relative_to(REPO)}:{getattr(node, 'lineno', 0)}")
     assert not found, found
 
 
@@ -626,14 +628,19 @@ def test_entry_points_default_to_the_card():
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
-    res = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO,
-                         capture_output=True, text=True, timeout=120,
-                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    assert res.returncode != 0
-    assert '"ok"' not in res.stdout
+    """From the checkout and alone in a directory (the two run at once)."""
     alone = tmp_path / "chip_smoke.py"
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
-    res = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, capture_output=True,
-                         text=True, timeout=120, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    assert res.returncode != 0
-    assert '"ok"' not in res.stdout
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    runs = [subprocess.Popen([sys.executable, script], cwd=cwd, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, env=env)
+            for script, cwd in ((os.path.join(REPO, "chip_smoke.py"), REPO),
+                                (str(alone), tmp_path))]
+    try:
+        for proc in runs:
+            out, _ = proc.communicate(timeout=120)
+            assert proc.returncode != 0
+            assert '"ok"' not in out
+    finally:
+        for proc in runs:
+            proc.kill()
