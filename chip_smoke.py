@@ -114,9 +114,19 @@ Phases, each printing its own lines:
    MVTec train tree under build/ (16 good PNGs, RGB 900x900 and gray
    1024x1024), 2 epochs x 3 steps of 2 images and their 2 NSA twins, 4 loader
    threads, a ring of 1: every loss finite, every frozen tensor bit-identical
-   afterwards and without a gradient, every trainable changed, one
-   checkpoint holding exactly the trainables, a resume that restores them bit
-   for bit and continues the step; one more step timed by phase (CUDA events)
+   afterwards and without a gradient, every trainable changed; the ring one
+   Orbax directory, ``checkpoint_1``, in the JAX runner's layout (the
+   trainables as the JAX tree, the optax state, 0-d int64 epoch and step),
+   its seconds to write and read and its bytes on disk, with the bytes and
+   decoding seconds a JAX-written ring of the same state would take
+   (projected from phase 14); a resume from it that restores the trainables
+   and Adam's moments bit for bit and continues the step; (c) the trained
+   model's greedy generate (batch 8) with its trainables at their initial
+   values (16 tokens), then (90 tokens) with the ring merged by
+   ``Myriad.load_checkpoint`` (the ``ckpt:`` route): the trainables
+   bit-equal to the saved ones, the tokens different, B2, B3 and B4
+   launched as the decode steps and prefill chunks imply (bf16 weights: no
+   B1); one more step timed by phase (CUDA events)
    with one AdamW update recomputed in fp64, one under ``torch.profiler``
    (top 10 ops by device time), the host's NSA time per twin; then one step
    with int8 LLM weights: W8A8 on ``torch._int_mm`` at every projection, the
@@ -143,8 +153,9 @@ Phases, each printing its own lines:
    ``eva_vit_g.pth`` and ``imagebind_huge.pth`` in fp16, the BLIP-2
    Q-Former, MiniGPT-4's ``llama_proj`` and the AnomalyGPT decoder in fp32,
    a bf16 ``checkpoint_1.pth`` of the trainables, and a Vicuna directory of
-   fp16 ``*.safetensors`` shards, full width but 4 of its 32 layers, with a
-   32000-piece ``tokenizer.model``), converted by ``python -m
+   fp16 ``*.safetensors`` shards, full width but 2 of its 32 layers (EVA
+   at 4 of its 39 blocks), with a 32000-piece ``tokenizer.model``),
+   converted by ``python -m
    myriad_tpu_torch.tools.convert_weights all`` and served by
    ``Myriad.from_config`` through the ``weights.yaml`` it writes, ``ckpt:``
    and ``llama_model``: every loaded leaf bit-equal to converting the
@@ -152,7 +163,14 @@ Phases, each printing its own lines:
    the cut layers, a greedy generate (batch 8, 90 tokens) launching B1-B4
    whose tokens differ from the same seed's model without the files, and the
    prompt's ids surviving decode and re-encode; prints the seconds spent
-   writing, converting, loading and generating, the npz bytes and images/s.
+   writing, converting, loading and generating, the npz bytes and images/s;
+14. before phase 10: build the port's zstd decoder (``csrc/zstd_decode.cpp``)
+   with this machine's host C++ compiler, restore the committed
+   ``tests/orbax_fixture`` ring (written by the JAX package: OCDBT, zstd
+   chunks) through the port's own reader and hold every leaf's dtype, shape
+   and sha256 and every libzstd frame's decoded sha256 to its
+   ``expected.json``; the decoder's MB/s over the fixture's frames repeated
+   to 256 MB.
 
 With ``--parent DIR`` (a checkout of another tree, such as the parent
 commit's), phase 1 also builds DIR's kernels, compares their SASS with this
@@ -170,6 +188,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -278,9 +297,10 @@ def _card() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def sass_count(lib_path, kernel: str, opcode: str):
-    """(count, first line) of ``opcode`` in the SASS of every instantiation
-    of ``kernel`` in the built library, from ``cuobjdump -sass``."""
+@functools.lru_cache(maxsize=None)
+def sass_dump(lib_path) -> str:
+    """``cuobjdump -sass`` of a built library (~10 s for the port's: dumped
+    once a library)."""
     from myriad_tpu_torch.ops import _cuda
 
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
@@ -288,8 +308,14 @@ def sass_count(lib_path, kernel: str, opcode: str):
                          timeout=300)
     if res.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {res.stderr.strip()}")
+    return res.stdout
+
+
+def sass_count(lib_path, kernel: str, opcode: str):
+    """(count, first line) of ``opcode`` in the SASS of every instantiation
+    of ``kernel`` in the built library, from ``cuobjdump -sass``."""
     fn, count, first = "", 0, None
-    for line in res.stdout.splitlines():
+    for line in sass_dump(lib_path).splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[-1].strip()
         elif kernel in fn and opcode in line:
@@ -364,16 +390,9 @@ def sass_functions(lib_path) -> dict:
     names."""
     import re
 
-    from myriad_tpu_torch.ops import _cuda
-
     anon = re.compile(r"\d*_GLOBAL__N__[0-9a-f]+_\d+_\w*?_cu_[0-9a-f]{8}")
-    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
-    res = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                         timeout=300)
-    if res.returncode != 0:
-        raise RuntimeError(f"cuobjdump failed: {res.stderr.strip()}")
     funcs, name = {}, None
-    for line in res.stdout.splitlines():
+    for line in sass_dump(lib_path).splitlines():
         if "Function :" in line:
             name = anon.sub("ANON", line.split("Function :")[-1].strip())
             funcs[name] = []
@@ -1638,7 +1657,10 @@ def _host_ms(fn, repeats=3):
 
 
 def eval_slice(dev, seed, checks, card):
-    """Phase 8: the AQA evaluation entry point at full width on a synthetic tree."""
+    """Phase 8: the AQA evaluation entry point at full width on a synthetic
+    tree.  Returns (model, argv, evaluate.run's output, the tree's dataset):
+    the later phases' direct generates read that dataset, built once (its
+    preload decodes every PNG)."""
     import numpy as np
     import torch
 
@@ -1711,7 +1733,7 @@ def eval_slice(dev, seed, checks, card):
     check(same == n_images, f"compared {same} of {n_images} rows with a direct generate")
     print(f"tokens of all {same} rows identical to a direct Myriad.generate on the same "
           f"batches", flush=True)
-    return model, argv, out
+    return model, argv, out, dataset
 
 
 # phase 9: the engine's load (requests over the eval's slots, arrivals a tick)
@@ -2019,7 +2041,7 @@ def write_simplenet_heads(root, seed, classes, dim=1536, hidden=1024):
             "discriminator/tail/kernel": normal(hidden, 1)})
 
 
-def expert_slice(dev, seed, checks, card, model, eval_argv, eval_out):
+def expert_slice(dev, seed, checks, card, model, eval_argv, eval_out, dataset):
     """Phase 11: one-shot maps, the expert mux and no expert on phase 8's model."""
     import copy
 
@@ -2046,7 +2068,6 @@ def expert_slice(dev, seed, checks, card, model, eval_argv, eval_out):
                             os.path.join(root, f"rows_k{k}.jsonl")]
         args = evaluate.parse_args(argv)
         cfg = Config(args)
-        dataset = evaluate.build_dataset(args, cfg.datasets_cfg, root)
         _, t_bank = timed(lambda: evaluate.setup_vision_expert(model, dataset, root,
                                                                args.round_index, k))
         banks = [tuple(b.shape) for b in ve._ref_bank]
@@ -2107,8 +2128,6 @@ def expert_slice(dev, seed, checks, card, model, eval_argv, eval_out):
           f"card: {card}", flush=True)
     model.k_shot = 0
 
-    args = evaluate.parse_args(eval_argv)
-    dataset = evaluate.build_dataset(args, Config(args).datasets_cfg, root)
     batch = next(iter(DataLoader(dataset, batch_size=BATCH)))
     rels = [ann["img_path"] for ann in dataset.annotation[:BATCH]]
 
@@ -2253,7 +2272,7 @@ def write_tower_npz(root, seed, dev, arch):
     return paths, trees
 
 
-def harness_slice(dev, seed, checks, card, eval_out):
+def harness_slice(dev, seed, checks, card, eval_out, dataset):
     """Phase 12: the TPU harness's profile at full width, the Q-Former,
     llama_proj and the decoder loaded through ``weights:`` (quantized on
     load), the rest random from --seed."""
@@ -2336,7 +2355,6 @@ def harness_slice(dev, seed, checks, card, eval_out):
         check(list(row) == keys and row["image_id"] == i and row["error"] in ("0", "1")
               and 0.0 <= float(row["anomaly_score"]) <= 1.0, f"row {i}: {row}")
     check(bench is not None, "no --bench line")
-    dataset = evaluate.build_dataset(args, cfg.datasets_cfg, root)
     same = 0
     for batch, tokens in zip(DataLoader(dataset, batch_size=BATCH), out["token_ids"]):
         direct = model.generate(batch, max_new_tokens=NEW_TOKENS, do_sample=False)
@@ -2485,10 +2503,174 @@ def _grad_of_projection(module, store):
     return module.register_forward_hook(hook)
 
 
-def train_slice(dev, seed, checks, card):
+# phase 14: the port's Orbax reader on the committed fixture (tests/orbax_fixture,
+# written by tests/make_orbax_fixture.py with the JAX package and libzstd)
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "orbax_fixture")
+ORBAX_DECODE_BYTES = 256 << 20  # decoded bytes a rate is measured over
+
+
+def _tensors(tree):
+    """The tensors of a restored tree, in order."""
+    import torch
+
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif torch.is_tensor(tree):
+        yield tree
+
+
+def describe_tree(tree, prefix=()):
+    """Each array leaf's dotted path, dtype, shape and sha256 of its bytes, in
+    ``expected.json``'s order (dict keys sorted; None and empty containers
+    left out)."""
+    import hashlib
+
+    if isinstance(tree, dict):
+        return [d for k in sorted(tree) for d in describe_tree(tree[k], prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [d for i, v in enumerate(tree) for d in describe_tree(v, prefix + (str(i),))]
+    if tree is None:
+        return []
+    import torch
+
+    raw = tree.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+    return [{"path": ".".join(prefix), "dtype": str(tree.dtype).replace("torch.", ""),
+             "shape": list(tree.shape), "sha256": hashlib.sha256(raw).hexdigest()}]
+
+
+def orbax_slice(card):
+    """Phase 14: build the zstd decoder with this machine's host compiler,
+    restore the fixture's JAX-written ring (OCDBT, zstd chunks) and hold
+    every leaf and every libzstd frame to ``expected.json``; the decoder's
+    rate over the fixture's frames repeated to 256 MB.  Returns the rates
+    (MB/s decoded, ``normal``: the fp32 frames, ``all``) and the fixture's
+    fp32 compression ``ratio``, for phase 10's projection."""
+    import hashlib
+
+    import numpy as np
+
+    from myriad_tpu_torch.orbax_format import checkpointer, zstd
+    from myriad_tpu_torch.orbax_format.ocdbt import OcdbtReader
+
+    t0 = time.time()
+    lib = zstd.build()
+    zstd.library()
+    print(f"zstd decoder built by {zstd.compiler()} in {time.time() - t0:.1f} s: {lib.name}",
+          flush=True)
+    with open(os.path.join(ORBAX_FIXTURE, "expected.json")) as f:
+        expected = json.load(f)
+    path = os.path.join(ORBAX_FIXTURE, expected["checkpoint"])
+    t0 = time.perf_counter()
+    tree = checkpointer.restore(path)
+    t_restore = time.perf_counter() - t0
+    got = describe_tree(tree)
+    check(got == expected["leaves"],
+          f"the fixture's leaves differ from expected.json: "
+          f"{[g['path'] for g, e in zip(got, expected['leaves']) if g != e][:3]}")
+    frames = {}
+    for name, spec in expected["frames"].items():
+        with open(os.path.join(ORBAX_FIXTURE, "frames", f"{name}.zst"), "rb") as f:
+            frames[name] = f.read()
+        out = zstd.decompress(frames[name], spec["size"])
+        check(hashlib.sha256(out.tobytes()).hexdigest() == spec["sha256"],
+              f"frame {name} decodes to other bytes")
+    key = "model.llama_proj.kernel/0.0"
+    with OcdbtReader(path) as kv:
+        chunk = len(kv.get(key))
+    kernel = tree["model"]["llama_proj"]["kernel"]
+    ratio = chunk / (kernel.numel() * kernel.element_size())
+    print(f"fixture {path}: {len(got)} leaves (fp32, bf16 mu, int32 counts, 0-d int64 epoch "
+          f"and step, the MultiSteps containers) restored in {t_restore * 1e3:.1f} ms, each "
+          f"sha256 equal to expected.json; {len(frames)} libzstd frames (levels 3, 19) "
+          f"bit-exact; the fp32 kernel's chunk {chunk} bytes for "
+          f"{kernel.numel() * kernel.element_size()} ({ratio:.4f})", flush=True)
+
+    def rate(names):
+        one = b"".join(frames[n] for n in names)
+        size = sum(expected["frames"][n]["size"] for n in names)
+        reps = -(-ORBAX_DECODE_BYTES // size)
+        src = np.frombuffer(one * reps, dtype=np.uint8)
+        dst = np.empty(size * reps, dtype=np.uint8)
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            zstd.decompress(src, size * reps, out=dst)
+            walls.append(time.perf_counter() - t)
+        wall = statistics.median(walls)
+        return size * reps / wall / 1e6, size * reps, src.size, walls
+
+    rates = {"ratio": ratio}
+    for label, names in (("normal", ("level3_normal", "level19_normal")),
+                         ("all", tuple(frames))):
+        mb_s, n_out, n_in, walls = rate(names)
+        rates[label] = mb_s
+        print(f"decoder, {label} frames ({', '.join(names)}) repeated: {n_in} bytes in, "
+              f"{n_out} out, median of 3 {mb_s:.1f} MB/s decoded (s "
+              f"{', '.join(f'{w:.3f}' for w in walls)}); one host thread; card: {card}",
+              flush=True)
+    return rates
+
+
+BEFORE_TOKENS = 16  # of the generate before the merge, compared with the one after
+
+
+def ckpt_generate(dev, seed, checks, card, model, trainable, before, saved, ckpt):
+    """Phase 10 (c): the trained model's greedy generate (batch 8) with its
+    trainables at their initial values (16 tokens), then (90 tokens) with the
+    ring's directory merged through ``Myriad.load_checkpoint`` (what
+    ``ckpt:`` loads): the merged trainables bit-equal to the saved ones, the
+    tokens different, and the kernels' launches checked."""
+    import torch
+
+    ve = model.vision_expert
+    if getattr(ve, "_text_feats", None) is None:
+        ve.build_text_features()
+    samples = _samples(seed, model.arch.img_size)
+    with torch.no_grad():
+        for n, p in trainable.items():
+            p.copy_(before[n])
+    # before the merge, the first BEFORE_TOKENS tokens are enough to differ
+    base, wall0 = timed(lambda: model.generate(samples, max_new_tokens=BEFORE_TOKENS))
+    t0 = time.perf_counter()
+    loaded, skipped = model.load_checkpoint(ckpt)
+    t_load = time.perf_counter() - t0
+    check(bool(loaded) and not skipped, f"ckpt: loaded {len(loaded)}, skipped {skipped[:3]}")
+    for n, p in trainable.items():
+        check(torch.equal(p.detach(), saved[n]), f"ckpt: did not load {n} bit for bit")
+    names = ["B2 decode_attention", "B3 prefill_attention", "B4 kv_write"]
+    out, wall, launches = drive(checks, "train_ckpt_generate",
+                                lambda: model.generate(samples, max_new_tokens=NEW_TOKENS),
+                                names)
+    tokens = out["token_ids"]
+    check_tokens(tokens, BATCH, NEW_TOKENS, model.arch.llama.vocab_size)
+    differ = (tokens[:, :BEFORE_TOKENS] != base["token_ids"]).float().mean().item()
+    check(differ > 0, "the merged trainables did not change the tokens")
+    layers = model.arch.llama.num_layers
+    writes = 1 if model.arch.llama.kv_cache_dtype == "int8" else 2  # B4 a forward a layer
+    b1, b2, b3, b4 = (launches[k] for k in ("B1 int8_matmul", *names))
+    check(b1 == 0, f"B1 launched {b1} times on bf16 LLaMA weights")
+    check(b2 % layers == 0 and b3 % layers == 0 and b4 == writes * (b2 + b3),
+          f"launches B2 {b2}, B3 {b3}, B4 {b4}: not a B2 a layer a decode step, a B3 a "
+          f"layer a prefill chunk, and {writes} B4 a layer a forward")
+    print(f"ckpt: {ckpt} merged by load_checkpoint in {t_load:.3f} s ({len(loaded)} leaves, "
+          f"none skipped), bit-equal to the saved trainables; greedy generate (batch {BATCH}, "
+          f"{NEW_TOKENS} tokens, the trained model: bf16 compute over fp32 weights, KV "
+          f"{model.arch.llama.kv_cache_dtype or 'bf16'}) "
+          f"{wall:.3f} s, before the merge {wall0:.3f} s for {BEFORE_TOKENS} tokens; of "
+          f"those, differing after the merge: {differ:.4f}; launches {launches} ({b2 // layers} decode steps and "
+          f"{b3 // layers} prefill chunks over {layers} layers); card: {card}", flush=True)
+
+
+def train_slice(dev, seed, checks, card, orbax_rates=None):
     """Phase 10: ``python -m myriad_tpu_torch.train``'s runner on the repo's
-    stage-2 LoRA config at full width, its checkpoint ring and resume, one
-    AdamW update recomputed in fp64, and one step with int8 LLM weights."""
+    stage-2 LoRA config at full width, its checkpoint ring (an Orbax
+    directory) and resume, a generate served from the ring, one AdamW update
+    recomputed in fp64, and one step with int8 LLM weights.  ``orbax_rates``
+    (phase 14's) projects what a JAX-written ring would cost."""
     import shutil
 
     import numpy as np
@@ -2524,12 +2706,27 @@ def train_slice(dev, seed, checks, card):
                                                 (model.vision_expert.module, "ve."))
               for n, p in mod.named_parameters() if not p.requires_grad]
     t0 = time.time()
-    host = {n: p.detach().to("cpu", copy=True) for n, p in frozen}
+    # the snapshot stays on the card (host copies of its 16 GiB took ~11-13 s
+    # each way on the card's host); the peak is printed without it as well
+    snap = {n: p.detach().clone() for n, p in frozen}
     before = {n: p.detach().clone() for n, p in trainable.items()}
-    print(f"snapshot of {len(frozen)} frozen tensors "
-          f"({sum(t.numel() * t.element_size() for t in host.values()) / 2**30:.2f} GiB) to the "
-          f"host in {time.time() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    snap_bytes = sum(t.numel() * t.element_size() for t in snap.values())
+    print(f"snapshot of {len(frozen)} frozen tensors ({snap_bytes / 2**30:.2f} GiB) on the "
+          f"card in {time.time() - t0:.1f} s", flush=True)
 
+    # the ring's saves, timed where the runner makes them
+    ring_saves = []
+    manager_save = runner.ckpt_manager.save
+
+    def timed_save(tag, state):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = manager_save(tag, state)
+        ring_saves.append(time.perf_counter() - t)
+        return path
+
+    runner.ckpt_manager.save = timed_save
     torch.cuda.reset_peak_memory_stats(dev)
     quant.int_mm_counter.count = 0
     _, wall, launches = drive(checks, "train", runner.train, [])
@@ -2540,48 +2737,91 @@ def train_slice(dev, seed, checks, card):
     hist = runner.task.timer.history
     iters = [d + s for d, s in zip(hist["data"], hist["step"])]
     rate = TRAIN_SAMPLES_PER_STEP / statistics.median(iters[1:])
-    print(f"train: 2 epochs x 3 steps in {wall:.3f} s; losses "
+    print(f"train: 2 epochs x 3 steps in {wall:.3f} s (the ring's two saves "
+          f"{', '.join(f'{t:.3f}' for t in ring_saves)} s of it); losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; launches {launches}, torch._int_mm {int_mm} "
           f"(every projection bf16: no kernel of the port at this width)", flush=True)
     print(f"train samples/s: {rate:.4f} ({TRAIN_SAMPLES_PER_STEP} a step, median of the 5 steps "
           f"after the first; data + step s {', '.join(f'{x:.3f}' for x in iters)}); StepTimer "
           f"means: data {statistics.mean(hist['data']) * 1e3:.1f} ms, step "
-          f"{statistics.mean(hist['step']) * 1e3:.1f} ms; peak device memory "
-          f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
-          f"{held / 2**30:.2f} GiB that earlier phases held; card: {card}", flush=True)
+          f"{statistics.mean(hist['step']) * 1e3:.1f} ms; peak device memory without the "
+          f"{snap_bytes / 2**30:.2f} GiB snapshot {(peak - snap_bytes) / 2**30:.2f} GiB "
+          f"({peak / 2**30:.2f} GiB with it), {(peak - snap_bytes - held) / 2**30:.2f} GiB "
+          f"above the {held / 2**30:.2f} GiB that earlier phases held; card: {card}",
+          flush=True)
     t0 = time.time()
     for n, p in frozen:
-        check(p.grad is None and torch.equal(p.detach().cpu(), host[n]),
+        check(p.grad is None and torch.equal(p.detach(), snap[n]),
               f"frozen {n} changed or holds a gradient")
-    del host
+    del snap
     for n, p in trainable.items():
         check(not torch.equal(p.detach(), before[n]), f"trainable {n} did not change")
     print(f"all {len(frozen)} frozen tensors bit-identical after the run and without .grad; "
           f"all {len(trainable)} trainable tensors changed ({time.time() - t0:.1f} s)",
           flush=True)
+
+    # (b) the ring is an Orbax directory in the JAX runner's layout
+    from myriad_tpu_torch import checkpoint as ckpt_lib
+    from myriad_tpu_torch.convert_from_jax import jax_leaves
+
     files = sorted(os.listdir(runner.output_dir))
-    check(files == ["checkpoint_1.pth", "log.txt"], f"the ring kept {files}")
-    ckpt = os.path.join(runner.output_dir, "checkpoint_1.pth")
-    state = torch.load(ckpt, map_location="cpu", weights_only=True)
-    check(set(state["model"]) == set(trainable), "the checkpoint's names are not the trainables")
-    check((state["epoch"], state["global_step"]) == (1, 6), "checkpoint epoch / step")
+    check(files == ["checkpoint_1", "log.txt"], f"the ring kept {files}")
+    ckpt = os.path.join(runner.output_dir, "checkpoint_1")
+    disk = _disk_bytes(ckpt)
+    t0 = time.perf_counter()
+    state = ckpt_lib.load_params(ckpt)
+    t_read = time.perf_counter() - t0
+    names = {n for _, n, _ in jax_leaves(state["model"])}
+    check(names == set(trainable), "the checkpoint's trainables are not the model's")
+    check(sorted(state) == ["epoch", "global_step", "model", "optimizer"],
+          f"the checkpoint holds {sorted(state)}")
+    check((int(state["epoch"]), int(state["global_step"])) == (1, 6),
+          "checkpoint epoch / step")
+    check(state["epoch"].dtype == torch.int64 and state["epoch"].dim() == 0,
+          "epoch is not a 0-d int64 array")
+    raw = sum(t.numel() * t.element_size() for t in _tensors(state))
+    del state
 
     # resume into the same model: the trainables are wiped first, so the restore shows
     saved = {n: p.detach().clone() for n, p in trainable.items()}
+    opt0 = runner.optimizer
     with torch.no_grad():
         for p in trainable.values():
             p.zero_()
     runner.run_cfg.resume_ckpt_path = ckpt
     runner.run_cfg.max_epoch = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     resumed = type(runner)(cfg=runner.config, task=runner.task, model=model,
                            datasets=runner.datasets, job_id="resumed")
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
     for n, p in trainable.items():
         check(torch.equal(p.detach(), saved[n]), f"resume did not restore {n}")
+    for key in ("mu", "nu"):
+        for n, a, b in zip(opt0.names, getattr(opt0, key), getattr(resumed.optimizer, key)):
+            check(a.dtype == b.dtype and torch.equal(a, b), f"resume did not restore {key} {n}")
     check((resumed.start_epoch, resumed.global_step, resumed.optimizer.count) == (2, 6, 6),
           "resume did not continue the step")
-    print(f"ring: {files} under {runner.output_dir}, the {len(trainable)} trainables by name; "
-          f"resume from it restored them bit for bit at epoch {resumed.start_epoch}, global "
-          f"step {resumed.global_step}", flush=True)
+    del opt0
+    print(f"ring: {files} under {runner.output_dir}, an Orbax directory in the JAX runner's "
+          f"layout ({{model, optimizer, epoch, global_step}}, plain zarr, uncompressed): "
+          f"{disk} bytes on disk ({raw} of arrays); written in "
+          f"{', '.join(f'{t:.3f}' for t in ring_saves)} s, read by load_params in "
+          f"{t_read:.3f} s ({raw / t_read / 1e6:.1f} MB/s, page cache warm); resume (read, "
+          f"merge, optimizer by name) {t_resume:.3f} s restored the {len(trainable)} trainables "
+          f"and Adam's mu and nu bit for bit at epoch {resumed.start_epoch}, global step "
+          f"{resumed.global_step}, count {resumed.optimizer.count}", flush=True)
+    if orbax_rates:
+        mb_s = orbax_rates["normal"]
+        print(f"projection, a JAX-written ring of this state (OCDBT, zstd level 1): "
+              f"{raw * orbax_rates['ratio']:.0f} bytes at the fixture's fp32 ratio "
+              f"{orbax_rates['ratio']:.4f}; decoding its {raw} bytes at phase 14's "
+              f"{mb_s:.1f} MB/s over fp32 frames: {raw / mb_s / 1e6:.2f} s (the disk read "
+              f"not included); projected, not measured", flush=True)
+
+    # (c) a full-width generate whose trainables come through the ckpt: route
+    ckpt_generate(dev, seed, checks, card, model, trainable, before, saved, ckpt)
 
     # one more step of the resumed runner, timed by phase, after a warm-up
     # step of the same prompt stage (the stage sets the sequence length, and a
@@ -2700,7 +2940,11 @@ def train_slice(dev, seed, checks, card):
 
 
 # phase 13: the reference's checkpoint files, written from --seed
-REFERENCE_LLAMA_LAYERS = 4  # of Vicuna-7B's 32: a 32-layer fp32 npz is 27 GB of disk
+# the cut depths: a 32-layer fp32 LLaMA npz is 27 GB of disk, and the phase's
+# write, convert and load move with the bytes (ImageBind stays whole: the
+# converter tells its full config from the tiny one by its 32 vision blocks)
+REFERENCE_LLAMA_LAYERS = 2  # of Vicuna-7B's 32
+REFERENCE_VIT_BLOCKS = 4  # of EVA-ViT-g's 39
 TOKENIZER_PIECES = 32000
 # each tower's file (or directory) under the reference's names; the starred
 # ones hold their state dict under a 'model' entry
@@ -2711,14 +2955,15 @@ REFERENCE_FILES = {"vit": "eva_vit_g.pth", "qformer": "blip2_pretrained.pth",
 WRAPPED = ("qformer", "llama_proj", "decoder", "trainables")
 
 
-def reference_state_dicts(arch, randn, llama_layers=None):
+def reference_state_dicts(arch, randn, llama_layers=None, vit_blocks=None):
     """The reference's checkpoints of ``arch``'s towers under their own key
     names: LAVIS EVA-ViT-g, the BLIP-2 Q-Former ('Qformer.bert.*' with
     query_tokens and ln_vision), MiniGPT-4's llama_proj, ImageBind-huge, the
     AnomalyGPT decoder, a trainables checkpoint (LoraAdaptorV2,
-    VEInstructorV2, VETokenizer) and an HF LLaMA of ``llama_layers`` layers
-    (all of them by default).  ``randn(shape)`` draws each leaf as an fp32
-    tensor; weights are scaled to 0.02, norms sit about 1.  {tower: sd}."""
+    VEInstructorV2, VETokenizer) and an HF LLaMA of ``llama_layers`` layers,
+    EVA of ``vit_blocks`` blocks (all of them by default).  ``randn(shape)``
+    draws each leaf as an fp32 tensor; weights are scaled to 0.02, norms sit
+    about 1.  {tower: sd}."""
     def w(*shape, scale=0.02):
         return randn(shape) * scale
 
@@ -2736,7 +2981,7 @@ def reference_state_dicts(arch, randn, llama_layers=None):
     hid, n_tok = int(d * arch.vit_mlp_ratio), (arch.img_size // p) ** 2 + 1
     sd = {"patch_embed.proj.weight": w(d, 3, p, p), "patch_embed.proj.bias": w(d),
           "cls_token": w(1, 1, d), "pos_embed": w(1, n_tok, d)}
-    for i in range(arch.vit_depth):
+    for i in range(arch.vit_depth if vit_blocks is None else vit_blocks):
         pre = f"blocks.{i}."
         norm(sd, pre + "norm1", d)
         norm(sd, pre + "norm2", d)
@@ -2951,7 +3196,8 @@ def _disk_bytes(path) -> int:
 
 def reference_slice(dev, seed, checks, card):
     """Phase 13: the reference's own checkpoint files, written from --seed
-    at full width (the LLaMA at REFERENCE_LLAMA_LAYERS of its layers),
+    at full width (the LLaMA at REFERENCE_LLAMA_LAYERS of its layers, EVA
+    at REFERENCE_VIT_BLOCKS of its blocks),
     converted by ``python -m myriad_tpu_torch.tools.convert_weights all``
     and served through the ``weights.yaml`` it writes, ``ckpt:`` and
     ``llama_model`` (the Vicuna directory's ``tokenizer.model``)."""
@@ -2972,6 +3218,7 @@ def reference_slice(dev, seed, checks, card):
         arch = dataclasses.replace(arch, llama=dataclasses.replace(
             arch.llama, vocab_size=SERVING["llm_vocab_size"]))
     layers = min(REFERENCE_LLAMA_LAYERS, arch.llama.num_layers)
+    blocks = min(REFERENCE_VIT_BLOCKS, arch.vit_depth)
     # fp16 where the reference ships fp16 (EVA-ViT-g, Vicuna) or the bytes
     # are many (ImageBind); a bf16 trainables checkpoint (a bf16 run's)
     dtypes = {"vit": torch.float16, "imagebind": torch.float16, "llama": torch.float16,
@@ -2984,12 +3231,13 @@ def reference_slice(dev, seed, checks, card):
         sds = {t: {k: v.to(dtypes.get(t, torch.float32)).cpu() for k, v in sd.items()}
                for t, sd in reference_state_dicts(
                    arch, lambda shape: torch.randn(shape, generator=gen, device=dev),
-                   layers).items()}
+                   layers, blocks).items()}
         paths = write_reference_tree(os.path.join(root, "src"), sds, seed, dtypes)
         src_bytes = sum(_disk_bytes(p) for p in paths.values())
         t_write = time.time() - t0
         print(f"wrote the reference's files ({', '.join(REFERENCE_FILES.values())}; "
-              f"{src_bytes / 2**30:.2f} GiB; LLaMA {layers} of {arch.llama.num_layers} layers) "
+              f"{src_bytes / 2**30:.2f} GiB; LLaMA {layers} of {arch.llama.num_layers} layers, EVA "
+              f"{blocks} of {arch.vit_depth} blocks) "
               f"in {t_write:.1f} s", flush=True)
 
         out = os.path.join(root, "npz")
@@ -3022,10 +3270,14 @@ def reference_slice(dev, seed, checks, card):
         t_load = time.time() - t0
 
         report = model.weights_report
-        cut = [p for p in report["missing"]
-               if not (p.startswith("llama/model/layers_")
-                       and int(p.split("/")[2].split("_")[1]) >= layers)]
-        check(not cut, f"weights missing beyond the cut LLaMA layers: {cut[:5]}")
+        def in_cut(path):
+            parts = path.split("/")
+            if path.startswith("llama/model/layers_"):
+                return int(parts[2].split("_")[1]) >= layers
+            return (path.startswith("visual_encoder/blocks_")
+                    and int(parts[1].split("_")[1]) >= blocks)
+        cut = [p for p in report["missing"] if not in_cut(p)]
+        check(not cut, f"weights missing beyond the cut LLaMA layers and EVA blocks: {cut[:5]}")
         n_cut = len(report["missing"])
         n_leaves = 0
         params = {False: model.module.state_dict(),
@@ -3042,7 +3294,8 @@ def reference_slice(dev, seed, checks, card):
               f"{len(manifest)} towers, {sum(m['params'] for m in manifest.values()) / 1e9:.3f}"
               f"e9 params); loaded through weights:, ckpt: and llama_model in {t_load:.1f} s; "
               f"{n_leaves} leaves bit-equal to converting the in-memory state dicts (LLaMA "
-              f"quantized to int8); missing: {n_cut} leaves, all in the cut LLaMA layers",
+              f"quantized to int8); missing: {n_cut} leaves, all in the cut LLaMA layers "
+              f"and EVA blocks",
               flush=True)
 
         model.vision_expert.build_text_features()
@@ -3151,21 +3404,23 @@ def main(argv=None) -> int:
     del model4
     torch.cuda.empty_cache()
     say(t_start, "phase 8: the AQA evaluation entry point at full width")
-    model8, eval_argv, eval_out = eval_slice(dev, args.seed, checks, card)
+    model8, eval_argv, eval_out, dataset = eval_slice(dev, args.seed, checks, card)
     say(t_start, "phase 9: the continuous-batching engine at full width")
     engine_slice(dev, args.seed, checks, card, model8, eval_argv, eval_out)
     say(t_start, "phase 11: one-shot maps, the expert mux and no expert on phase 8's model")
-    expert_slice(dev, args.seed, checks, card, model8, eval_argv, eval_out)
+    expert_slice(dev, args.seed, checks, card, model8, eval_argv, eval_out, dataset)
     del model8
     torch.cuda.empty_cache()
     say(t_start, "phase 12: the TPU harness's profile (int8 towers, weights:) at full width")
-    harness_slice(dev, args.seed, checks, card, eval_out)
+    harness_slice(dev, args.seed, checks, card, eval_out, dataset)
     torch.cuda.empty_cache()
     say(t_start, "phase 13: the reference's checkpoint files, converted and served")
     reference_slice(dev, args.seed, checks, card)
     torch.cuda.empty_cache()
+    say(t_start, "phase 14: Orbax checkpoints: the zstd decoder and the JAX-written fixture")
+    orbax_rates = orbax_slice(card)
     say(t_start, "phase 10: stage-2 LoRA fine-tuning at full width")
-    train_slice(dev, args.seed, checks, card)
+    train_slice(dev, args.seed, checks, card, orbax_rates)
     say(t_start, "all phases done")
     print(card)
     print(json.dumps({"kernels": [c.record() for c in checks]}))

@@ -4,17 +4,20 @@ merge).
 ``CheckpointManager`` keeps the JAX package's ring rule: a save with an
 integer tag (or a string of digits) joins the ring, and past
 ``max_checkpoints`` the oldest is deleted; other tags ("best") stay.  Each
-save is one ``torch.save`` file, ``checkpoint_{tag}.pth``, holding the
-trainable parameters by name (``model``), the optimizer's state
-(``optimizer``), ``epoch``, ``global_step`` and a ``format`` marker that
-tells the port's files from any other ``.pth``.  ``merge_into`` copies a
+save is an Orbax checkpoint directory, ``checkpoint_{tag}``, in the layout
+the JAX package restores and resumes (``orbax_format.checkpointer.save``);
+``restore(tag)`` reads one back.  ``load_checkpoint`` and
+``is_port_checkpoint`` still read the ``checkpoint_{tag}.pth`` files the port
+wrote before (trainables by name, the optimizer's state, ``epoch``,
+``global_step`` and a ``format`` marker).  ``merge_into`` copies a
 saved state into live parameters by name with the JAX ``merge_trees`` rule
 (strict=False: unknown names and shape mismatches skipped, missing ones
 kept, values cast to the parameter's dtype).  ``load_params`` reads a
 parameter tree that the JAX package's ``save_params`` wrote (``.npz``, flat
-``/``-joined keys) or a torch ``.pth`` state dict (a flat dict, unwrapped
+``/``-joined keys), a torch ``.pth`` state dict (a flat dict, unwrapped
 from a ``model`` entry, as the JAX ``load_params`` reads the reference's
-checkpoints); an Orbax directory raises.  ``save_params`` writes the npz
+checkpoints) or an Orbax checkpoint directory (its whole tree, leaves as
+CPU tensors, the port's own reader).  ``save_params`` writes the npz
 layout.  ``merge_with_paths`` merges such a tree into a module's tensors
 by the same rule, through the weights bridge (``convert_from_jax``), and
 accounts by the tree's paths, as the JAX one does.  ``unwrap_ring`` takes
@@ -26,11 +29,14 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Any, Dict, List, Mapping, Tuple
+import shutil
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from myriad_tpu_torch.orbax_format import checkpointer
 
 FORMAT = "myriad_tpu_torch.checkpoint/1"
 
@@ -89,11 +95,13 @@ def save_params(path: str, tree: Mapping) -> str:
 
 def load_params(path: str) -> Dict:
     """A parameter tree from an ``.npz`` file in the JAX package's
-    ``save_params`` layout (nested dicts of numpy arrays), or the flat dict of
+    ``save_params`` layout (nested dicts of numpy arrays), the flat dict of
     a torch ``.pth``/``.pt``/``.bin`` file (its ``model`` entry when it has
-    one), each tensor as fp32 numpy, read with ``weights_only=True``."""
+    one), each tensor as fp32 numpy, read with ``weights_only=True``, or the
+    tree of an Orbax checkpoint directory, as the JAX ``load_params`` gives
+    ``ocp.StandardCheckpointer().restore`` (leaves as CPU tensors)."""
     if os.path.isdir(path):
-        raise NotImplementedError(f"{path}: Orbax checkpoint directories are not ported")
+        return checkpointer.restore(path)
     if path.endswith(".npz"):
         with np.load(path, allow_pickle=False) as f:
             return unflatten_dict({k: f[k] for k in f.files})
@@ -207,7 +215,7 @@ def is_port_checkpoint(path: str) -> bool:
 
 class CheckpointManager:
     """Epoch checkpoints with ring retention (the JAX package's
-    ``CheckpointManager`` rule, one ``.pth`` file a save)."""
+    ``CheckpointManager`` rule, one Orbax directory a save)."""
 
     def __init__(self, output_dir: str, max_checkpoints: int = -1):
         self.output_dir = output_dir
@@ -216,19 +224,22 @@ class CheckpointManager:
         os.makedirs(output_dir, exist_ok=True)
 
     def path(self, tag) -> str:
-        return os.path.join(self.output_dir, f"checkpoint_{tag}.pth")
+        return os.path.join(self.output_dir, f"checkpoint_{tag}")
 
     def save(self, tag, state: Dict) -> str:
-        """Write ``state`` (tensors, nested dicts and scalars) as
-        ``checkpoint_{tag}.pth``; an integer tag joins the ring."""
-        path = os.path.abspath(self.path(tag))
-        tmp = path + ".tmp"
-        torch.save(dict(state, format=FORMAT), tmp)
-        os.replace(tmp, path)
+        """Write ``state`` (nested dicts and lists of tensors, arrays and
+        numbers) as the directory ``checkpoint_{tag}``; an integer tag joins
+        the ring."""
+        path = checkpointer.save(self.path(tag), state)
         if isinstance(tag, int) or (isinstance(tag, str) and tag.isdigit()):
             self._saved.append(path)
             if self.max_checkpoints > 0 and len(self._saved) > self.max_checkpoints:
-                victim = self._saved.pop(0)
-                if os.path.exists(victim):
-                    os.remove(victim)
+                shutil.rmtree(self._saved.pop(0), ignore_errors=True)
         return path
+
+    def restore(self, tag) -> Optional[Dict]:
+        """The tree saved under ``tag``, or None when there is none."""
+        path = os.path.abspath(self.path(tag))
+        if not os.path.exists(path):
+            return None
+        return checkpointer.restore(path)

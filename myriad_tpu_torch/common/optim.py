@@ -10,12 +10,23 @@ scaled by ``-schedule(count)``; ``mu_dtype`` stores the first moment in
 another dtype.  ``accum_grad_iters`` > 1 is ``optax.MultiSteps``: each
 call folds the gradient into a running mean, and every k-th call updates
 with that mean and clears it.
+
+``optax_tree`` and ``load_optax_tree`` carry the state to and from the optax
+tree that ``make_optimizer``'s chain holds, in the form an Orbax checkpoint
+restores it (dicts and lists): ``clip_by_global_norm``'s empty state as None
+when clipping, then adamw's ``[{count, mu, nu}, {inner_state: None},
+{count}]``, inside ``{mini_step, gradient_step, inner_opt_state, acc_grads,
+skip_state}`` when ``accum_grad_iters`` > 1.  The moments travel as trees in
+the JAX layout, by name: the caller gives the conversions.  Loading matches
+every leaf by its key and raises on a missing, extra or mis-shaped one; it
+never assigns by leaf order (the JAX runner's ``_resume`` does, and puts the
+``MultiSteps`` state's leaves in the wrong places: deviation D3).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -155,3 +166,69 @@ class AdamW:
                 continue
             for i, name in enumerate(self.names):
                 bufs[i].copy_(state[key][name].to(bufs[i].device))
+
+    # -- the optax tree ----------------------------------------------------------
+    def optax_tree(self, to_tree: Callable[[Dict[str, torch.Tensor]], Dict]) -> Any:
+        """The state as ``make_optimizer``'s optax state, restored from an
+        Orbax checkpoint; ``to_tree`` turns {name: tensor} into the JAX-layout
+        tree of the trainables."""
+        count = torch.tensor(self.count, dtype=torch.int32)
+        adam = {"count": count, "mu": to_tree(dict(zip(self.names, self.mu))),
+                "nu": to_tree(dict(zip(self.names, self.nu)))}
+        inner = [[adam, {"inner_state": None}, {"count": count.clone()}]]
+        if self.max_grad_norm is not None:
+            inner.insert(0, None)
+        if self.acc is None:
+            return inner
+        return {"mini_step": torch.tensor(self.mini_step, dtype=torch.int32),
+                "gradient_step": count.clone(), "inner_opt_state": inner,
+                "acc_grads": to_tree(dict(zip(self.names, self.acc))), "skip_state": ()}
+
+    @torch.no_grad()
+    def load_optax_tree(self, state: Any,
+                        from_tree: Callable[[Mapping], Dict[str, torch.Tensor]]) -> None:
+        """Take the state from an optax tree of this optimizer's chain, each
+        leaf by its key; ``from_tree`` turns a JAX-layout tree into {name:
+        tensor in the port's layout}.  Raises ``ValueError`` where the tree is
+        not this chain's or a moment is missing, extra or mis-shaped."""
+        def field(node, key, where):
+            if not isinstance(node, Mapping) or key not in node:
+                raise ValueError(f"optimizer state: no {where}{key}")
+            return node[key]
+
+        inner = state
+        if self.acc is not None:
+            inner = field(state, "inner_opt_state", "")
+        want = 2 if self.max_grad_norm is not None else 1
+        if not isinstance(inner, (list, tuple)) or len(inner) != want:
+            raise ValueError(f"optimizer state: inner_opt_state is not the chain of "
+                             f"{'clip_by_global_norm, ' if want == 2 else ''}adamw")
+        adamw = inner[-1]
+        if not isinstance(adamw, (list, tuple)) or len(adamw) != 3:
+            raise ValueError("optimizer state: adamw's state is not (adam, masked, schedule)")
+        adam = adamw[0]
+        moments = {key: self._named(from_tree(field(adam, key, "adam.")), key)
+                   for key in ("mu", "nu")}
+        if self.acc is not None:
+            moments["acc"] = self._named(from_tree(field(state, "acc_grads", "")), "acc_grads")
+            mini_step = int(field(state, "mini_step", ""))
+            if not 0 <= mini_step < self.k:
+                raise ValueError(f"optimizer state: mini_step {mini_step} outside 0..{self.k - 1}")
+            self.mini_step = mini_step
+        self.count = int(field(adam, "count", "adam."))
+        for key, named in moments.items():
+            bufs = getattr(self, key)
+            for i, name in enumerate(self.names):
+                bufs[i].copy_(named[name].to(bufs[i].device))
+
+    def _named(self, named: Dict[str, torch.Tensor], what: str) -> Dict[str, torch.Tensor]:
+        missing = [n for n in self.names if n not in named]
+        extra = sorted(set(named) - set(self.names))
+        if missing or extra:
+            raise ValueError(f"optimizer state {what}: missing {missing[:3]} "
+                             f"({len(missing)}), extra {extra[:3]} ({len(extra)})")
+        for name, p in zip(self.names, self.params):
+            if tuple(named[name].shape) != tuple(p.shape):
+                raise ValueError(f"optimizer state {what}: {name} has shape "
+                                 f"{tuple(named[name].shape)}, the parameter {tuple(p.shape)}")
+        return named

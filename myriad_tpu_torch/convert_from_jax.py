@@ -24,8 +24,10 @@ reads the JAX package's layout.
 ``jax_leaves`` gives each leaf's '/'-joined path in the JAX tree beside its
 state-dict name (the weights loaders account by those paths, as the JAX
 package does); ``jax_path_of`` goes the other way for a module's state-dict
-name, and ``tree_from_module`` writes a module's parameters back into the
-JAX layout (numpy, fp32 for any float), the tree that ``save_params`` stores.
+name, ``tree_of`` writes named tensors into the JAX layout (dtypes kept: an
+Orbax checkpoint's trainables and optimizer moments), and
+``tree_from_module`` a module's parameters (numpy, fp32 for any float), the
+tree that ``save_params`` stores.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ _LIST_ENTRY = re.compile(r"^(blocks|layers|layer|conv|fc)_(\d+)$")
 
 
 def _to_tensor(x) -> torch.Tensor:
+    if torch.is_tensor(x):  # an Orbax directory's leaves (bfloat16 among them)
+        return x.detach().cpu()
     a = np.asarray(x)
     # np.ascontiguousarray makes a 0-d array 1-d: reshape keeps a scalar a scalar
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
@@ -102,21 +106,34 @@ def jax_path_of(module: nn.Module, name: str) -> str:
     return "/".join(parts + [leaf])
 
 
-def tree_from_module(module: nn.Module) -> Dict:
-    """``module``'s parameters and buffers as a JAX-layout tree of numpy
-    arrays (floats in fp32)."""
+def tree_of(module: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict:
+    """The JAX-layout tree of ``tensors``, entries of ``module``'s state dict
+    by name (or tensors of their shapes, such as an optimizer's moments):
+    each at its ``jax_path_of`` path, kernels in the JAX layout, as CPU
+    tensors of their own dtype."""
     tree: Dict = {}
-    for name, t in module.state_dict().items():
+    for name, t in tensors.items():
         path = jax_path_of(module, name)
         t = t.detach().cpu()
         if path.endswith("/kernel") and t.dim() == 2:
             t = t.t()
         elif path.endswith("/kernel") and t.dim() == 4:
             t = t.permute(2, 3, 1, 0)
-        a = (t.float() if t.is_floating_point() else t).contiguous().numpy()
         node = tree
         *dirs, leaf = path.split("/")
         for d in dirs:
             node = node.setdefault(d, {})
-        node[leaf] = a
+        node[leaf] = t.contiguous()
     return tree
+
+
+def tree_from_module(module: nn.Module) -> Dict:
+    """``module``'s parameters and buffers as a JAX-layout tree of numpy
+    arrays (floats in fp32)."""
+
+    def numpy(node):
+        if isinstance(node, dict):
+            return {k: numpy(v) for k, v in node.items()}
+        return (node.float() if node.is_floating_point() else node).numpy()
+
+    return numpy(tree_of(module, module.state_dict()))

@@ -7,7 +7,6 @@ from __future__ import annotations
 
 import json
 import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
@@ -45,12 +44,13 @@ def default_collate(samples: Sequence[Dict]) -> Dict:
 
 class BaseDataset:
     """The annotations of ``ann_paths`` (relative to ``vis_root`` unless
-    absolute) and, with ``is_preload``, every image decoded up front by 16
-    threads, as the JAX package's preload pool does."""
+    absolute) and, with ``is_preload``, every image decoded up front.  The
+    JAX package decodes with a pool of 16 threads, in which PIL releases
+    the GIL; the port's decoder holds it (numpy steps over small arrays), so
+    threads only add contention and the port decodes in order."""
 
     def __init__(self, vis_processor=None, text_processor=None, vis_root: str = "",
-                 ann_paths: Sequence[str] = (), is_preload: bool = False,
-                 preload_workers: int = 16):
+                 ann_paths: Sequence[str] = (), is_preload: bool = False):
         self.vis_processor = vis_processor
         self.text_processor = text_processor
         self.vis_root = vis_root
@@ -62,8 +62,8 @@ class BaseDataset:
             self.annotation.extend(read_jsonl(full))
         self._cache: Dict[str, np.ndarray] = {}
         if is_preload:
-            with ThreadPoolExecutor(preload_workers) as pool:
-                list(pool.map(self._preload_item, self.annotation))
+            for ann in self.annotation:
+                self._preload_item(ann)
 
     def _preload_item(self, ann: Dict) -> None:
         rel = ann.get("img_path") or ann.get("image")

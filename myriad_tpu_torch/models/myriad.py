@@ -54,6 +54,7 @@ from myriad_tpu_torch.models.vision_expert import AnomalyExpertModule, VisionExp
 from myriad_tpu_torch.models.vision_experts import PrecomputedMaskExpert, build_vision_expert
 from myriad_tpu_torch.ops import quant
 from myriad_tpu_torch.ops.preprocess import u8_normalize
+from myriad_tpu_torch.orbax_format.checkpointer import is_checkpoint as orbax_checkpoint
 from myriad_tpu_torch.tokenization import load_llama_tokenizer
 
 
@@ -199,10 +200,10 @@ class MyriadModule(nn.Module):
 
 
 # config keys whose other values the port does not serve: a checkpoint that
-# is neither an npz tree nor the port's own CheckpointManager's file (an
-# Orbax directory, another .pth)
+# is neither an npz tree, an Orbax checkpoint directory nor the port's own
+# earlier CheckpointManager file (another .pth, a directory without _METADATA)
 UNSERVED_KEYS = {
-    "ckpt": lambda v: (not v or str(v).endswith(".npz")
+    "ckpt": lambda v: (not v or str(v).endswith(".npz") or orbax_checkpoint(str(v))
                        or ckpt_lib.is_port_checkpoint(str(v))),
 }
 # the towers ``load_pretrained_weights`` reads, the root a tower-local tree
@@ -383,10 +384,11 @@ class Myriad:
     def load_checkpoint(self, path: str) -> Tuple[List[str], List[str]]:
         """Merge a checkpoint into the trainables, as the JAX
         ``load_checkpoint`` merges (strict=False: unknown leaves ignored,
-        missing ones kept): a file of the port's ``CheckpointManager`` by
-        name, or an npz tree in the JAX layout by path (a runner ring's
-        ``model`` unwrapped).  Returns (loaded, skipped)."""
-        if path.endswith(".npz"):
+        missing ones kept): an Orbax directory or an npz tree in the JAX
+        layout by path (a runner ring's ``model`` unwrapped), or an earlier
+        ``.pth`` file of the port's ``CheckpointManager`` by name.  Returns
+        (loaded, skipped)."""
+        if path.endswith(".npz") or os.path.isdir(path):
             tree = ckpt_lib.unwrap_ring(ckpt_lib.load_params(path))
             loaded, skipped = ckpt_lib.merge_with_paths(self.trainable_state_dict(), tree)
         else:
@@ -501,12 +503,13 @@ class Myriad:
         (``{vit, qformer, llama, llama_proj, imagebind, decoder}``, npz
         paths; ``load_pretrained_weights``, report in ``weights_report``),
         with a ``q_former_model`` that names a local file folded into
-        ``weights.qformer``, then ``ckpt`` (an npz tree or a file of the
+        ``weights.qformer``, then ``ckpt`` (an npz tree, an Orbax checkpoint
+        directory, a runner ring's unwrapped, or an earlier ``.pth`` of the
         port's ``CheckpointManager``) merged into the trainables.  The LLaMA
         tokenizer is ``llama_model``'s ``tokenizer.model`` where it names one
         (``tokenization.load_llama_tokenizer``), else ``ByteTokenizer``.  A
-        ``ckpt`` the port cannot serve (an Orbax directory, a .pth the port
-        did not write) raises ``NotImplementedError``."""
+        ``ckpt`` the port cannot serve (a directory without ``_METADATA``, a
+        .pth the port did not write) raises ``NotImplementedError``."""
         for key, ok in UNSERVED_KEYS.items():
             if key in cfg and not ok(cfg[key]):
                 raise NotImplementedError(f"config {key}={cfg[key]!r} is not ported")

@@ -349,9 +349,9 @@ def quantize_tree(params: Mapping, path_pattern: str = LLAMA_QUANT_PATTERN,
                   mode: str = "int8") -> dict:
     """Replace each 2-D ``kernel`` leaf whose '/'-joined path matches
     ``path_pattern`` by the quantized Dense layout, on the CPU in fp32 (numpy
-    leaves in and out): ``mode`` "int8" gives {'w_int8' (in, out) int8,
-    'scale' (out,) fp32}, "int4" {'w_int4' (in/2, out) uint8, 'scale4'
-    (in/group, out) fp32}.  Other leaves (a bias beside the kernel among
+    leaves or CPU tensors in, numpy out): ``mode`` "int8" gives {'w_int8'
+    (in, out) int8, 'scale' (out,) fp32}, "int4" {'w_int4' (in/2, out)
+    uint8, 'scale4' (in/group, out) fp32}.  Other leaves (a bias beside the kernel among
     them) pass through."""
     pat = re.compile(path_pattern)
 
@@ -363,7 +363,8 @@ def quantize_tree(params: Mapping, path_pattern: str = LLAMA_QUANT_PATTERN,
             p = f"{path}/{k}" if path else k
             if (k == "kernel" and not isinstance(v, Mapping) and np.ndim(v) == 2
                     and pat.search(p)):
-                w = torch.from_numpy(np.asarray(v, np.float32))
+                w = (v.float() if torch.is_tensor(v)
+                     else torch.from_numpy(np.asarray(v, np.float32)))
                 quantize = quantize_int4_grouped if mode == "int4" else quantize_per_channel
                 names = ("w_int4", "scale4") if mode == "int4" else ("w_int8", "scale")
                 for name, t in zip(names, quantize(w)):

@@ -7,11 +7,18 @@ then ``AdamW.step`` (``common/optim.py``: the optax chain of
 ``make_optimizer``, gradient accumulation as ``optax.MultiSteps``).  The
 loader halves the batch of an AnomalyDetection dataset, whose NSA twins
 double it back; it shuffles the training split from the run's seed, drops
-the last short batch and builds one batch ahead (``PrefetchLoader``).  Each
-epoch ends with a save into the ``CheckpointManager`` ring (trainables by
-name, the optimizer's state, epoch and global step); ``resume_ckpt_path``
-restores one and continues from the epoch after it.  Validation splits and a
-run that only evaluates are not ported and raise.
+the last short batch and builds one batch ahead (``PrefetchLoader``).  After
+an epoch's training each of ``valid_splits`` is evaluated by the task
+(``evaluation`` then ``after_evaluation``); the first split's best
+``agg_metrics`` is saved as ``checkpoint_best``, and ``evaluate: True``
+trains nothing, saves nothing and stops after one epoch, as in the JAX
+runner.  Each trained epoch ends with a save into the ``CheckpointManager``
+ring: the JAX runner's state, ``{"model": the trainables as the JAX tree,
+"optimizer": the optax state, "epoch", "global_step"}``, as an Orbax
+directory the JAX package resumes.  ``resume_ckpt_path`` takes such a
+directory (written by either package), the port's earlier ``.pth`` ring
+files, or a parameter file, and continues from the epoch after it; the
+optimizer's state is matched by name (``AdamW.load_optax_tree``).
 """
 
 from __future__ import annotations
@@ -25,9 +32,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-from myriad_tpu_torch.checkpoint import CheckpointManager, load_checkpoint, merge_into
+from myriad_tpu_torch import checkpoint as ckpt_lib
+from myriad_tpu_torch.checkpoint import CheckpointManager
 from myriad_tpu_torch.common import dist
 from myriad_tpu_torch.common.optim import AdamW, build_schedule
+from myriad_tpu_torch.convert_from_jax import jax_leaves, tree_of
 from myriad_tpu_torch.datasets.loaders import DataLoader, IterLoader, PrefetchLoader
 
 
@@ -48,9 +57,6 @@ class RunnerBase:
         self.log_freq = int(self.run_cfg.get("log_freq", 50))
         self.batch_size_train = int(self.run_cfg.get("batch_size_train", 4))
         self.num_workers = int(self.run_cfg.get("num_workers", 4))
-        if self.run_cfg.get("evaluate", False) or self.run_cfg.get("valid_splits"):
-            raise NotImplementedError("evaluate / valid_splits: validation during training "
-                                      "is not ported")
         self.output_dir = os.path.join(str(self.run_cfg.get("output_dir", "./output")), job_id)
         os.makedirs(self.output_dir, exist_ok=True)
         self.schedule = build_schedule(
@@ -118,22 +124,40 @@ class RunnerBase:
         return loss, lr
 
     # -- checkpoints -------------------------------------------------------------
+    def _to_tree(self, tensors: Dict[str, torch.Tensor]) -> Dict:
+        return tree_of(self.model.module, tensors)
+
+    @staticmethod
+    def _from_tree(tree) -> Dict[str, torch.Tensor]:
+        return {name: t for _, name, t in jax_leaves(tree)}
+
     def _save_checkpoint(self, epoch, is_best: bool = False) -> str:
-        state = {"model": {n: p.detach().cpu()
-                           for n, p in self.model.trainable_state_dict().items()},
-                 "optimizer": _to_cpu(self.optimizer.state_dict()),
-                 "epoch": int(epoch), "global_step": int(self.global_step)}
+        state = {"model": self._to_tree(self.model.trainable_state_dict()),
+                 "optimizer": self.optimizer.optax_tree(self._to_tree),
+                 "epoch": np.asarray(epoch), "global_step": np.asarray(self.global_step)}
         path = self.ckpt_manager.save("best" if is_best else epoch, state)
         logging.info("Saved checkpoint at epoch %d to %s", epoch, path)
         return path
 
     def _resume(self, path: str) -> None:
-        state = load_checkpoint(path)
-        loaded, _ = merge_into(self.model.trainable_state_dict(), state["model"])
-        if "optimizer" in state:
+        """Restore a ring checkpoint: an Orbax directory (the JAX runner's
+        state), one of the port's earlier ``.pth`` files, or, as the JAX
+        runner reads any other file, a parameter tree alone."""
+        trainables = self.model.trainable_state_dict()
+        if os.path.isdir(path) or not ckpt_lib.is_port_checkpoint(path):
+            state = (ckpt_lib.load_params(path) if os.path.isdir(path)
+                     else {"model": ckpt_lib.load_params(path)})
+            loaded, _ = ckpt_lib.merge_with_paths(trainables, state["model"])
+            if "optimizer" in state:
+                self.optimizer.load_optax_tree(state["optimizer"], self._from_tree)
+        else:
+            state = ckpt_lib.load_checkpoint(path)
+            loaded, _ = ckpt_lib.merge_into(trainables, state["model"])
             self.optimizer.load_state_dict(state["optimizer"])
-        self.start_epoch = int(state["epoch"]) + 1
-        self.global_step = int(state["global_step"])
+        if "epoch" in state:
+            self.start_epoch = int(state["epoch"]) + 1
+        if "global_step" in state:
+            self.global_step = int(state["global_step"])
         logging.info("Resumed from %s (epoch %d, %d tensors)", path, self.start_epoch,
                      len(loaded))
 
@@ -145,27 +169,63 @@ class RunnerBase:
         with open(os.path.join(self.output_dir, "log.txt"), "a") as f:
             f.write(json.dumps(self.config.to_dict(), default=str) + "\n")
 
+    # -- validation ----------------------------------------------------------------
+    @property
+    def valid_splits(self):
+        return list(self.run_cfg.get("valid_splits", []))
+
+    def eval_loader(self, split_name: str):
+        """A loader over the datasets' ``split_name`` split, in order, the last
+        short batch kept; None when no dataset has the split."""
+        for splits in self.datasets.values():
+            dataset = splits.get(split_name)
+            if dataset is not None:
+                bs = self.batch_size_train
+                if getattr(dataset, "DatasetName", "") == "AnomalyDetection":
+                    bs = max(bs // 2, 1)
+                return DataLoader(dataset, batch_size=bs, shuffle=False, drop_last=False,
+                                  num_workers=self.num_workers, seed=self.seed)
+        return None
+
+    def eval_epoch(self, split_name: str, epoch):
+        loader = self.eval_loader(split_name)
+        if loader is None:
+            logging.warning("no dataloader for split %s", split_name)
+            return None
+        results = self.task.evaluation(self.model, loader)
+        if results is None:
+            return None
+        return self.task.after_evaluation(val_result=results, split_name=split_name,
+                                          epoch=epoch)
+
     # -- the loop ------------------------------------------------------------------
     def train(self) -> None:
         start = time.time()
         self.log_config()
+        best_agg = -1.0
+        evaluate_only = bool(self.run_cfg.get("evaluate", False))
         loader = self.train_loader
         try:
             for epoch in range(self.start_epoch, self.max_epoch):
-                stats = self.task.train_epoch(epoch, self, loader, self.iters_per_epoch,
-                                              self.log_freq)
-                self.log_stats(stats, "train")
-                self._save_checkpoint(epoch)
+                if not evaluate_only:
+                    stats = self.task.train_epoch(epoch, self, loader, self.iters_per_epoch,
+                                                  self.log_freq)
+                    self.log_stats(stats, "train")
+                for split in self.valid_splits:
+                    logging.info("Evaluating on %s", split)
+                    metrics = self.eval_epoch(split, epoch)
+                    if metrics is not None:
+                        agg = float(metrics.get("agg_metrics", -1.0))
+                        if split == self.valid_splits[0] and agg > best_agg:
+                            best_agg = agg
+                            self._save_checkpoint(epoch, is_best=True)
+                        self.log_stats(metrics, split)
+                if not evaluate_only:
+                    self._save_checkpoint(epoch)
                 dist.barrier(f"epoch_{epoch}")
+                if evaluate_only:
+                    break
         finally:
             loader.close()
         total = time.time() - start
         logging.info("Training time %s", time.strftime("%H:%M:%S", time.gmtime(total)))
-
-
-def _to_cpu(tree):
-    if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    if torch.is_tensor(tree):
-        return tree.detach().cpu()
-    return tree

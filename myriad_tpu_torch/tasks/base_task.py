@@ -1,6 +1,9 @@
 """The base task (counterpart of ``myriad_tpu/tasks/base_task.py``): builds the
-model and the datasets from the config and runs an epoch as
-``iters_per_epoch`` training iterations of the runner."""
+model and the datasets from the config, runs an epoch as
+``iters_per_epoch`` training iterations of the runner, and evaluates a
+split as the JAX task does: ``evaluation`` gathers ``valid_step``'s results
+over the loader (``valid_step`` is left to a task), ``after_evaluation``
+turns them into metrics (None here)."""
 
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ from typing import Dict
 
 import numpy as np
 
+from myriad_tpu_torch.common import dist
 from myriad_tpu_torch.common.config import get_model_class
 from myriad_tpu_torch.common.logger import MetricLogger, SmoothedValue
 from myriad_tpu_torch.common.profiling import StepTimer, device_memory_stats
@@ -73,3 +77,18 @@ class BaseTask:
             logging.info("device memory: %.0f MiB peak", mem["peak_bytes_in_use_mib"])
         logging.info("Averaged stats: %s", metric_logger.global_avg())
         return {k: f"{meter.global_avg:.3f}" for k, meter in metric_logger.meters.items()}
+
+    def evaluation(self, model, data_loader):
+        """Every batch's ``valid_step`` results, in order."""
+        metric_logger = MetricLogger(delimiter="  ")
+        results = []
+        for samples in metric_logger.log_every(data_loader, 10, "Evaluation"):
+            results.extend(self.valid_step(model=model, samples=samples))
+        dist.barrier("eval")
+        return results
+
+    def valid_step(self, model, samples):
+        raise NotImplementedError
+
+    def after_evaluation(self, val_result, split_name, epoch, **kwargs):
+        return None

@@ -506,9 +506,10 @@ def test_random_init_is_seeded_and_full():
 
 
 def test_import_leaves_jax_out():
-    """The port imports no JAX, flax, nor the host libraries the card lacks,
-    and no module of the JAX package, through every entry point and a tiny
-    (speculative) generate."""
+    """The port imports no JAX, flax, nor the host libraries the card lacks
+    (orbax, tensorstore and zstd among them), and no module of the JAX
+    package, through every entry point, a restore of the committed
+    JAX-written Orbax ring and a tiny (speculative) generate."""
     code = ("import sys, numpy as np, myriad_tpu_torch, myriad_tpu_torch.generation, "
             "myriad_tpu_torch.convert_from_jax, myriad_tpu_torch.models.myriad, "
             "myriad_tpu_torch.ops.quant, myriad_tpu_torch.ops.attention, "
@@ -525,7 +526,13 @@ def test_import_leaves_jax_out():
             "myriad_tpu_torch.datasets.nsa, myriad_tpu_torch.datasets.builders, "
             "myriad_tpu_torch.models.vision_experts, myriad_tpu_torch.models.simplenet, "
             "myriad_tpu_torch.models.clip_tokenizer, myriad_tpu_torch.tokenization, "
-            "myriad_tpu_torch.convert, myriad_tpu_torch.tools.convert_weights\n"
+            "myriad_tpu_torch.convert, myriad_tpu_torch.tools.convert_weights, "
+            "myriad_tpu_torch.orbax_format.checkpointer, myriad_tpu_torch.orbax_format.ocdbt, "
+            "myriad_tpu_torch.orbax_format.zarr, myriad_tpu_torch.orbax_format.zstd\n"
+            # the committed JAX-written ring, through the port's own Orbax reader
+            "from myriad_tpu_torch.checkpoint import load_params\n"
+            "ring = load_params('tests/orbax_fixture/ring/checkpoint_1')\n"
+            "assert int(ring['global_step']) == 6\n"
             "from myriad_tpu_torch.models.myriad import Myriad\n"
             "m = Myriad.from_config({'arch_preset': 'tiny', 'llm_weight_dtype': 'int8', "
             "'llm_kv_dtype': 'int8', 'llm_spec_k': 2}, device='cpu', class_names=['bottle'])\n"
@@ -556,7 +563,8 @@ def test_import_leaves_jax_out():
             "'--save_path', os.path.join(root, 'rows.jsonl')])\n"
             "assert len(res['rows']) == 2\n"
             "bad = [n for n in ('jax', 'flax', 'yaml', 'PIL', 'cv2', 'transformers', "
-            "'safetensors', 'sentencepiece', 'google.protobuf') "
+            "'safetensors', 'sentencepiece', 'google.protobuf', 'orbax', 'tensorstore', "
+            "'zstandard', 'ml_dtypes') "
             "if n in sys.modules]\n"
             "bad += [n for n in sys.modules if n == 'myriad_tpu' or n.startswith('myriad_tpu.')]\n"
             "print('BAD', bad)")
@@ -573,6 +581,10 @@ _PATH_CALLS = {"open", "Path", "PurePath", "join", "exists", "isfile", "isdir", 
                "Popen", "check_output"}
 
 
+# libraries of the CPU host that the card lacks: oracles of the tests only
+_HOST_ONLY = {"jax", "flax", "orbax", "tensorstore", "zstandard"}
+
+
 def _reaches_jax_package(text) -> bool:
     return isinstance(text, str) and (text == "myriad_tpu" or text.startswith("myriad_tpu/")
                                       or text.startswith("myriad_tpu."))
@@ -584,8 +596,9 @@ def _call_name(func) -> str:
 
 def test_port_sources_reach_nothing_of_the_jax_package():
     """Static check of every .py under myriad_tpu_torch/ and chip_smoke.py: no
-    import of ``myriad_tpu`` or its modules, no dynamic import machinery, and
-    no path into ``myriad_tpu/`` handed to a call that reads or loads."""
+    import of ``myriad_tpu`` or its modules, nor of jax, flax, orbax,
+    tensorstore or zstandard, no dynamic import machinery, and no path into
+    ``myriad_tpu/`` handed to a call that reads or loads."""
     files = sorted(Path(REPO, "myriad_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
     assert len(files) > 20
     # every subpackage is walked, tools/ included
@@ -593,15 +606,17 @@ def test_port_sources_reach_nothing_of_the_jax_package():
     assert Path(REPO, "myriad_tpu_torch", "serving", "engine.py") in files
     assert Path(REPO, "myriad_tpu_torch", "tools", "convert_weights.py") in files
     assert Path(REPO, "myriad_tpu_torch", "convert", "networks.py") in files
+    assert Path(REPO, "myriad_tpu_torch", "orbax_format", "ocdbt.py") in files
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             hit = False
             if isinstance(node, ast.Import):
                 hit = any(_reaches_jax_package(a.name) or a.name == "importlib"
-                          for a in node.names)
+                          or a.name.split(".")[0] in _HOST_ONLY for a in node.names)
             elif isinstance(node, ast.ImportFrom):
-                hit = _reaches_jax_package(node.module or "") or node.module == "importlib"
+                hit = (_reaches_jax_package(node.module or "") or node.module == "importlib"
+                       or (node.module or "").split(".")[0] in _HOST_ONLY)
             elif isinstance(node, ast.Call) and _call_name(node.func) in _PATH_CALLS:
                 args = node.args + [kw.value for kw in node.keywords]
                 hit = any(_reaches_jax_package(c.value) for a in args for c in ast.walk(a)

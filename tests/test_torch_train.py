@@ -13,11 +13,18 @@
   result; both schedules within 1e-7 over 50 steps;
 * the checkpoint ring against the JAX manager's names and retention, the
   train -> serve loop (``ckpt:``), and ``myriad_tpu_torch.train.main`` on a
-  tiny YAML (finite losses, the ring, a resume that continues the step).
+  tiny YAML (finite losses, the ring, a resume that continues the step);
+* Orbax rings between the runners: the port's ring restored by orbax and
+  resumed by the JAX runner's ``_resume`` (the same trainables and optax
+  state), and a JAX-written ring resumed by the port equal by name, whose
+  next step's loss (1e-5), gradients and updated trainables (1e-4) are the
+  JAX runner's, resumed from the same directory.
 
-Four JAX ``value_and_grad`` compiles in all (one a case).
+Four JAX ``value_and_grad`` compiles in all (one a case; the float case's
+serves the resumed step).
 """
 
+import copy
 import dataclasses
 import functools
 import os
@@ -26,6 +33,8 @@ import re
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
+import orbax.checkpoint as ocp
 import pytest
 import torch
 
@@ -35,6 +44,8 @@ from myriad_tpu.models.layers import Policy as JaxPolicy
 from myriad_tpu.models.myriad import MyriadArch as JaxArch
 from myriad_tpu.models.myriad import MyriadModule as JaxMyriadModule
 from myriad_tpu.ops import quant as jax_quant
+from myriad_tpu.runners.runner_base import RunnerBase as JaxRunner
+from myriad_tpu.tasks.image_text_pretrain import ImageTextPretrainTask as JaxTask
 from myriad_tpu_torch import checkpoint as ckpt_lib
 from myriad_tpu_torch.common import optim
 from myriad_tpu_torch.convert_from_jax import state_dict_from_jax
@@ -42,7 +53,9 @@ from myriad_tpu_torch.models.layers import Policy
 from myriad_tpu_torch.models.llama import LlamaConfig
 from myriad_tpu_torch.models.myriad import Myriad, MyriadArch
 from myriad_tpu_torch.ops import quant
+from myriad_tpu_torch.runners.runner_base import RunnerBase as PortRunner
 from test_torch_myriad import SCENES, TracedInitMyriad, _jax_variant, _perturb
+from test_torch_orbax import _cfg, _equal_named, _opt_by_name, _port_opt
 import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -102,11 +115,16 @@ def _rel(a, b):
     return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
 
 
+@functools.lru_cache(maxsize=None)
+def _loss_and_grads(jm, stage):
+    """``jm``'s jitted loss and gradient at ``stage``: one compile for every
+    test that steps the same model."""
+    return jax.jit(jax.value_and_grad(lambda tr, fr, a: jm.pure_loss(tr, fr, a, (stage,))))
+
+
 def _jax_grads(jm, arrays, stage):
-    fn = jax.jit(jax.value_and_grad(
-        lambda tr, fr, a: jm.pure_loss(tr, fr, a, (stage,))))
     jarrays = {k: jnp.asarray(v.numpy()) for k, v in arrays.items()}
-    loss, grads = fn(jm.trainable, jm.frozen, jarrays)
+    loss, grads = _loss_and_grads(jm, stage)(jm.trainable, jm.frozen, jarrays)
     return float(loss), state_dict_from_jax(jax.tree_util.tree_map(np.asarray, grads))
 
 
@@ -317,5 +335,112 @@ def test_checkpoint_ring_matches_jax(tmp_path):
         jm.save(t, {"x": np.zeros(2, np.float32)})
         pm.save(t, {"model": {"x": torch.zeros(2)}, "epoch": 0})
     jax_names = sorted(os.listdir(tmp_path / "jax"))
-    assert sorted(n[:-len(".pth")] for n in os.listdir(tmp_path / "port")) == jax_names
+    assert sorted(os.listdir(tmp_path / "port")) == jax_names
     assert jax_names == ["checkpoint_3", "checkpoint_4", "checkpoint_best"]
+
+
+# -- Orbax rings between the two runners, on the pair (the rest of the Orbax
+# tests: tests/test_torch_orbax.py) ------------------------------------------
+def _jax_model(jm):
+    """A copy of the pair's JAX model whose trainables a resume replaces."""
+    return copy.copy(jm)
+
+
+def test_port_ring_restored_by_orbax_and_resumed_by_jax(pair, tmp_path):
+    """The port's ``_save_checkpoint`` after two AdamW steps: orbax restores
+    the JAX runner's state ({model, optimizer, epoch, global_step}, the
+    optax tree of ``make_optimizer``), and the JAX runner's ``_resume``
+    (``accum_grad_iters: 1``, clipping on) takes the same trainables and
+    optax state."""
+    jm, pm = pair
+    runner = PortRunner(_cfg(tmp_path, "port", max_grad_norm=1.0), None, pm, {})
+    before = {n: p.detach().clone() for n, p in pm.trainable_parameters()}
+    g = torch.Generator().manual_seed(4)
+    for _ in range(2):
+        for _, p in pm.trainable_parameters():
+            p.grad = torch.randn(p.shape, generator=g) * 0.1
+        runner.optimizer.step()
+        runner.global_step += 1
+    path = runner._save_checkpoint(0)
+    saved = {n: p.detach().clone() for n, p in pm.trainable_parameters()}
+    with torch.no_grad():  # leave the pair as it was
+        for n, p in pm.trainable_parameters():
+            p.copy_(before[n])
+            p.grad = None
+    restored = ocp.StandardCheckpointer().restore(path)
+    assert (int(restored["epoch"]), int(restored["global_step"])) == (0, 2)
+    assert restored["optimizer"][0] is None  # clip_by_global_norm's empty state
+    jr = JaxRunner(_cfg(tmp_path, "jax", max_grad_norm=1.0,
+                        resume_ckpt_path=path), JaxTask(), _jax_model(jm), {})
+    _equal_named(state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jr.model.trainable)),
+                 saved)
+    count, mu, nu = _opt_by_name(jr._opt_state)
+    ours = _port_opt(runner.optimizer)
+    assert count == ours[0] == 2
+    _equal_named(ours[1], mu)
+    _equal_named(ours[2], nu)
+    assert (jr.start_epoch, jr.global_step) == (1, 2)
+
+
+def test_port_resumes_a_jax_ring_and_steps_as_jax(pair, batch, tmp_path):
+    """A JAX-written ring (the JAX ``CheckpointManager``, after two optax
+    updates of the pair's trainables): the port's ``_resume`` takes the
+    trainables and Adam's state equal by name; one more step on the same
+    batch gives the JAX runner's loss (1e-5), gradients (1e-4) and updated
+    trainables (1e-4), the JAX runner resumed from the same directory."""
+    jm, pm = pair
+    jr0 = JaxRunner(_cfg(tmp_path, "jax0"), JaxTask(), _jax_model(jm), {})
+    tx = jr0.tx
+    params = jax.tree_util.tree_map(jnp.asarray, jm.trainable)
+    opt = tx.init(params)
+    update = jax.jit(tx.update)  # one compile; eager optax compiles every op
+    rng = np.random.default_rng(8)
+    for _ in range(2):
+        grads = jax.tree_util.tree_map(
+            lambda p: jnp.asarray(rng.normal(0, 0.05, p.shape).astype(np.float32)), params)
+        updates, opt = update(grads, opt, params)
+        params = optax.apply_updates(params, updates)
+    jr0.model.trainable, jr0._opt_state, jr0.global_step = params, opt, 2
+    jr0._save_checkpoint(1)
+    path = os.path.join(jr0.output_dir, "checkpoint_1")
+
+    jr = JaxRunner(_cfg(tmp_path, "jax", resume_ckpt_path=path), JaxTask(), _jax_model(jm), {})
+    before = {n: p.detach().clone() for n, p in pm.trainable_parameters()}
+    pr = PortRunner(_cfg(tmp_path, "port", resume_ckpt_path=path), None, pm, {})
+    try:
+        assert (pr.start_epoch, pr.global_step) == (jr.start_epoch, jr.global_step) == (2, 2)
+        _equal_named(pm.trainable_state_dict(),
+                     state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jr.model.trainable)))
+        count, mu, nu = _opt_by_name(jr._opt_state)
+        ours = _port_opt(pr.optimizer)
+        assert ours[0] == count == 2
+        _equal_named(ours[1], mu)
+        _equal_named(ours[2], nu)
+
+        stage = 1
+        jarrays = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+
+        ref_loss, ref_grads = _loss_and_grads(jm, stage)(jr.model.trainable, jm.frozen,
+                                                         jarrays)
+        updates, _ = update(ref_grads, jr._opt_state, jr.model.trainable)
+        new = optax.apply_updates(jr.model.trainable, updates)
+        pr.optimizer.zero_grad()
+        loss = pm.train_loss(batch, (stage,))
+        loss.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).clone()
+                 for n, p in pm.trainable_parameters()}
+        pr.optimizer.step()
+        loss = float(loss.detach())
+        assert abs(loss - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))
+        ref = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, ref_grads))
+        for n, gref in ref.items():
+            if np.linalg.norm(gref.numpy()) > 0:
+                assert _rel(grads[n].numpy(), gref.numpy()) <= 1e-4, n
+        ref = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, new))
+        for n, p in pm.trainable_parameters():
+            assert _rel(p.detach().numpy(), ref[n].numpy()) <= 1e-4, n
+    finally:
+        with torch.no_grad():
+            for n, p in pm.trainable_parameters():
+                p.copy_(before[n])
+                p.grad = None

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from fixtures import make_ad_dataset
+from myriad_tpu_torch import checkpoint as ckpt_lib
 from myriad_tpu_torch import train
+from myriad_tpu_torch.convert_from_jax import jax_leaves
 from myriad_tpu_torch.datasets import builders
 from myriad_tpu_torch.models.myriad import Myriad
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -135,11 +137,11 @@ def test_train_main_trains_saves_and_resumes(cfg_path, tmp_path):
         if n in frozen:
             assert torch.equal(p, frozen[n]) and p.grad is None, n
     files = sorted(os.listdir(runner.output_dir))
-    assert files == ["checkpoint_1.pth", "log.txt"]
-    ckpt = os.path.join(runner.output_dir, "checkpoint_1.pth")
-    state = torch.load(ckpt, weights_only=True)
-    assert set(state["model"]) == set(model.trainable_names)
-    assert (state["epoch"], state["global_step"]) == (1, 4)
+    assert files == ["checkpoint_1", "log.txt"]
+    ckpt = os.path.join(runner.output_dir, "checkpoint_1")
+    state = ckpt_lib.load_params(ckpt)
+    assert ({n for _, n, _ in jax_leaves(state["model"])} == set(model.trainable_names))
+    assert (int(state["epoch"]), int(state["global_step"])) == (1, 4)
 
     resumed = train.build(["--cfg-path", cfg_path, "--options",
                            f"run.output_dir={tmp_path / 'resumed'}",
@@ -159,7 +161,7 @@ def test_ckpt_serves_the_trained_trainables(cfg_path, tmp_path):
     over them) holds the trained trainables bit for bit."""
     runner = train.main(["--cfg-path", cfg_path, "--options", f"run.output_dir={tmp_path}",
                          "run.max_epoch=1", "run.iters_per_epoch=1"])
-    ckpt = os.path.join(runner.output_dir, "checkpoint_0.pth")
+    ckpt = os.path.join(runner.output_dir, "checkpoint_0")
     cfg = dict(runner.config.model_cfg, ckpt=ckpt)
     served = Myriad.from_config(cfg, device="cpu")
     served.init_random(cfg.get("seed", 0))
@@ -171,8 +173,8 @@ def test_ckpt_serves_the_trained_trainables(cfg_path, tmp_path):
 
 
 def test_ckpt_that_the_port_did_not_write_raises(tmp_path):
-    """A .pth that the port did not write and an Orbax directory raise; an
-    npz tree is read (the JAX layout: tests/test_torch_weights.py holds it to
+    """A .pth that the port did not write and a directory that is no Orbax
+    checkpoint (no ``_METADATA``) raise; an npz tree is read (the JAX layout: tests/test_torch_weights.py holds it to
     the JAX load), here one whose only leaf names no trainable."""
     npz = tmp_path / "trainables.npz"
     np.savez(npz, x=np.zeros(2))

@@ -14,7 +14,9 @@ CPU in fp32 at ``MyriadArch.tiny``.
   token ids identical and VE maps within 1e-5.  A raw BLIP-2 ``.pth`` as
   ``q_former_model`` and an npz ``ckpt:`` (bare, or a runner ring's
   ``model``) against that JAX model with the JAX load applied on top (what
-  its ``from_config`` does after the towers), sharing its compiled programs.
+  its ``from_config`` does after the towers), sharing its compiled programs;
+  the same for ``ckpt:`` a JAX-written Orbax ring and a ``weights:`` tower
+  saved by orbax (the port's own Orbax reader).
 * ``weights.llama`` quantized on load to int8 and int4: every leaf
   byte-identical to the JAX quantization; a partial load's ``loaded``,
   ``skipped`` and ``missing`` as the JAX report's; ``use_ve: False`` with
@@ -440,6 +442,33 @@ def test_npz_ckpt_as_jax(loaded, tmp_path, ring):
     assert set(ref) == set(live)
     for name, t in ref.items():
         np.testing.assert_array_equal(live[name].detach().numpy(), t.numpy(), err_msg=name)
+    _same_params(jm, pm)
+    _same_generate(jm, pm)
+
+
+def test_orbax_ckpt_and_weights_tower_as_jax(loaded, towers, tmp_path):
+    """``ckpt:`` a runner ring the JAX ``CheckpointManager`` wrote (an Orbax
+    directory: OCDBT, zstd chunks) and ``weights.llama_proj`` a tower saved
+    by ``ocp.StandardCheckpointer``: both read by the port's own Orbax
+    reader, the same parameters and tokens as the JAX model's loads of the
+    same directories."""
+    import orbax.checkpoint as ocp
+
+    cfg, jm0, _, initial = loaded
+    rng = np.random.default_rng(11)
+    trainable = _perturb(jax.tree_util.tree_map(np.asarray, jm0.trainable), rng, std=0.3)
+    ring = jax_ckpt.CheckpointManager(str(tmp_path / "ring")).save(
+        2, {"model": trainable, "epoch": np.asarray(2), "global_step": np.asarray(12)})
+    proj = str(tmp_path / "llama_proj")
+    saver = ocp.StandardCheckpointer()
+    saver.save(proj, _perturb(towers["llama_proj"], rng, std=0.05))
+    saver.wait_until_finished()
+    cfg = dict(cfg, weights=dict(cfg["weights"], llama_proj=proj), ckpt=ring)
+    jm = _jax_copy(jm0)
+    jm.load_pretrained_weights({"llama_proj": proj})
+    jm.load_checkpoint(ring)
+    pm = _port_model(cfg, *initial)
+    assert pm.weights_report["loaded"]["llama_proj"]
     _same_params(jm, pm)
     _same_generate(jm, pm)
 
