@@ -170,7 +170,26 @@ Phases, each printing its own lines:
    chunks) through the port's own reader and hold every leaf's dtype, shape
    and sha256 and every libzstd frame's decoded sha256 to its
    ``expected.json``; the decoder's MB/s over the fixture's frames repeated
-   to 256 MB.
+   to 256 MB;
+15. after phase 10: MiniGPT-4's training, the other ``train`` path.  (a)
+   Build the port's JPEG decoder (``csrc/jpeg_decode.cpp``) with this
+   machine's host C++ compiler and hold each image of the committed
+   ``tests/jpeg_fixture`` (12 baseline JPEGs, 1x1 to 1024x768) to its
+   ``expected.json`` (Pillow's decode, tolerance 0); ms an image and MB/s,
+   one host thread.  (b) ``train.build`` and ``runner.train`` on
+   ``train_configs/minigpt4_stage1_pretrain.yaml`` at full width (batch 64,
+   random weights) over laion (2 shards) and cc_sbu (1 shard) tar shards of
+   the fixture's JPEGs written under build/, 3 steps: losses finite, the
+   laion / cc_sbu picks equal to ``default_rng(seed).choice(2, p=[115, 14] /
+   129)``, every frozen tensor bit-identical, ``llama_proj`` changed, no
+   kernel B1-B7 launched; samples/s, the phase means, peak memory and one
+   more step by CUDA events; then draws on until laion and cc_sbu have each
+   given a batch, and runs each one's first batch through the model on the
+   card (captions from its own shards, loss finite).  (c) The same for
+   ``minigpt4_stage2_finetune.yaml`` (batch 12, ``max_txt_len`` 160,
+   ``prompts/alignment.txt``) over a cc_sbu_align tree of the fixture, with
+   ``model.ckpt`` stage 1's ring: its ``llama_proj`` equal to the saved one
+   bit for bit before the first step.
 
 With ``--parent DIR`` (a checkout of another tree, such as the parent
 commit's), phase 1 also builds DIR's kernels, compares their SASS with this
@@ -2939,6 +2958,327 @@ def train_slice(dev, seed, checks, card, orbax_rates=None):
     torch.cuda.empty_cache()
 
 
+# phase 15: MiniGPT-4's stage-1 and stage-2 training over JPEGs (tests/jpeg_fixture,
+# written by tests/make_jpeg_fixture.py with Pillow over libjpeg-turbo)
+JPEG_FIXTURE = os.path.join(REPO, "tests", "jpeg_fixture")
+JPEG_RATE_PASSES = 5  # passes over the fixture a decode rate is measured over
+STAGE1_CONFIG = os.path.join("train_configs", "minigpt4_stage1_pretrain.yaml")
+STAGE2_CONFIG = os.path.join("train_configs", "minigpt4_stage2_finetune.yaml")
+STAGE_STEPS = 3
+STAGE1_SHARDS = {"laion": 2, "cc_sbu": 1}
+ALIGN_CAPTIONS = 2  # cc_sbu_align entries an image
+MIX_DRAWS = 64  # stage 1's further draws, at most, until laion and cc_sbu have both given one
+
+
+def jpeg_slice(card):
+    """Phase 15 (a): build the JPEG decoder with this machine's host compiler
+    and hold each fixture image's decode to ``expected.json`` (Pillow's, the
+    sha256 of its RGB bytes); ms per image and MB/s of JPEG bytes, one host
+    thread.  Returns {name: bytes} of the fixture."""
+    import hashlib
+
+    from myriad_tpu_torch.common.host_build import compiler
+    from myriad_tpu_torch.datasets import jpeg
+
+    t0 = time.time()
+    lib = jpeg.build()
+    jpeg.library()
+    print(f"JPEG decoder built by {compiler()} in {time.time() - t0:.1f} s: {lib.name}",
+          flush=True)
+    with open(os.path.join(JPEG_FIXTURE, "expected.json")) as f:
+        expected = json.load(f)["images"]
+    files = {}
+    for name, rec in expected.items():
+        with open(os.path.join(JPEG_FIXTURE, name), "rb") as f:
+            files[name] = f.read()
+        rgb = jpeg.decode_jpeg(files[name])
+        check(list(rgb.shape) == rec["shape"]
+              and hashlib.sha256(rgb.tobytes()).hexdigest() == rec["sha256"],
+              f"{name} decodes to other bytes than Pillow's")
+    n_bytes = sum(len(b) for b in files.values())
+    pixels = sum(rec["shape"][0] * rec["shape"][1] for rec in expected.values())
+    walls = []
+    for _ in range(JPEG_RATE_PASSES):
+        t = time.perf_counter()
+        for data in files.values():
+            jpeg.decode_jpeg(data)
+        walls.append(time.perf_counter() - t)
+    wall = statistics.median(walls)
+    big = max(files, key=lambda n: len(files[n]))
+    print(f"fixture: {len(files)} JPEGs ({n_bytes} bytes, {pixels} pixels; 4:4:4, 4:2:2, "
+          f"4:2:0, gray, optimized tables, restarts, 1x1 to 1024x768), each decode's sha256 "
+          f"equal to Pillow's in expected.json; decode median of {JPEG_RATE_PASSES} passes "
+          f"{wall * 1e3:.2f} ms a pass, {wall * 1e3 / len(files):.3f} ms an image, "
+          f"{n_bytes / wall / 1e6:.2f} MB/s of JPEG bytes, {pixels / wall / 1e6:.2f} Mpixel/s; "
+          f"{big} ({len(files[big])} bytes) {_host_ms(lambda: jpeg.decode_jpeg(files[big])):.2f} "
+          f"ms; one host thread; card: {card}", flush=True)
+    return files
+
+
+def write_caption_data(root, files, seed):
+    """Stage 1's webdataset shards (laion: 2, cc_sbu: 1; each the fixture's
+    JPEGs with json or txt captions, written with ``tarfile``) and stage 2's
+    cc_sbu_align tree (``image/{id}.jpg``, ``filter_cap.json``)."""
+    import io
+    import shutil
+    import tarfile
+
+    import numpy as np
+
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed + 15)
+    words = ("a", "synthetic", "photo", "of", "colour", "fields", "with", "round", "shapes",
+             "red", "blue", "bright", "dark", "edges", "and", "noise", "on", "the", "left")
+    caption = lambda n: " ".join(words[int(i)] for i in rng.integers(0, len(words), n))
+    names = sorted(files)
+    for dataset, n_shards in STAGE1_SHARDS.items():
+        os.makedirs(os.path.join(root, dataset))
+        for shard in range(n_shards):
+            with tarfile.open(os.path.join(root, dataset, f"{shard:05d}.tar"), "w") as tar:
+                for i, name in enumerate(names):
+                    key = f"{shard:03d}{i:04d}"
+                    text = f"{dataset} {key}: {caption(int(rng.integers(5, 25)))}."
+                    meta = (json.dumps({"caption": text}).encode(), "json") if i % 4 else (
+                        text.encode(), "txt")
+                    for data, ext in ((files[name], "jpg"), meta):
+                        info = tarfile.TarInfo(f"{key}.{ext}")
+                        info.size = len(data)
+                        tar.addfile(info, io.BytesIO(data))
+    align = os.path.join(root, "cc_sbu_align")
+    os.makedirs(os.path.join(align, "image"))
+    anns = []
+    for i, name in enumerate(names):
+        with open(os.path.join(align, "image", f"{i}.jpg"), "wb") as f:
+            f.write(files[name])
+        for _ in range(ALIGN_CAPTIONS):  # long enough to reach max_txt_len 160
+            anns.append({"image_id": str(i), "caption": caption(int(rng.integers(30, 60)))})
+    with open(os.path.join(align, "filter_cap.json"), "w") as f:
+        json.dump({"annotations": anns}, f)
+
+
+class _Picked:
+    """One loader of a ``MultiIterLoader`` that notes its index in ``picks``
+    at every batch it gives."""
+
+    def __init__(self, index, loader, picks):
+        self.index, self.loader, self.picks = index, loader, picks
+
+    def __next__(self):
+        self.picks.append(self.index)
+        return next(self.loader)
+
+    def close(self):
+        close = getattr(self.loader, "close", None)
+        if close is not None:
+            close()
+
+
+def _stage_run(dev, checks, card, label, argv):
+    """``train.build`` + ``runner.train()`` of one MiniGPT-4 config at full
+    width: every loss finite, no kernel B1-B7 launched, every frozen tensor
+    bit-identical afterwards (a snapshot on the card), ``llama_proj``
+    changed; samples/s, the phases, peak memory; then one more step timed
+    by CUDA events.  Returns (runner, the training loader, the saved ring,
+    the loader index of each batch when it mixes several)."""
+    import numpy as np
+    import torch
+
+    from myriad_tpu_torch import train
+
+    held = torch.cuda.memory_allocated(dev)  # what earlier phases still hold
+    t0 = time.time()
+    runner = train.build(argv)
+    model = runner.model
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    check(type(model).__name__ == "MiniGPT4" and model.device.type == dev.type,
+          f"{label}: train built {type(model).__name__} on {model.device}")
+    samples_per_step = runner.batch_size_train
+    trainable = dict(model.trainable_parameters())
+    check(sorted(trainable) == ["llama_proj.bias", "llama_proj.weight"],
+          f"{label}: trainables {sorted(trainable)}")
+    frozen = [(n, p) for n, p in model.module.named_parameters() if not p.requires_grad]
+    snap = {n: p.detach().clone() for n, p in frozen}
+    before = {n: p.detach().clone() for n, p in trainable.items()}
+    snap_bytes = sum(t.numel() * t.element_size() for t in snap.values())
+    print(f"{label}: train.build at full width on {model.device} (run.device "
+          f"{runner.run_cfg.device!r}) in {t_build:.1f} s; policy {model.policy}; "
+          f"{sum(p.numel() for p in model.module.parameters())} parameters, "
+          f"{len(model.prompt_list)} prompts, max_txt_len {model.max_txt_len}, end_sym "
+          f"{model.end_sym!r}; snapshot of {len(frozen)} frozen tensors "
+          f"({snap_bytes / 2**30:.2f} GiB) on the card", flush=True)
+    seen = {"picks": []}
+    train_epoch = runner.task.train_epoch
+
+    def keep_loader(epoch, runner_, loader, *a, **k):
+        seen["loader"] = loader
+        if hasattr(loader, "loaders"):  # a MultiIterLoader: note whose batch each is
+            loader.loaders = [_Picked(i, sub, seen["picks"])
+                              for i, sub in enumerate(loader.loaders)]
+        return train_epoch(epoch, runner_, loader, *a, **k)
+
+    runner.task.train_epoch = keep_loader
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, wall, launches = drive(checks, label, runner.train, [])
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(v == 0 for v in launches.values()), f"{label}: kernels launched {launches}")
+    losses = runner.losses
+    check(len(losses) == STAGE_STEPS and all(np.isfinite(losses)), f"{label}: losses {losses}")
+    for n, p in frozen:
+        check(p.grad is None and torch.equal(p.detach(), snap[n]),
+              f"{label}: frozen {n} changed or holds a gradient")
+    del snap
+    for n, p in trainable.items():
+        check(not torch.equal(p.detach(), before[n]), f"{label}: {n} did not change")
+    hist = runner.task.timer.history
+    iters = [d + s for d, s in zip(hist["data"], hist["step"])]
+    rate = samples_per_step / statistics.median(iters[1:])
+    print(f"{label}: {STAGE_STEPS} steps in {wall:.3f} s; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; launches {launches}; all {len(frozen)} "
+          f"frozen tensors bit-identical and without .grad, llama_proj changed", flush=True)
+    print(f"{label} samples/s: {rate:.4f} ({samples_per_step} a step, median of the steps after "
+          f"the first; data + step s {', '.join(f'{x:.3f}' for x in iters)}); StepTimer means: "
+          f"data {statistics.mean(hist['data']) * 1e3:.1f} ms, step "
+          f"{statistics.mean(hist['step']) * 1e3:.1f} ms; peak device memory with the "
+          f"{snap_bytes / 2**30:.2f} GiB snapshot {peak / 2**30:.2f} GiB, without it "
+          f"{(peak - snap_bytes) / 2**30:.2f} GiB, {(peak - snap_bytes - held) / 2**30:.2f} GiB "
+          f"above the {held / 2**30:.2f} GiB held before the build; card: {card}", flush=True)
+
+    loader = seen["loader"]
+    samples = next(loader)
+    opt = runner.optimizer
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    t_step = time.perf_counter()
+    arrays, static = model.prepare_train_arrays(samples, np.random.default_rng(0))
+    opt.zero_grad()
+    ev[0].record()
+    loss = model.train_loss(arrays, static)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t_step
+    fwd, bwd, upd = (ev[k].elapsed_time(ev[k + 1]) for k in range(3))
+    positions = (1 + arrays["before"].numel() + model.arch.num_query_token
+                 + arrays["after"].numel() + arrays["text_ids"].shape[1])
+    print(f"{label}: one more step ({arrays['text_ids'].shape[0]} sequences of {positions} "
+          f"positions), CUDA events: forward {fwd:.1f} ms, backward {bwd:.1f} ms, optimizer "
+          f"{upd:.1f} ms; host clock {t_step * 1e3:.1f} ms with the host prep (loss "
+          f"{float(loss.detach()):.4f}); card: {card}", flush=True)
+    ring = os.path.join(runner.output_dir, "checkpoint_0")
+    check(sorted(os.listdir(runner.output_dir)) == ["checkpoint_0", "log.txt"],
+          f"{label}: output {sorted(os.listdir(runner.output_dir))}")
+    return runner, loader, ring, seen["picks"]
+
+
+def _each_stream(dev, checks, card, runner, loader, picks):
+    """Draws on from stage 1's ``MultiIterLoader`` until every loader in it
+    (laion, cc_sbu) has given a batch, and runs the first batch of each
+    through ``prepare_train_arrays`` and ``train_loss`` on the card: its
+    captions all from that dataset's shards, its loss finite."""
+    import numpy as np
+    import torch
+
+    names = list(STAGE1_SHARDS)
+    model = runner.model
+    t0 = time.time()
+    losses = {}
+    while len(losses) < len(names) and len(picks) < STAGE_STEPS + 1 + MIX_DRAWS:
+        samples = next(loader)
+        idx = picks[-1]
+        if idx in losses:
+            continue
+        heads = {text.split()[0] for text in samples["text_input"]}
+        check(heads == {names[idx]}, f"stage 1: a batch of loader {idx} ({names[idx]}) holds "
+                                     f"captions of {sorted(heads)}")
+        with torch.no_grad():
+            arrays, static = model.prepare_train_arrays(samples, np.random.default_rng(idx))
+            check(arrays["image"].device.type == dev.type,
+                  f"stage 1: {names[idx]}'s batch on {arrays['image'].device}")
+            losses[idx] = float(model.train_loss(arrays, static))
+        check(np.isfinite(losses[idx]), f"stage 1: {names[idx]}'s batch loss {losses[idx]}")
+    check(sorted(losses) == list(range(len(names))),
+          f"stage 1: {len(picks)} draws gave batches of loaders {sorted(set(picks))} only")
+    print(f"stage 1: every stream through the model, drawn on from the same MultiIterLoader "
+          f"({len(picks) - STAGE_STEPS - 1} more draws): "
+          + ", ".join(f"{names[i]} ({runner.batch_size_train} samples) loss {losses[i]:.4f}"
+                      for i in sorted(losses))
+          + f"; {time.time() - t0:.1f} s; card: {card}", flush=True)
+
+
+def minigpt4_slice(dev, seed, checks, card):
+    """Phase 15: the JPEG decoder (a), then ``python -m myriad_tpu_torch.train``'s
+    runner on MiniGPT-4's stage-1 config over laion and cc_sbu shards (b) and
+    on the stage-2 config over a cc_sbu_align tree with ``model.ckpt`` stage
+    1's ring (c), each at full width, random weights from --seed."""
+    import numpy as np
+    import torch
+
+    from myriad_tpu_torch import checkpoint as ckpt_lib
+
+    files = jpeg_slice(card)
+    root = os.path.join(REPO, "build", "minigpt4_data")
+    t0 = time.time()
+    write_caption_data(root, files, seed)
+    print(f"wrote laion ({STAGE1_SHARDS['laion']} shards), cc_sbu ({STAGE1_SHARDS['cc_sbu']}) "
+          f"of {len(files)} JPEGs each, and cc_sbu_align ({len(files)} images, "
+          f"{len(files) * ALIGN_CAPTIONS} captions) under {root} in {time.time() - t0:.1f} s",
+          flush=True)
+    out = os.path.join(REPO, "build", "minigpt4_out")
+    common = [f"model.seed={seed}", "run.max_epoch=1", f"run.iters_per_epoch={STAGE_STEPS}"]
+    argv1 = ["--cfg-path", os.path.join(REPO, STAGE1_CONFIG), "--options", *common,
+             f"datasets.laion.build_info.storage={root}/laion/*.tar",
+             f"datasets.cc_sbu.build_info.storage={root}/cc_sbu/*.tar",
+             f"run.output_dir={out}/stage1"]
+    runner, loader, ring, picks = _stage_run(dev, checks, card, "stage 1", argv1)
+    check(runner._train_ratios == [115.0, 14.0], f"stage 1 ratios {runner._train_ratios}")
+    _each_stream(dev, checks, card, runner, loader, picks)
+    draws = np.random.default_rng(runner.seed)
+    expected = [int(draws.choice(2, p=[115 / 129, 14 / 129])) for _ in picks]
+    check(picks == expected and len(picks) > STAGE_STEPS + 1,
+          f"stage 1 picks {picks}, MultiIterLoader's draws {expected}")
+    print(f"stage 1: laion / cc_sbu picks {picks} equal "
+          f"default_rng({runner.seed}).choice(2, p=[115, 14] / 129) (the steps', the timed "
+          f"step's, then the draws until each stream gave a batch)", flush=True)
+    saved = ckpt_lib.load_params(ring)["model"]["llama_proj"]
+    loader.close()
+    del runner, loader
+    torch.cuda.empty_cache()
+
+    argv2 = ["--cfg-path", os.path.join(REPO, STAGE2_CONFIG), "--options", *common,
+             f"datasets.cc_sbu_align.build_info.storage={root}/cc_sbu_align",
+             f"model.prompt_path={os.path.join(REPO, 'prompts', 'alignment.txt')}",
+             f"model.ckpt={ring}", f"run.output_dir={out}/stage2"]
+    from myriad_tpu_torch import train
+
+    build = train.build
+    first = {}
+
+    def build_and_check(argv):
+        runner = build(argv)
+        proj = runner.model.module.llama_proj
+        first["same"] = (torch.equal(proj.weight.detach().cpu(), saved["kernel"].t())
+                         and torch.equal(proj.bias.detach().cpu(), saved["bias"]))
+        return runner
+
+    train.build = build_and_check
+    try:
+        runner, loader, _, _ = _stage_run(dev, checks, card, "stage 2", argv2)
+    finally:
+        train.build = build
+    check(first["same"], "stage 2: llama_proj is not stage 1's saved one before the first step")
+    check(runner.model.max_txt_len == 160 and runner.model.end_sym == "###"
+          and len(runner.model.prompt_list) >= 1, "stage 2: the config's model keys")
+    print(f"stage 2: llama_proj equal to stage 1's ring ({ring}) bit for bit before the first "
+          f"step (model.ckpt)", flush=True)
+    loader.close()
+    del runner, loader
+    torch.cuda.empty_cache()
+
+
 # phase 13: the reference's checkpoint files, written from --seed
 # the cut depths: a 32-layer fp32 LLaMA npz is 27 GB of disk, and the phase's
 # write, convert and load move with the bytes (ImageBind stays whole: the
@@ -3421,6 +3761,9 @@ def main(argv=None) -> int:
     orbax_rates = orbax_slice(card)
     say(t_start, "phase 10: stage-2 LoRA fine-tuning at full width")
     train_slice(dev, args.seed, checks, card, orbax_rates)
+    torch.cuda.empty_cache()
+    say(t_start, "phase 15: MiniGPT-4 stage-1 and stage-2 training over JPEGs at full width")
+    minigpt4_slice(dev, args.seed, checks, card)
     say(t_start, "all phases done")
     print(card)
     print(json.dumps({"kernels": [c.record() for c in checks]}))

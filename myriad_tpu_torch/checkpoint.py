@@ -171,15 +171,37 @@ def merge_with_paths(params: Mapping[str, torch.Tensor], tree: Mapping,
     """The JAX package's ``merge_with_paths`` over live tensors: merge a
     JAX-layout tree into ``params`` (state-dict name -> tensor, copied in
     place) by ``merge_into``'s rule; returns (loaded, skipped) as the tree's
-    '/'-joined paths, each under ``prefix`` when given."""
-    from myriad_tpu_torch.convert_from_jax import jax_leaves
+    '/'-joined paths, each under ``prefix`` when given.  As in the JAX walk,
+    a subtree that ``params`` lacks is skipped as one path (its root), a
+    leaf whose shape differs by its own path."""
+    from myriad_tpu_torch.convert_from_jax import _LIST_ENTRY, jax_leaves
 
     incoming, path_of = {}, {}
     for path, name, value in jax_leaves(tree):
         incoming[name] = value
-        path_of[name] = f"{prefix}/{path}" if prefix else path
+        path_of[name] = path
     loaded, skipped = merge_into(params, incoming)
-    return [path_of[n] for n in loaded], [path_of[n] for n in skipped]
+    nodes = set()  # every state-dict name and name prefix of ``params``
+    for name in params:
+        parts = name.split(".")
+        nodes.update(".".join(parts[:i]) for i in range(1, len(parts) + 1))
+    out_skipped: List[str] = []
+    for name in skipped:
+        segs = path_of[name].split("/")
+        node = len(segs)  # a shape mismatch: the leaf itself
+        if name not in params:
+            dotted = ""
+            for i, seg in enumerate(segs[:-1]):
+                m = _LIST_ENTRY.match(seg)
+                dotted += ("." if dotted else "") + (f"{m.group(1)}.{m.group(2)}" if m else seg)
+                if dotted not in nodes:
+                    node = i + 1
+                    break
+        path = "/".join(segs[:node])
+        if path not in out_skipped:
+            out_skipped.append(path)
+    join = (lambda p: f"{prefix}/{p}") if prefix else (lambda p: p)
+    return [join(path_of[n]) for n in loaded], [join(p) for p in out_skipped]
 
 
 def merge_params(module: nn.Module, tree: Mapping) -> Tuple[List[str], List[str]]:

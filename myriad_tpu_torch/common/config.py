@@ -27,6 +27,12 @@ def _myriad():
     return Myriad
 
 
+def _mini_gpt4():
+    from myriad_tpu_torch.models.mini_gpt4 import MiniGPT4
+
+    return MiniGPT4
+
+
 class ModelEntry(NamedTuple):
     load: Callable[[], type]  # the model class, imported when asked for
     default_model_type: str
@@ -34,9 +40,18 @@ class ModelEntry(NamedTuple):
 
 
 MODELS = {"myriad": ModelEntry(_myriad, "pretrain_vicuna",
-                               {"pretrain_vicuna": "models/minigpt4.yaml"})}
+                               {"pretrain_vicuna": "models/minigpt4.yaml"}),
+          "mini_gpt4": ModelEntry(_mini_gpt4, "pretrain_vicuna",
+                                  {"pretrain_vicuna": "models/minigpt4.yaml"})}
 # dataset name -> {type: default YAML under CONFIG_ROOT}
-DATASET_CONFIGS = {"anomaly_detection": {"default": "datasets/anomaly_detection/base.yaml"}}
+DATASET_CONFIGS = {
+    "anomaly_detection": {"default": "datasets/anomaly_detection/base.yaml"},
+    "two_class_anomaly_detection": {"default": "datasets/anomaly_detection/2cls.yaml"},
+    "laion": {"default": "datasets/laion/defaults.yaml"},
+    "cc_sbu": {"default": "datasets/cc_sbu/defaults.yaml"},
+    "cc_sbu_align": {"default": "datasets/cc_sbu/align.yaml"},
+    "panda": {"default": "datasets/panda/base.yaml"},
+}
 
 
 def _lookup(kind: str, table: Mapping, name: str):

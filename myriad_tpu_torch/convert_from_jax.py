@@ -1,11 +1,11 @@
 """Weights bridge: the JAX package's parameter trees -> the port's state dicts.
 
-``state_dict_from_jax`` takes a nested dict of arrays (``Myriad.params`` or
-``VisionExpert.params["params"]`` from ``myriad_tpu``, or a SimpleNet
-embedder's or head's tree, leaves as anything ``np.asarray`` reads) and
-returns the state dict that the port's ``MyriadModule``,
-``AnomalyExpertModule``, ``SimpleNetEmbedder`` or ``SimpleHead`` loads with
-``strict=True``.
+``state_dict_from_jax`` takes a nested dict of arrays (``Myriad.params``,
+``MiniGPT4.params`` or ``VisionExpert.params["params"]`` from
+``myriad_tpu``, or a SimpleNet embedder's or head's tree, leaves as anything
+``np.asarray`` reads) and returns the state dict that the port's
+``MyriadModule``, ``MiniGPT4Module``, ``AnomalyExpertModule``,
+``SimpleNetEmbedder`` or ``SimpleHead`` loads with ``strict=True``.
 The port's modules mirror the JAX package's module names, so the bridge only:
 
 * turns list entries ``blocks_3`` / ``layers_3`` / ``layer_3`` / ``conv_3`` /

@@ -1,7 +1,7 @@
 """The anomaly-detection dataset (counterpart of
 ``myriad_tpu/datasets/anomaly_detection.py``).
 
-Each item is the PNG at ``img_path`` decoded as PIL would (``png.read_png``),
+Each item is the PNG or JPEG at ``img_path`` decoded as PIL would (``jpeg.read_image``),
 resized and centre-cropped as PIL would (``processors.functional``), and
 normalised to float32 HWC with the CLIP statistics, as the JAX dataset's
 ``LocImageTrainProcessor(identity=True)`` does: the same floats to the bit.
@@ -213,3 +213,52 @@ class AnomalyDetectionDataset(BaseDataset):
                                      if float(np.sum(aug_sample["gt_seg_map"])) == 0.0
                                      else abnormal)
         return ret
+
+
+# the two-class set's instructions, copied from myriad_tpu/datasets/anomaly_detection.py
+TWOCLS_INSTRUCTIONS = [
+    "This image has not been edited. According to IAD expert opinions, find out if there are defects in this image.",
+    "This image has not been edited. According to IAD expert opinions and corresponding visual descriptions, find out if there are defects in this image.",
+    "This image has not been edited. According to IAD expert visual descriptions, find out if there are defects in this image.",
+]
+
+
+class TwoClassAnomalyDetectionDataset(BaseDataset):
+    """The supervised two-class set over real test images, normal and
+    anomalous (PNG or JPEG): each image resized and centre-cropped as PIL
+    would, then through ``vis_processor`` as {"img": uint8} (the 2cls
+    config names none, so the item's ``image`` is the crop's 0-255 values
+    as float32, as in the JAX dataset), answered by its ``is_anomaly``."""
+
+    DatasetName = "TwoClassAnomalyDetection"
+
+    def __init__(self, vis_processor, text_processor, vis_root: str, ve_root: str = "",
+                 ann_paths: Sequence[str] = (), img_size: int = 224, crop_size: int = 224,
+                 version: int = 0, is_preload: bool = False, stage: str = "train",
+                 seed: Optional[int] = None):
+        self.ve_root = ve_root
+        self.stage = stage
+        self.img_size = img_size
+        self.crop_size = crop_size
+        self.version = version
+        self.rng = np.random.default_rng(seed)
+        super().__init__(vis_processor, text_processor, vis_root, ann_paths, is_preload)
+
+    def __getitem__(self, index: int) -> Dict:
+        ann = self.annotation[index]
+        image = F.center_crop(F.resize_bicubic(self.prepare_img(index), self.img_size),
+                              self.crop_size)
+        data_sample = self.vis_processor({"img": image})
+        is_anomaly = ann.get("is_anomaly") == "1" or ann.get("is_anomaly") is True
+        q = "<Img><ImageHere></Img>" + TWOCLS_INSTRUCTIONS[1]
+        return {
+            "image": np.asarray(data_sample["img"], np.float32),
+            "scene": ann["img_path"].split("/")[1],
+            "question": q,
+            "question2": q,
+            "question3": q,
+            "text_input": ABNORMAL_DESCRIBE if is_anomaly else NORMAL_DESCRIBE,
+            "image_id": index,
+            "is_anomaly": is_anomaly,
+            "img_path": os.path.join(self.vis_root, ann["img_path"]),
+        }

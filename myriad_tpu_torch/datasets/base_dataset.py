@@ -1,7 +1,7 @@
 """jsonl annotations, an optional RAM preload and collation (counterpart of
-``myriad_tpu/datasets/base_dataset.py``).  Images are decoded by the port's
-PNG reader (``datasets/png.py``), as ``Image.open(path).convert("RGB")`` gives
-them."""
+``myriad_tpu/datasets/base_dataset.py``).  Images, PNG or JPEG, are decoded
+by the port's own readers (``datasets/jpeg.read_image``), as
+``Image.open(path).convert("RGB")`` gives them."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
-from myriad_tpu_torch.datasets.png import read_png
+from myriad_tpu_torch.datasets.jpeg import read_image
 
 
 def read_jsonl(path: str) -> List[Dict]:
@@ -57,24 +57,32 @@ class BaseDataset:
         self.ann_paths = list(ann_paths)
         self.is_preload = is_preload
         self.annotation: List[Dict] = []
-        for path in self.ann_paths:
-            full = path if os.path.isabs(path) else os.path.join(vis_root, path)
-            self.annotation.extend(read_jsonl(full))
+        self.load_annotations()
         self._cache: Dict[str, np.ndarray] = {}
         if is_preload:
             for ann in self.annotation:
                 self._preload_item(ann)
 
+    def load_annotations(self) -> None:
+        """Every row of the ``ann_paths`` files (relative to ``vis_root`` unless absolute)."""
+        for path in self.ann_paths:
+            full = path if os.path.isabs(path) else os.path.join(self.vis_root, path)
+            self.annotation.extend(self.read_annotations(full))
+
+    def read_annotations(self, path: str) -> List[Dict]:
+        """The rows of one annotation file: jsonl here, a subclass's own format there."""
+        return read_jsonl(path)
+
     def _preload_item(self, ann: Dict) -> None:
         rel = ann.get("img_path") or ann.get("image")
-        self._cache[rel] = read_png(os.path.join(self.vis_root, rel))
+        self._cache[rel] = read_image(os.path.join(self.vis_root, rel))
 
     def prepare_img(self, index: int) -> np.ndarray:
         """The image as ``Image.open(path).convert("RGB")`` gives it: (H, W, 3) uint8."""
         rel = self.annotation[index]["img_path"]
         if self.is_preload and rel in self._cache:
             return self._cache[rel]
-        return read_png(os.path.join(self.vis_root, rel))
+        return read_image(os.path.join(self.vis_root, rel))
 
     def __len__(self) -> int:
         return len(self.annotation)

@@ -6,7 +6,9 @@ when ``drop_last``), collated by the dataset's ``collater``, built by a
 thread pool that keeps ``2 * num_workers`` batches in flight.  ``IterLoader``
 wraps it into an endless iterator that starts the next epoch when one ends;
 ``PrefetchLoader`` builds batches ahead of the consumer in a background
-thread.  NSA synthesis and PNG decoding run in
+thread.  ``IterableBatcher`` batches an endless sample stream (the tar
+shards of ``caption_datasets``), and ``MultiIterLoader`` draws which of
+several loaders gives each batch by ``rng.choice(p=ratios / sum)``.  NSA synthesis and PNG decoding run in
 numpy, scipy and zlib, which release the GIL for most of their time.
 """
 
@@ -15,7 +17,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -150,3 +152,64 @@ class PrefetchLoader:
                 yield item
         finally:
             done.set()
+
+
+class IterableBatcher:
+    """Batches of ``batch_size`` samples from an (endless) sample iterator,
+    collated by ``default_collate``; a stream that ends is started again."""
+
+    def __init__(self, dataset, batch_size: int, collate_fn: Optional[Callable] = None):
+        from myriad_tpu_torch.datasets.base_dataset import default_collate
+
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn or default_collate
+        self._iter = iter(dataset)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = []
+        restarted = False
+        while len(batch) < self.batch_size:
+            try:
+                batch.append(next(self._iter))
+                restarted = False
+            except StopIteration:
+                if restarted and not batch:
+                    raise RuntimeError("IterableBatcher: the stream yields no samples") from None
+                self._iter = iter(self.dataset)
+                restarted = True
+        return self.collate_fn(batch)
+
+    def close(self) -> None:
+        close = getattr(self._iter, "close", None)
+        if close is not None:
+            close()
+
+
+class MultiIterLoader:
+    """Each batch from one of ``loaders``, drawn by
+    ``default_rng(seed).choice(len(loaders), p=ratios / sum(ratios))``."""
+
+    def __init__(self, loaders: Sequence, ratios: Optional[Sequence[float]] = None,
+                 seed: int = 0):
+        self.loaders = list(loaders)
+        ratios = [1.0] * len(self.loaders) if ratios is None else list(ratios)
+        total = sum(ratios)
+        self.probs = [r / total for r in ratios]
+        self.rng = np.random.default_rng(seed)
+
+    def __next__(self):
+        idx = int(self.rng.choice(len(self.loaders), p=self.probs))
+        return next(self.loaders[idx])
+
+    def __iter__(self):
+        return self
+
+    def close(self) -> None:
+        for loader in self.loaders:
+            close = getattr(loader, "close", None)
+            if close is not None:
+                close()

@@ -9,8 +9,8 @@ The steps are the reference demo's: the YAML is merged with the dotted
 ``--options`` (``common.config.Config``); the model is ``model.arch``'s,
 built by its ``from_config`` on ``run.device`` (the card when unset; ``cpu``
 runs it on the CPU), its weights random from ``--seed`` where ``weights:``
-and ``ckpt:`` supply none; the image is decoded (PNG; a JPEG raises
-``NotImplementedError``) and resized to the model's image size with PIL's
+and ``ckpt:`` supply none; the image is decoded (PNG or JPEG,
+``datasets.jpeg.read_image``) and resized to the model's image size with PIL's
 bicubic filter (``processors.functional.pil_resize``); ``Chat`` normalises
 it with ``LocImageTrainProcessor(identity=True)``.
 """
@@ -27,7 +27,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Myriad chat demo (PyTorch port)")
     parser.add_argument("--cfg-path", required=True, help="path to the configuration YAML")
     parser.add_argument("--image", required=True,
-                        help="PNG image to chat about (JPEG decoding is not ported yet)")
+                        help="PNG or JPEG image to chat about")
     parser.add_argument("--max-new-tokens", type=int, default=90)
     parser.add_argument("--options", nargs="+",
                         help="override settings of the YAML, as dotted key=value pairs "
@@ -38,7 +38,7 @@ def main(argv=None) -> int:
 
     from myriad_tpu_torch.common.config import Config, get_model_class
     from myriad_tpu_torch.conversation import CONV_VISION, Chat
-    from myriad_tpu_torch.datasets.png import read_png
+    from myriad_tpu_torch.datasets.jpeg import read_image
     from myriad_tpu_torch.processors.blip_processors import LocImageTrainProcessor
     from myriad_tpu_torch.processors.functional import pil_resize
 
@@ -55,7 +55,7 @@ def main(argv=None) -> int:
     conv = CONV_VISION.copy()
     img_list = []
     size = model.arch.img_size
-    print(chat.upload_img(pil_resize(read_png(args.image), size, size), conv, img_list))
+    print(chat.upload_img(pil_resize(read_image(args.image), size, size), conv, img_list))
     print("Type a question ('quit' to exit).")
     for line in sys.stdin:
         q = line.strip()

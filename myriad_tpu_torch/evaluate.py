@@ -18,7 +18,7 @@ or port ``ckpt:`` load over them; the towers serve in int8 with
 It runs on the card named by the config's ``run.device`` (``cuda`` when
 unset; without a card that raises), and ``run.device: cpu`` runs it on the
 CPU.  The images are decoded and resized on the host exactly as PIL does
-(``datasets.png``, ``processors.functional``) and normalised to float32, as
+(``datasets.jpeg.read_image``, ``processors.functional``) and normalised to float32, as
 the JAX harness feeds its towers.  ``--engine`` serves every image as a
 request of the continuous-batching engine over ``--bs`` slots
 (``serving.MyriadServing``), with the same rows and a ``--bench`` line of its
@@ -44,7 +44,7 @@ import torch
 from myriad_tpu_torch.common.config import Config, get_model_class
 from myriad_tpu_torch.datasets.anomaly_detection import AnomalyDetectionDataset
 from myriad_tpu_torch.datasets.loaders import DataLoader
-from myriad_tpu_torch.datasets.png import read_png
+from myriad_tpu_torch.datasets.jpeg import read_image
 from myriad_tpu_torch.models.vision_expert import ReferenceSpec
 from myriad_tpu_torch.processors import functional as F
 
@@ -117,7 +117,7 @@ def load_reference_images(paths, size: int = 224) -> np.ndarray:
     bicubic resize of the short edge to ``size``, centre crop, CLIP
     normalisation): (K, size, size, 3) float32."""
     return np.stack([F.normalize(F.to_float_hwc(F.center_crop(
-        F.resize_bicubic(read_png(p), size), size))) for p in paths])
+        F.resize_bicubic(read_image(p), size), size))) for p in paths])
 
 
 def setup_vision_expert(model, dataset, data_root: str, round_index: int, k_shot: int) -> None:

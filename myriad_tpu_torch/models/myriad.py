@@ -42,9 +42,10 @@ from myriad_tpu_torch.datasets.anomaly_detection import ABNORMAL_DESCRIBE, NORMA
 from myriad_tpu_torch.generation import (GenerationConfig, greedy_generate,
                                          speculative_generate)
 from myriad_tpu_torch.models.clip_tokenizer import ClipBpeTokenizer, HashTokenizer
+from myriad_tpu_torch.models.base import TrainableModel
 from myriad_tpu_torch.models.eva_vit import EvaViT
 from myriad_tpu_torch.models.imagebind import ImageBindConfig
-from myriad_tpu_torch.models.layers import (Dense, LayerNorm, LayerNormFp32, Policy,
+from myriad_tpu_torch.models.layers import (Dense, LayerNormFp32, Policy,
                                             init_random_, new_param)
 from myriad_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM, lm_cross_entropy,
                                            serving_cache_dtype)
@@ -232,7 +233,7 @@ def policy_from_config(cfg: Mapping) -> Optional[Policy]:
     return None
 
 
-class Myriad:
+class Myriad(TrainableModel):
     """Host class: the module, the vision expert, prompt ids and ``generate``.
 
     The LLaMA tokenizer is ``llama_model``'s (``load_llama_tokenizer``: a
@@ -331,26 +332,11 @@ class Myriad:
 
         return pred
 
-    def _split_trainable(self) -> List[str]:
-        """Give the trainables (and LayerNorm scales) the parameter dtype and,
-        when training, ``requires_grad``; returns the trainable names."""
-        pred = self.trainable_predicate()
-        param_dtype = self.policy.param_dtype
-        mods = [(self.module, "")]
+    def split_modules(self):
+        mods = [(self.module, True)]
         if self.vision_expert is not None:
-            mods.append((self.vision_expert.module, None))
-        scales = {id(m.weight) for mod, _ in mods for m in mod.modules()
-                  if isinstance(m, LayerNorm)}
-        names = []
-        for mod, prefix in mods:
-            for name, p in mod.named_parameters():
-                train = prefix is not None and pred(name)
-                if (train or id(p) in scales) and p.dtype != param_dtype:
-                    p.data = p.data.to(param_dtype)
-                p.requires_grad_(train and self.training)
-                if train:
-                    names.append(name)
-        return names
+            mods.append((self.vision_expert.module, False))
+        return mods
 
     def build_expert(self, vis_expert: Optional[str], vis_expert_args: Optional[Mapping] = None):
         """The expert that serves the maps, as the JAX ``Myriad`` picks it:
@@ -371,34 +357,6 @@ class Myriad:
                 map_size=self.arch.map_size, device=self.device)
         kwargs.setdefault("adrefexpert", self.vision_expert)
         return build_vision_expert(vis_expert, device=self.device, **kwargs)
-
-    def trainable_state_dict(self) -> Dict[str, torch.Tensor]:
-        params = dict(self.module.named_parameters())
-        return {n: params[n] for n in self.trainable_names}
-
-    def trainable_parameters(self) -> List[Tuple[str, nn.Parameter]]:
-        params = dict(self.module.named_parameters())
-        return [(n, params[n]) for n in self.trainable_names]
-
-    @torch.no_grad()
-    def load_checkpoint(self, path: str) -> Tuple[List[str], List[str]]:
-        """Merge a checkpoint into the trainables, as the JAX
-        ``load_checkpoint`` merges (strict=False: unknown leaves ignored,
-        missing ones kept): an Orbax directory or an npz tree in the JAX
-        layout by path (a runner ring's ``model`` unwrapped), or an earlier
-        ``.pth`` file of the port's ``CheckpointManager`` by name.  Returns
-        (loaded, skipped)."""
-        if path.endswith(".npz") or os.path.isdir(path):
-            tree = ckpt_lib.unwrap_ring(ckpt_lib.load_params(path))
-            loaded, skipped = ckpt_lib.merge_with_paths(self.trainable_state_dict(), tree)
-        else:
-            state = ckpt_lib.load_checkpoint(path)
-            loaded, skipped = ckpt_lib.merge_into(self.trainable_state_dict(), state["model"])
-        if not loaded:
-            logging.warning("load checkpoint from %s matched no trainable parameter", path)
-        logging.info("load checkpoint from %s (%d loaded, %d unknown)", path, len(loaded),
-                     len(skipped))
-        return loaded, skipped
 
     # -- pretrained towers --------------------------------------------------------
     def _check_ve_weights(self, weights: Mapping) -> None:
@@ -614,13 +572,7 @@ class Myriad:
         """'###Human: ' + q + ' ###Assistant: ' split at <ImageHere>, tokenised once."""
         prompt = "###Human: " + question + " ###Assistant: "
         if prompt not in self._prompt_cache:
-            before, after = prompt.split("<ImageHere>")
-            ids = []
-            for piece in (before, after):
-                tok = self.llama_tokenizer(piece, add_special_tokens=False)["input_ids"]
-                tok = tok[0] if tok and isinstance(tok[0], list) else tok
-                ids.append(torch.tensor(tok, dtype=torch.int64, device=self.device))
-            self._prompt_cache[prompt] = (ids[0], ids[1])
+            self._prompt_cache[prompt] = self.prompt_ids(*prompt.split("<ImageHere>"))
         return self._prompt_cache[prompt]
 
     # -- sample prep ----------------------------------------------------------
@@ -691,20 +643,6 @@ class Myriad:
         once."""
         image, question, scenes, paths = self._image_question(samples, stage, False)
         return image, question, self._expert_maps(image, scenes, paths, self.k_shot > 0)
-
-    def tokenize_targets(self, texts: Sequence[str]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(ids, mask) (B, max_txt_len): each text and ``end_sym`` tokenised,
-        cut to ``max_txt_len`` and right-padded with 0."""
-        ln = self.max_txt_len
-        ids = np.zeros((len(texts), ln), np.int64)
-        mask = np.zeros((len(texts), ln), np.int64)
-        for i, t in enumerate(texts):
-            row = self.llama_tokenizer(t + self.end_sym, add_special_tokens=False)["input_ids"]
-            row = list(row[0] if row and isinstance(row[0], list) else row)[:ln]
-            ids[i, :len(row)] = row
-            mask[i, :len(row)] = 1
-        return (torch.as_tensor(ids, device=self.device),
-                torch.as_tensor(mask, device=self.device))
 
     # -- training ---------------------------------------------------------------
     def prepare_train_arrays(self, samples: Dict, rng: np.random.Generator):

@@ -1,31 +1,22 @@
 """Zstandard decoding for Orbax checkpoints, through the port's own decoder.
 
 ``csrc/zstd_decode.cpp`` (RFC 8878, written for this package) is compiled at
-first use with the host C++ compiler (``$CXX``, else ``c++``) into
-``build/host/`` beside the package, under a name that carries a digest of the
-source and flags, and loaded with ``ctypes``.  Builds from several processes
-take one file lock, so concurrent first uses compile once.  Without a
-compiler ``library()`` raises and names it: nothing decodes zstd another way.
+first use with the host C++ compiler into ``build/host/`` and loaded with
+``ctypes`` (``common/host_build.py``).  Without a compiler ``library()``
+raises and names it: nothing decodes zstd another way.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "zstd_decode.cpp"
-BUILD_DIR = _PKG.parent / "build" / "host"
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+from myriad_tpu_torch.common import host_build
+from myriad_tpu_torch.common.host_build import compiler  # noqa: F401  (chip_smoke prints it)
+
+SOURCE = host_build.PKG / "csrc" / "zstd_decode.cpp"
 
 _P = ctypes.c_void_p
 _S = ctypes.c_size_t
@@ -39,59 +30,13 @@ _SIGNATURES = {
 # the decoder's error codes (csrc/zstd_decode.cpp)
 _DICTIONARY = 3
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_HOST = host_build.HostLibrary(SOURCE, "libmyriad_zstd", _SIGNATURES)
+build = _HOST.build  # compile once per source digest; returns the library's path
+library = _HOST.library
 
 
 class ZstdError(ValueError):
     """A frame that is truncated, corrupt or fails its checksum."""
-
-
-def compiler() -> str:
-    """The host C++ compiler: ``$CXX``, else ``c++`` on the PATH."""
-    name = os.environ.get("CXX") or "c++"
-    path = shutil.which(name)
-    if path is None:
-        raise RuntimeError(f"the zstd decoder is built from {SOURCE} with a host C++ compiler, "
-                           f"and {name!r} was not found (set CXX)")
-    return path
-
-
-def build() -> Path:
-    """Compile the decoder once per source digest; returns the library."""
-    cxx = compiler()
-    digest = hashlib.sha256(" ".join((cxx,) + CXX_FLAGS).encode() + SOURCE.read_bytes())
-    out = BUILD_DIR / f"libmyriad_zstd-{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "zstd.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():  # another process may have built it meanwhile
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"{cxx} failed on {SOURCE.name} ({res.returncode}):\n"
-                                   f"{res.stdout}{res.stderr}")
-            os.replace(tmp, out)
-    return out
-
-
-def library() -> ctypes.CDLL:
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (args, res) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = res
-            _lib = lib
-    return _lib
 
 
 def _raise(code: int) -> None:

@@ -1,22 +1,25 @@
 """Host-side image transforms on HWC uint8 numpy arrays (counterpart of
 ``myriad_tpu/processors/functional.py``), equal to PIL's bytes.
 
-The card has no PIL.  ``resize_bicubic`` redoes Pillow's ``Image.resize(...,
-BICUBIC)`` (``libImaging/Resample.c``) in numpy: per output pixel a window of
-input pixels weighted by the bicubic filter (a = -0.5, widened by the
-downscale factor), the weights normalised in double and rounded to 22-bit
-fixed point, integer sums rounded and clipped to 0-255, a horizontal pass
-first and a vertical pass on its uint8 result.  Each pass sums the window's
-taps in int32, as Resample.c does (255 times the weights' absolute sum stays
-below 2^31), so the result is PIL's to the byte
-(``ops/preprocess.resize_bicubic_device`` is only close to it).
+The card has no PIL.  ``pil_resize`` redoes Pillow's ``Image.resize`` with
+BICUBIC or BILINEAR (``libImaging/Resample.c``) in numpy: per output pixel a
+window of input pixels weighted by the filter (bicubic with a = -0.5 over
+two pixels, or the triangle over one, widened by the downscale factor), the
+weights normalised in double and rounded to 22-bit fixed point, integer
+sums rounded and clipped to 0-255, a horizontal pass first and a vertical
+pass on its uint8 result.  Each pass sums the window's taps in int32, as
+Resample.c does (255 times the weights' absolute sum stays below 2^31), so
+the result is PIL's to the byte (``ops/preprocess.resize_bicubic_device`` is
+only close to it).  ``resize_nearest`` is Pillow's NEAREST resize, an affine
+scale (``libImaging/Geometry.c``) whose source positions accumulate in
+double as Pillow accumulates them.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
@@ -39,14 +42,28 @@ def _bicubic(x: float) -> float:
     return 0.0
 
 
+def _bilinear(x: float) -> float:
+    if x < 0.0:
+        x = -x
+    if x < 1.0:
+        return 1.0 - x
+    return 0.0
+
+
+# Resample.c's filters: (function, support)
+FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_bilinear, 1.0)}
+
+
 @functools.lru_cache(maxsize=64)
-def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def _coefficients(in_size: int, out_size: int,
+                  kind: str = "bicubic") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Resample.c's ``precompute_coeffs`` and ``normalize_coeffs_8bpc``: for
     each output pixel its window's first input index and length, and its
     fixed-point weights (out, ksize); taps past a window's end weigh 0."""
+    filt, filter_support = FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     ss = 1.0 / filterscale
     first = np.zeros(out_size, np.int64)
@@ -56,7 +73,7 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, 
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        k = [_bicubic((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        k = [filt((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         total = 0.0
         for w in k:  # in order, as C sums (Python's sum() compensates)
             total += w
@@ -68,10 +85,10 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, 
 
 
 def _resample(src: np.ndarray, axis: int, in_size: int, out_size: int,
-              offset: int = 0) -> np.ndarray:
+              offset: int = 0, kind: str = "bicubic") -> np.ndarray:
     """One pass of Resample.c along ``axis`` (1: horizontal, 0: vertical) of
     (H, W, C) uint8 whose index 0 along ``axis`` is input pixel ``offset``."""
-    first, _, weights = _coefficients(in_size, out_size)
+    first, _, weights = _coefficients(in_size, out_size, kind)
     shape = [1, 1, 1]
     shape[axis] = -1
     acc = np.full(src.shape[:axis] + (out_size,) + src.shape[axis + 1:],
@@ -83,22 +100,52 @@ def _resample(src: np.ndarray, axis: int, in_size: int, out_size: int,
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def pil_resize(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """``Image.fromarray(img).resize((width, height), Image.BICUBIC)`` on
-    (H, W, C) uint8, byte for byte."""
+def pil_resize(img: np.ndarray, width: int, height: int, kind: str = "bicubic") -> np.ndarray:
+    """``Image.fromarray(img).resize((width, height), Image.BICUBIC)`` (or
+    ``BILINEAR`` for ``kind="bilinear"``) on (H, W, C) or (H, W) uint8, byte
+    for byte."""
     img = np.asarray(img, np.uint8)
+    if img.ndim == 2:
+        return pil_resize(img[..., None], width, height, kind)[..., 0]
     in_h, in_w = img.shape[:2]
     if (width, height) == (in_w, in_h):
         return img.copy()
     lo, hi = 0, in_h
     if height != in_h:  # the horizontal pass runs over the rows the vertical one reads
-        first, count, _ = _coefficients(in_h, height)
+        first, count, _ = _coefficients(in_h, height, kind)
         lo, hi = int(first[0]), int(first[-1] + count[-1])
     out = img[lo:hi]
     if width != in_w:
-        out = _resample(out, 1, in_w, width)
+        out = _resample(out, 1, in_w, width, kind=kind)
     if height != in_h:
-        out = _resample(out, 0, in_h, height, offset=lo)
+        out = _resample(out, 0, in_h, height, offset=lo, kind=kind)
+    return out
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Geometry.c's ``ImagingScaleAffine`` positions: x0 = step / 2, then
+    += step per pixel, in double; -1 where the position falls outside."""
+    step = in_size / out_size
+    idx = np.empty(out_size, np.int64)
+    pos = 0.0 + step * 0.5
+    for x in range(out_size):
+        i = -1 if pos < 0.0 else int(pos)
+        idx[x] = i if 0 <= i < in_size else -1
+        pos += step
+    return idx
+
+
+def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``Image.fromarray(img).resize((width, height), Image.NEAREST)`` on
+    (H, W[, C]) uint8, byte for byte (positions outside the input are 0)."""
+    img = np.asarray(img, np.uint8)
+    in_h, in_w = img.shape[:2]
+    if (width, height) == (in_w, in_h):
+        return img.copy()
+    xi, yi = _nearest_index(in_w, width), _nearest_index(in_h, height)
+    out = img[np.maximum(yi, 0)][:, np.maximum(xi, 0)]
+    out[yi < 0] = 0
+    out[:, xi < 0] = 0
     return out
 
 
@@ -145,3 +192,55 @@ def to_float_hwc(img: np.ndarray) -> np.ndarray:
 def normalize(arr: np.ndarray, mean: np.ndarray = CLIP_MEAN,
               std: np.ndarray = CLIP_STD) -> np.ndarray:
     return (arr - mean) / std
+
+
+def resize_shortest_edge(img: np.ndarray, size: int, max_size: Optional[int] = None) -> np.ndarray:
+    """mmdet ``ResizeShortestEdge`` as the JAX helper does it: the short edge
+    to ``size`` (the scale capped by ``max_size`` over the long edge), sides
+    rounded by Python's ``round``, PIL's BILINEAR."""
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    scale = size / min(w, h)
+    if max_size is not None:
+        scale = min(scale, max_size / max(w, h))
+    return pil_resize(img, int(round(w * scale)), int(round(h * scale)), "bilinear")
+
+
+def random_crop(img: np.ndarray, crop: Tuple[int, int],
+                rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """A random (th, tw) crop of an HWC array, zero-padded below and to the
+    right when smaller; ``rng`` draws the top, then the left offset."""
+    rng = rng or np.random.default_rng()
+    th, tw = crop
+    h, w = img.shape[:2]
+    if h < th or w < tw:
+        pad_h, pad_w = max(0, th - h), max(0, tw - w)
+        img = np.pad(img, ((0, pad_h), (0, pad_w)) + ((0, 0),) * (img.ndim - 2))
+        h, w = img.shape[:2]
+    top = int(rng.integers(0, h - th + 1))
+    left = int(rng.integers(0, w - tw + 1))
+    return img[top:top + th, left:left + tw]
+
+
+def expand2square(img: np.ndarray, background: Tuple[int, int, int] = (0, 0, 0)) -> np.ndarray:
+    """Pad an RGB uint8 image to a square of ``background``, centred as
+    PIL's paste at ((side - w) // 2, (side - h) // 2)."""
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    if w == h:
+        return img
+    side = max(w, h)
+    out = np.empty((side, side, 3), np.uint8)
+    out[:] = np.asarray(background, np.uint8)
+    top, left = (side - h) // 2, (side - w) // 2
+    out[top:top + h, left:left + w] = img
+    return out
+
+
+def to_uint8(img) -> np.ndarray:
+    """An array as the JAX helper's ``to_pil`` takes it: uint8 as is, any
+    other dtype clipped to 0-255 and truncated."""
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        arr = np.clip(arr, 0, 255).astype(np.uint8)
+    return arr

@@ -7,7 +7,10 @@ then ``AdamW.step`` (``common/optim.py``: the optax chain of
 ``make_optimizer``, gradient accumulation as ``optax.MultiSteps``).  The
 loader halves the batch of an AnomalyDetection dataset, whose NSA twins
 double it back; it shuffles the training split from the run's seed, drops
-the last short batch and builds one batch ahead (``PrefetchLoader``).  After
+the last short batch and builds one batch ahead (``PrefetchLoader``).  A
+stream without ``__len__`` (tar shards) is batched by ``IterableBatcher``,
+and several training datasets are mixed by their ``sample_ratio``
+(``MultiIterLoader``).  After
 an epoch's training each of ``valid_splits`` is evaluated by the task
 (``evaluation`` then ``after_evaluation``); the first split's best
 ``agg_metrics`` is saved as ``checkpoint_best``, and ``evaluate: True``
@@ -37,7 +40,8 @@ from myriad_tpu_torch.checkpoint import CheckpointManager
 from myriad_tpu_torch.common import dist
 from myriad_tpu_torch.common.optim import AdamW, build_schedule
 from myriad_tpu_torch.convert_from_jax import jax_leaves, tree_of
-from myriad_tpu_torch.datasets.loaders import DataLoader, IterLoader, PrefetchLoader
+from myriad_tpu_torch.datasets.loaders import (DataLoader, IterableBatcher, IterLoader,
+                                               MultiIterLoader, PrefetchLoader)
 
 
 class RunnerBase:
@@ -74,7 +78,8 @@ class RunnerBase:
             max_grad_norm=self.run_cfg.get("max_grad_norm"),
             accum_grad_iters=self.accum_grad_iters,
             mu_dtype=self.run_cfg.get("optimizer_mu_dtype"))
-        self._train_loader = None
+        self._train_loaders = None
+        self._train_ratios = []
         self.global_step = 0
         self.start_epoch = 0
         self.losses = []  # every iteration's loss, in order
@@ -85,28 +90,43 @@ class RunnerBase:
             self._resume(resume)
 
     # -- data ------------------------------------------------------------------
+    def _build_train_loaders(self):
+        """One endless loader per training dataset, and its ``sample_ratio``
+        (1 when unset): an ``IterableBatcher`` over a stream without
+        ``__len__``, else the shuffled map-style loader, built ahead."""
+        loaders, ratios = [], []
+        shuffle = bool(self.run_cfg.get("shuffle_train", True))
+        for name, splits in self.datasets.items():
+            for split, dataset in splits.items():
+                if split != "train":
+                    continue
+                bs = self.batch_size_train
+                if getattr(dataset, "DatasetName", "") == "AnomalyDetection":
+                    bs = max(bs // 2, 1)  # the NSA twins double it back
+                ratios.append(float(getattr(dataset, "sample_ratio", 1.0) or 1.0))
+                if not hasattr(dataset, "__len__"):
+                    loaders.append(IterableBatcher(dataset, bs))
+                    continue
+                dl = DataLoader(dataset, batch_size=bs, shuffle=shuffle, drop_last=True,
+                                num_workers=self.num_workers, seed=self.seed)
+                if bool(self.run_cfg.get("prefetch", True)):
+                    dl = PrefetchLoader(dl)
+                loaders.append(IterLoader(dl))
+        if not loaders:
+            raise ValueError("no dataset has a train split")
+        return loaders, ratios
+
     @property
     def train_loader(self):
-        if self._train_loader is None:
-            loaders = []
-            shuffle = bool(self.run_cfg.get("shuffle_train", True))
-            for name, splits in self.datasets.items():
-                for split, dataset in splits.items():
-                    if split != "train":
-                        continue
-                    bs = self.batch_size_train
-                    if getattr(dataset, "DatasetName", "") == "AnomalyDetection":
-                        bs = max(bs // 2, 1)  # the NSA twins double it back
-                    dl = DataLoader(dataset, batch_size=bs, shuffle=shuffle, drop_last=True,
-                                    num_workers=self.num_workers, seed=self.seed)
-                    if bool(self.run_cfg.get("prefetch", True)):
-                        dl = PrefetchLoader(dl)
-                    loaders.append(IterLoader(dl))
-            if len(loaders) != 1:
-                raise NotImplementedError(f"{len(loaders)} training datasets: mixing datasets "
-                                          "by sample_ratio is not ported")
-            self._train_loader = loaders[0]
-        return self._train_loader
+        """The training batches: the one loader, or, with several datasets, a
+        ``MultiIterLoader`` over them by ``sample_ratio`` (``_train_ratios``),
+        drawn from ``default_rng(self.seed)`` and built anew at each read, as
+        the JAX runner's property builds it."""
+        if self._train_loaders is None:
+            self._train_loaders, self._train_ratios = self._build_train_loaders()
+        if len(self._train_loaders) == 1:
+            return self._train_loaders[0]
+        return MultiIterLoader(self._train_loaders, ratios=self._train_ratios, seed=self.seed)
 
     # -- the step ----------------------------------------------------------------
     def train_iteration(self, samples, rng: np.random.Generator):

@@ -30,10 +30,12 @@ class BaseTask:
         return cls()
 
     def build_model(self, cfg, device="cuda"):
-        """The config's model for training on ``device``: fp32 trainables
-        and bf16 compute (``Policy.bf16``, the JAX package's default) unless
-        the model section names a policy, and its trainables given
-        ``requires_grad``; random weights from the section's ``seed``."""
+        """The config's model (``model.arch``: ``myriad`` or ``mini_gpt4``)
+        for training on ``device``: fp32 trainables and bf16 compute
+        (``Policy.bf16``, the JAX package's default) unless the model section
+        names a policy, and its trainables given ``requires_grad``; random
+        weights from the section's ``seed``, then its ``weights:`` and
+        ``ckpt:`` over them."""
         from myriad_tpu_torch.models.myriad import policy_from_config
 
         model_cfg = cfg.model_cfg

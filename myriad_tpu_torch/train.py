@@ -7,8 +7,10 @@ CLI and config).
 
 Builds ``common.config.Config`` from the YAML (with the port's copies of the
 default YAMLs) and ``--options``, then the task, the datasets, the model and
-``RunnerBase``, and trains.  The weights are random, drawn from the model
-section's ``seed`` (0 when unset): no pretrained tower is loaded.  It runs on
+``RunnerBase``, and trains.  The model is ``model.arch``'s (``myriad`` or
+``mini_gpt4``); its weights are random, drawn from the model section's
+``seed`` (0 when unset), and then its ``weights:`` towers and ``ckpt:``
+checkpoint load over them.  It runs on
 ``run.device``: unset means ``cuda``, ``cpu`` runs on the CPU, and the
 shared configs' ``tpu`` (the JAX package's accelerator) is read as ``cuda``,
 which the first log line says.  Without a card ``cuda`` raises; nothing

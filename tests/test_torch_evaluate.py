@@ -115,7 +115,10 @@ def test_option_values_parse_as_jax(raw):
 
 
 def test_default_yaml_copies_equal_the_originals():
-    for rel in ("models/minigpt4.yaml", "datasets/anomaly_detection/base.yaml"):
+    for rel in ("models/minigpt4.yaml", "datasets/anomaly_detection/base.yaml",
+                "datasets/anomaly_detection/2cls.yaml", "datasets/laion/defaults.yaml",
+                "datasets/cc_sbu/defaults.yaml", "datasets/cc_sbu/align.yaml",
+                "datasets/panda/base.yaml"):
         with open(os.path.join(REPO, "myriad_tpu", "configs", rel), "rb") as f:
             original = f.read()
         with open(os.path.join(REPO, "myriad_tpu_torch", "configs", rel), "rb") as f:
@@ -124,16 +127,19 @@ def test_default_yaml_copies_equal_the_originals():
 
 def test_unknown_arch_and_dataset_raise_listing_the_known(tmp_path):
     path = tmp_path / "cfg.yaml"
-    path.write_text("model:\n  arch: mini_gpt4\n")
-    with pytest.raises(KeyError, match=r"Unknown model 'mini_gpt4'. Registered: \[myriad\]"):
+    path.write_text("model:\n  arch: blip2\n")
+    with pytest.raises(KeyError, match=r"Unknown model 'blip2'. Registered: "
+                                       r"\[mini_gpt4, myriad\]"):
         Config(cfg_path=str(path))
-    path.write_text("datasets:\n  laion:\n    sample_ratio: 1\n")
-    with pytest.raises(KeyError, match=r"Unknown builder 'laion'. Registered: "
-                                       r"\[anomaly_detection\]"):
+    path.write_text("datasets:\n  coco_caption:\n    sample_ratio: 1\n")
+    with pytest.raises(KeyError, match=r"Unknown builder 'coco_caption'. Registered: "
+                                       r"\[anomaly_detection, cc_sbu, cc_sbu_align, laion, "
+                                       r"panda, two_class_anomaly_detection\]"):
         Config(cfg_path=str(path))
     with pytest.raises(ValueError, match="key=value"):
         Config(cfg_path=str(path), options=["model.arch"])
     assert get_model_class("myriad").__module__ == "myriad_tpu_torch.models.myriad"
+    assert get_model_class("mini_gpt4").__module__ == "myriad_tpu_torch.models.mini_gpt4"
 
 
 @pytest.fixture(scope="module")

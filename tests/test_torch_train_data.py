@@ -212,5 +212,12 @@ def test_copied_tables_and_processors_equal_the_originals():
     np.testing.assert_array_equal(
         tbp.LocImageTrainProcessor(identity=True)({"img": img})["img"],
         jbp.LocImageTrainProcessor(identity=True)({"img": img})["img"])
-    with pytest.raises(NotImplementedError, match="identity=False"):
-        tbp.build_processor({"name": "loc_image_train", "identity": False})
+    # the geometric modes (identity False) crop from the processor's own generator
+    for strong_aug in (False, True):
+        kw = dict(image_size=4, identity=False, strong_aug=strong_aug, seed=2)
+        sample = {"img": img, "gt_seg_map": (img[..., 0] > 128).astype(np.float32)}
+        got = tbp.LocImageTrainProcessor(**kw)(dict(sample))
+        ref = jbp.LocImageTrainProcessor(**kw)(dict(sample))
+        np.testing.assert_array_equal(got["img"], ref["img"])
+        np.testing.assert_array_equal(got["gt_seg_map"], ref["gt_seg_map"])
+    assert not tbp.build_processor({"name": "loc_image_train", "identity": False}).identity
