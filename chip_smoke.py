@@ -157,10 +157,10 @@ Phases, each printing its own lines:
    at 4 of its 39 blocks), with a 32000-piece ``tokenizer.model``),
    converted by ``python -m
    myriad_tpu_torch.tools.convert_weights all`` and served by
-   ``Myriad.from_config`` through the ``weights.yaml`` it writes, ``ckpt:``
-   and ``llama_model``: every loaded leaf bit-equal to converting the
-   in-memory state dicts (the LLaMA quantized to int8), nothing missing but
-   the cut layers, a greedy generate (batch 8, 90 tokens) launching B1-B4
+   ``Myriad.from_config`` at the files' depth through the ``weights.yaml``
+   it writes, ``ckpt:`` and ``llama_model``: every loaded leaf bit-equal to
+   converting the in-memory state dicts (the LLaMA quantized to int8),
+   nothing missing, a greedy generate (batch 8, 90 tokens) launching B1-B4
    whose tokens differ from the same seed's model without the files, and the
    prompt's ids surviving decode and re-encode; prints the seconds spent
    writing, converting, loading and generating, the npz bytes and images/s;
@@ -190,6 +190,23 @@ Phases, each printing its own lines:
    ``prompts/alignment.txt``) over a cc_sbu_align tree of the fixture, with
    ``model.ckpt`` stage 1's ring: its ``llama_proj`` equal to the saved one
    bit for bit before the first step.
+16. after phase 15: data parallelism.  (a) Two ranks of ``python -m
+   myriad_tpu_torch.train``'s runner on card 0 (this script with
+   ``--ddp-rank``, started with ``torchrun``'s environment: gloo on CUDA
+   tensors, since NCCL refuses two ranks on one card), the LoRA config at
+   full width with the LLaMA at 2 of 32 layers and EVA at 4 of 39 blocks,
+   2 images and their 2 NSA twins a step a rank, in order, 2 epochs x 2
+   steps: both ranks' global losses equal and finite, their trainables
+   bit-identical after every step, step 1's reduced gradient within 1e-2
+   (relative L2 over every trainable) of one process's over the union of
+   both ranks' prepared arrays, the ring written once by rank 0 and resumed
+   by both bit for bit (trainables, Adam's moments), no kernel B1-B7
+   launched; seconds a step, the gradient all-reduce's ms and peak memory a
+   rank.  (b) A one-rank NCCL group in this process: one step of the runner
+   through its all-reduces equal to a plain backward bit for bit, the
+   all-reduce of the trainables' gradients timed.  (c) The ring served by
+   ``load_checkpoint`` to a greedy generate with int8 LLM weights and KV
+   (batch 8, 90 tokens) launching B1-B4.
 
 With ``--parent DIR`` (a checkout of another tree, such as the parent
 commit's), phase 1 also builds DIR's kernels, compares their SASS with this
@@ -3540,7 +3557,8 @@ def reference_slice(dev, seed, checks, card):
     at REFERENCE_VIT_BLOCKS of its blocks),
     converted by ``python -m myriad_tpu_torch.tools.convert_weights all``
     and served through the ``weights.yaml`` it writes, ``ckpt:`` and
-    ``llama_model`` (the Vicuna directory's ``tokenizer.model``)."""
+    ``llama_model`` (the Vicuna directory's ``tokenizer.model``) by a model
+    of the files' depth, so that no leaf is missing."""
     import dataclasses
     import shutil
     import tempfile
@@ -3593,7 +3611,8 @@ def reference_slice(dev, seed, checks, card):
         cfg = dict(SERVING, weights=dict(stanza["weights"]), ckpt=stanza["ckpt"],
                    llama_model=paths["llama"])
 
-        model = Myriad.from_config(cfg, device=dev, class_names=SCENES)
+        with cut_depth(layers, blocks):
+            model = Myriad.from_config(cfg, device=dev, class_names=SCENES)
         tok = model.llama_tokenizer
         check(isinstance(tok, LlamaTokenizer) and tok.vocab_size == TOKENIZER_PIECES,
               f"llama_model gave {type(tok).__name__}")
@@ -3609,16 +3628,8 @@ def reference_slice(dev, seed, checks, card):
         torch.cuda.synchronize()
         t_load = time.time() - t0
 
-        report = model.weights_report
-        def in_cut(path):
-            parts = path.split("/")
-            if path.startswith("llama/model/layers_"):
-                return int(parts[2].split("_")[1]) >= layers
-            return (path.startswith("visual_encoder/blocks_")
-                    and int(parts[1].split("_")[1]) >= blocks)
-        cut = [p for p in report["missing"] if not in_cut(p)]
-        check(not cut, f"weights missing beyond the cut LLaMA layers and EVA blocks: {cut[:5]}")
-        n_cut = len(report["missing"])
+        missing = model.weights_report["missing"]
+        check(not missing, f"weights missing: {missing[:5]}")
         n_leaves = 0
         params = {False: model.module.state_dict(),
                   True: model.vision_expert.module.state_dict()}
@@ -3634,9 +3645,8 @@ def reference_slice(dev, seed, checks, card):
               f"{len(manifest)} towers, {sum(m['params'] for m in manifest.values()) / 1e9:.3f}"
               f"e9 params); loaded through weights:, ckpt: and llama_model in {t_load:.1f} s; "
               f"{n_leaves} leaves bit-equal to converting the in-memory state dicts (LLaMA "
-              f"quantized to int8); missing: {n_cut} leaves, all in the cut LLaMA layers "
-              f"and EVA blocks",
-              flush=True)
+              f"quantized to int8); none missing (the model at the files' {layers} LLaMA "
+              f"layers and {blocks} EVA blocks)", flush=True)
 
         model.vision_expert.build_text_features()
         model.generate(samples, max_new_tokens=4)  # warm-up
@@ -3666,6 +3676,477 @@ def reference_slice(dev, seed, checks, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 16: data parallelism on the card: two ranks of the LoRA config on card 0
+DDP_WORLD = 2
+DDP_LLAMA_LAYERS = 2  # of Vicuna-7B's 32: two ranks' models, and the phase's seconds
+DDP_VIT_BLOCKS = 4  # of EVA-ViT-g's 39
+DDP_STEPS = (2, 2)  # epochs x steps
+DDP_GRAD_TOL = 1e-2  # rel L2, every trainable's gradient together: bf16 products, two batchings
+DDP_RANK_WALL_S = 420  # the ranks' own limit (the phase's time, with room for a slow host)
+# the command a rank runs: this script (a rehearsal points it at a wrapper)
+DDP_RANK_COMMAND = [sys.executable, os.path.abspath(__file__)]
+DDP_OPTIONS = []  # --options appended to the ranks' and phase 16's builds (a rehearsal's)
+
+
+class cut_depth:
+    """``MyriadArch.full`` at ``layers`` LLaMA layers and ``blocks`` EVA blocks
+    while active, so that the config's full-width model fits twice on one
+    card and in the phase's seconds."""
+
+    def __init__(self, layers=DDP_LLAMA_LAYERS, blocks=DDP_VIT_BLOCKS):
+        self.layers, self.blocks = layers, blocks
+
+    def __enter__(self):
+        import dataclasses
+
+        from myriad_tpu_torch.models import myriad as m
+
+        self.full = full = m.MyriadArch.full
+
+        def cut(**overrides):
+            arch = full(**overrides)
+            return dataclasses.replace(
+                arch, vit_depth=min(self.blocks, arch.vit_depth),
+                llama=dataclasses.replace(arch.llama,
+                                          num_layers=min(self.layers, arch.llama.num_layers)))
+
+        m.MyriadArch.full = staticmethod(cut)
+        return self
+
+    def __exit__(self, *exc):
+        from myriad_tpu_torch.models import myriad as m
+
+        m.MyriadArch.full = staticmethod(self.full)
+
+
+def ddp_argv(seed, out_dir):
+    """``train.build``'s argv for phase 16: the LoRA config over phase 10's
+    tree, 2 images and their 2 NSA twins a step a rank, in order, a ring of 1."""
+    root = os.path.join(REPO, "build", "train_data")
+    return ["--cfg-path", os.path.join(REPO, TRAIN_CONFIG), "--options",
+            f"datasets.anomaly_detection.build_info.storage={root}",
+            f"datasets.anomaly_detection.seed={seed}", f"model.seed={seed}",
+            f"run.max_epoch={DDP_STEPS[0]}", f"run.iters_per_epoch={DDP_STEPS[1]}",
+            "run.max_checkpoints=1", "run.num_workers=2", "run.shuffle_train=False",
+            f"run.batch_size_train={TRAIN_SAMPLES_PER_STEP}", f"run.output_dir={out_dir}",
+            *DDP_OPTIONS]
+
+
+def _kernel_counters():
+    from myriad_tpu_torch.ops import decode_attention as da
+    from myriad_tpu_torch.ops import kv_write as kw
+    from myriad_tpu_torch.ops import prefill_attention as pa
+    from myriad_tpu_torch.ops import preprocess as pp
+    from myriad_tpu_torch.ops import quant
+    from myriad_tpu_torch.tools import bwprobe
+
+    return {"B1 int8_matmul": quant.counter, "B2 decode_attention": da.counter,
+            "B3 prefill_attention": pa.counter, "B4 kv_write": kw.counter,
+            "B5 int4_matmul": quant.counter4, "B2' decode_attention_rows": da.counter_rows,
+            "B6 u8_normalize": pp.counter, "B7 stream_sum": bwprobe.counter}
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class StepProbe:
+    """Instruments a runner's steps: keeps the first batch's prepared arrays,
+    times every ``dist.all_sum_`` (synchronized), and around
+    ``optimizer.step`` runs ``before(arrays, static)`` at the first step and
+    ``after()`` at every step; their seconds are kept apart from the step's."""
+
+    def __init__(self, runner, before=None, after=None):
+        from myriad_tpu_torch.common import dist
+
+        self.runner, self.dist = runner, dist
+        self.first = None
+        self.reduce_ms = []  # (tensors, ms) of each all_sum_
+        self.extra_s = []
+        self.results = []
+        model, opt = runner.model, runner.optimizer
+        prepare, step, all_sum = model.prepare_train_arrays, opt.step, dist.all_sum_
+        dev = model.device
+
+        def prepare_kept(samples, rng):
+            arrays, static = prepare(samples, rng)
+            if self.first is None:
+                self.first = (arrays, static)
+            return arrays, static
+
+        def timed_sum(tensors):
+            tensors = list(tensors)
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = all_sum(tensors)
+            _sync(dev)
+            self.reduce_ms.append((len(tensors), (time.perf_counter() - t0) * 1e3))
+            return out
+
+        def probed_step():
+            t0 = time.perf_counter()
+            if before is not None and not self.results:
+                self.results.append(before(*self.first))
+            extra = time.perf_counter() - t0
+            ok = step()
+            t1 = time.perf_counter()
+            if after is not None:
+                self.results.append(after())
+            self.extra_s.append(extra + time.perf_counter() - t1)
+            return ok
+
+        model.prepare_train_arrays, opt.step, dist.all_sum_ = prepare_kept, probed_step, timed_sum
+        self._restore = lambda: (setattr(model, "prepare_train_arrays", prepare),
+                                 setattr(opt, "step", step), setattr(dist, "all_sum_", all_sum))
+
+    def close(self):
+        self._restore()
+
+
+def _grads(params):
+    import torch
+
+    return [(p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone()
+            for p in params]
+
+
+def _rel_l2(ours, ref):
+    num = sum(float(((a.double() - b.double()) ** 2).sum()) for a, b in zip(ours, ref))
+    den = sum(float((b.double() ** 2).sum()) for b in ref)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def union_gradient(model, arrays, static, rank, world):
+    """Step 1's reduced gradient against one process's over the union of every
+    rank's prepared arrays (rank 0 computes it; every rank gathers).  Returns
+    (rel L2 over all trainables, the worst tensor's (name, rel), the union's
+    loss) on rank 0, None elsewhere; leaves the reduced gradients in place."""
+    import torch
+    import torch.distributed as tdist
+
+    gathered = {}
+    for key in ("image", "maps", "text_ids", "text_mask", "before", "after"):
+        t = arrays[key].detach().contiguous()
+        parts = [torch.empty_like(t) for _ in range(world)]
+        tdist.all_gather(parts, t)
+        gathered[key] = parts
+    for key in ("before", "after"):
+        check(all(torch.equal(p, gathered[key][0]) for p in gathered[key]),
+              f"the ranks' prompt pieces ({key}) differ")
+    if rank != 0:
+        return None
+    named = model.trainable_parameters()
+    params = [p for _, p in named]
+    reduced = _grads(params)
+    union = {k: torch.cat(v) for k, v in gathered.items() if k not in ("before", "after")}
+    union.update(before=arrays["before"], after=arrays["after"])
+    for p in params:
+        p.grad = None
+    loss = model.train_loss(union, static)
+    loss.backward()
+    ref = _grads(params)
+    for p, g in zip(params, reduced):
+        p.grad = g
+    worst = max(((n, _rel_l2([a], [b])) for (n, _), a, b in zip(named, reduced, ref)
+                 if float(b.norm()) > 0), key=lambda kv: kv[1])
+    return _rel_l2(reduced, ref), worst, float(loss.detach())
+
+
+def trainables_identical(model, rank):
+    """Whether every rank's trainables equal rank 0's bit for bit (rank 0's
+    broadcast, compared on each rank, the verdict reduced by MIN)."""
+    import torch
+    import torch.distributed as tdist
+
+    flat = torch.cat([p.detach().reshape(-1) for _, p in model.trainable_parameters()])
+    ref = flat.clone() if rank == 0 else torch.empty_like(flat)
+    tdist.broadcast(ref, 0)
+    same = torch.tensor([1.0 if torch.equal(ref, flat) else 0.0], device=flat.device)
+    tdist.all_reduce(same, op=tdist.ReduceOp.MIN)
+    return bool(same.item() == 1.0)
+
+
+def ddp_rank(out_dir, seed) -> int:
+    """One rank of phase 16 (run as ``chip_smoke.py --ddp-rank DIR``, the
+    launcher's environment set by ``ddp_slice``): ``train.build`` joins the
+    group and trains; the step-1 gradient against the union's, the
+    trainables bit-identical after every step, the kernels' launches, the
+    ring's resume; the results as ``DIR/rank{RANK}.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    sys.path.insert(0, REPO)
+    from myriad_tpu_torch import train
+    from myriad_tpu_torch.common import dist
+
+    counters = _kernel_counters()
+    t0 = time.time()
+    with cut_depth():
+        runner = train.build(ddp_argv(seed, os.path.join(out_dir, "out")))
+    model, dev = runner.model, runner.model.device
+    rank, world = dist.get_rank(), dist.get_world_size()
+    t_build = time.time() - t0
+    probe = StepProbe(runner, before=lambda a, s: union_gradient(model, a, s, rank, world),
+                      after=lambda: trainables_identical(model, rank))
+    for c in counters.values():
+        c.count = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    runner.train()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    probe.close()
+    grad = probe.results[0]
+    identical = probe.results[1:]
+    hist = runner.task.timer.history
+    steps = [d + s - x for d, s, x in zip(hist["data"], hist["step"], probe.extra_s)]
+
+    # resume the ring on this rank into the same model, its trainables wiped first
+    trainable = dict(model.trainable_parameters())
+    saved = {n: p.detach().clone() for n, p in trainable.items()}
+    opt0 = runner.optimizer
+    ring = sorted(os.listdir(runner.output_dir))
+    ckpt = os.path.join(runner.output_dir, "checkpoint_1")
+    with torch.no_grad():
+        for p in trainable.values():
+            p.zero_()
+    runner.run_cfg.resume_ckpt_path = ckpt
+    runner.run_cfg.max_epoch = DDP_STEPS[0] + 1
+    resumed = type(runner)(cfg=runner.config, task=runner.task, model=model,
+                           datasets=runner.datasets, job_id="resumed")
+    restored = all(torch.equal(p.detach(), saved[n]) for n, p in trainable.items())
+    moments = all(torch.equal(a, b) for key in ("mu", "nu")
+                  for a, b in zip(getattr(opt0, key), getattr(resumed.optimizer, key)))
+    result = {"rank": rank, "world": world, "backend": tdist.get_backend(), "device": str(dev),
+              "losses": runner.losses, "steps_s": steps, "wall_s": wall, "build_s": t_build,
+              "reduce_ms": probe.reduce_ms, "peak_bytes": peak, "launches": launches,
+              "grad": grad, "identical": identical, "ring": ring, "ckpt": ckpt,
+              "restored": restored, "moments": moments,
+              "resumed": [resumed.start_epoch, resumed.global_step, resumed.optimizer.count],
+              "trainables": len(trainable),
+              "trainable_numel": int(sum(p.numel() for p in trainable.values())),
+              "loss_finite": bool(np.all(np.isfinite(runner.losses)))}
+    dist.barrier("phase 16 done")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_ranks(out_dir, seed, world):
+    """Launch ``world`` ranks as ``torchrun`` would (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``)
+    and wait for them (killed at ``DDP_RANK_WALL_S``); their results."""
+    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(out_dir, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            DDP_RANK_COMMAND + ["--ddp-rank", out_dir, "--seed", str(seed)], cwd=REPO,
+            env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)), stdout=log,
+            stderr=subprocess.STDOUT), log))
+    t_end = time.time() + DDP_RANK_WALL_S
+    try:
+        for proc, log in procs:
+            try:
+                proc.wait(timeout=max(t_end - time.time(), 1.0))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for rank, (proc, _) in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(out_dir, f"rank{rank}.log")) as f:
+                tail = f.read()[-3000:]
+            check(False, f"rank {rank} exited {proc.returncode}:\n{tail}")
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def ddp_train(dev, seed, checks, card, world):
+    """Phase 16 (a): ``world`` ranks of ``python -m myriad_tpu_torch.train``'s
+    runner on this host's cards (the LoRA config at full width, LLaMA and
+    EVA cut), held to what data parallelism promises; returns rank 0's
+    results.  The transport and each rank's card follow ``common.dist``'s
+    rule."""
+    import shutil
+
+    import torch
+
+    from myriad_tpu_torch.common import dist
+
+    out_dir = os.path.join(REPO, "build", "ddp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    if not os.path.exists(os.path.join(REPO, "build", "train_data",
+                                       "DC_MVTEC_train_normal.jsonl")):
+        write_train_tree(os.path.join(REPO, "build", "train_data"), seed)
+    t0 = time.time()
+    ranks = ddp_ranks(out_dir, seed, world)
+    t_ranks = time.time() - t0
+    r0 = ranks[0]
+    n_steps = DDP_STEPS[0] * DDP_STEPS[1]
+    check([r["rank"] for r in ranks] == list(range(world))
+          and all(r["world"] == world for r in ranks), "rank numbering")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    backend = dist.transport(dev.type, world, cards)
+    want = [f"cuda:{r % cards}" if cards else "cpu" for r in range(world)]
+    check([(r["backend"], r["device"]) for r in ranks] == [(backend, d) for d in want],
+          f"transport / device: {[(r['backend'], r['device']) for r in ranks]}")
+    check(all(r["losses"] == r0["losses"] for r in ranks) and len(r0["losses"]) == n_steps
+          and r0["loss_finite"], f"the ranks' global losses {[r['losses'] for r in ranks]}")
+    check(all(r["identical"] == [True] * n_steps for r in ranks),
+          f"trainables not bit-identical after every step: {r0['identical']}")
+    rel, (worst_name, worst), union_loss = r0["grad"]
+    check(rel <= DDP_GRAD_TOL, f"step 1's reduced gradient against the union's: rel L2 {rel}")
+    check(r0["ring"] == ["checkpoint_1", "log.txt"], f"the ring holds {r0['ring']}")
+    check(all(r["ckpt"] == r0["ckpt"] for r in ranks), "the ranks' rings differ")
+    check(all(r["restored"] and r["moments"] and r["resumed"] == [DDP_STEPS[0], n_steps, n_steps]
+              for r in ranks), "a rank did not resume the ring bit for bit")
+    for r in ranks:
+        for c in checks:
+            c.by_path[f"ddp_train_rank{r['rank']}"] = r["launches"].get(c.name, 0)
+        check(not any(r["launches"].values()), f"rank {r['rank']} launched {r['launches']}")
+    on = " on CUDA tensors" if backend == "gloo" and cards else ""
+    print(f"{world} ranks ({', '.join(want)}; {backend}{on}; the LoRA config at full width, "
+          f"LLaMA {DDP_LLAMA_LAYERS} of 32 layers, EVA {DDP_VIT_BLOCKS} of 39 blocks; "
+          f"{TRAIN_SAMPLES_PER_STEP} samples a step a rank, {DDP_STEPS[0]} epochs x "
+          f"{DDP_STEPS[1]} steps) in {t_ranks:.1f} s: global losses "
+          f"{', '.join(f'{x:.4f}' for x in r0['losses'])} on every rank; trainables "
+          f"({r0['trainables']} tensors, {r0['trainable_numel']} parameters) bit-identical "
+          f"after every step; step 1's reduced gradient against one process's over the union "
+          f"of every rank's arrays (loss {union_loss:.4f}): rel L2 {rel:.3e} (tol "
+          f"{DDP_GRAD_TOL:.0e}), worst tensor {worst_name} {worst:.3e}; ring {r0['ring']} "
+          f"written by rank 0, resumed by every rank bit for bit (trainables, mu, nu) at epoch "
+          f"{r0['resumed'][0]}, step {r0['resumed'][1]}; launches in training "
+          f"{r0['launches']}; card: {card}", flush=True)
+    for r in ranks:
+        grads_ms = [ms for n, ms in r["reduce_ms"] if n > 1]
+        print(f"  rank {r['rank']}: build {r['build_s']:.1f} s, train {r['wall_s']:.3f} s, s a step "
+              f"(data + step, the probes' own seconds taken out) "
+              f"{', '.join(f'{x:.3f}' for x in r['steps_s'])}; gradient all-reduce ms "
+              f"{', '.join(f'{x:.2f}' for x in grads_ms)} (host clock, synchronized); "
+              f"peak device memory {r['peak_bytes'] / 2**30:.2f} GiB; card: {card}", flush=True)
+    return r0
+
+
+def nccl_world_of_one(dev, seed, card):
+    """A one-rank NCCL group in this process: ``train.build`` joins it as
+    started (``init_distributed_mode`` returns its backend), one step of the
+    runner goes through the all-reduces on the card, and its gradients equal
+    a plain backward of the same arrays bit for bit; the all-reduce of the
+    trainables' gradients timed alone (CUDA events, median of 21).  Returns
+    the model's trainable count."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from myriad_tpu_torch import train
+    from myriad_tpu_torch.common import dist
+
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    backend = dist.transport(dev.type, 1, cards)
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo"), f"transport {backend}")
+    out_dir = os.path.join(REPO, "build", "ddp", "nccl")
+    tdist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}",
+                             world_size=1, rank=0)
+    try:
+        with cut_depth():
+            runner = train.build(ddp_argv(seed, out_dir))
+        check(tdist.get_backend() == backend and dist.get_world_size() == 1,
+              "train.build did not keep the one-rank group")
+        model = runner.model
+        params = [p for _, p in model.trainable_parameters()]
+        # before the step: the reduced gradients against a plain backward of the same arrays
+        probe = StepProbe(runner, before=lambda a, s: union_gradient(model, a, s, 0, 1))
+        samples = next(runner.train_loader)
+        loss, _ = runner.train_iteration(samples, np.random.default_rng(seed))
+        probe.close()
+        rel, _, plain = probe.results[0]
+        check(rel == 0.0 and plain == loss,
+              f"the one-rank {backend} step against a plain backward: gradients rel L2 {rel}, "
+              f"loss {loss} against {plain}")
+        grads = _grads(params)
+        ms = _time_ms(lambda: dist.all_sum_(grads), launches=1) if dev.type == "cuda" else 0.0
+        check(dist.all_sum_scalars(1.5, 2.0) == (1.5, 2.0), "all_sum_scalars in a world of one")
+        dist.barrier()
+        n = sum(p.numel() for p in params)
+        print(f"one-rank {backend} group: a step of the runner through its all-reduces (loss "
+              f"{loss:.4f}) gives a plain backward's gradients and loss bit for bit; all-reduce "
+              f"of the {len(params)} trainables' gradients ({n} fp32, one buffer) "
+              f"{ms:.4f} ms (CUDA events, median of 21); {probe.reduce_ms} (tensors, ms) in "
+              f"the step; card: {card}", flush=True)
+        runner.train_loader.close()
+        del runner, model, params, grads
+    finally:
+        tdist.destroy_process_group()
+    return n
+
+
+def ddp_slice(dev, seed, checks, card):
+    """Phase 16: two ranks of ``python -m myriad_tpu_torch.train``'s runner on
+    card 0 over gloo (the LoRA config at full width, LLaMA and EVA cut),
+    then a one-rank NCCL group here, then a generate served from the ring
+    with int8 LLM weights."""
+    import torch
+
+    from myriad_tpu_torch.models.myriad import Myriad
+
+    r0 = ddp_train(dev, seed, checks, card, DDP_WORLD)
+    nccl_world_of_one(dev, seed, card)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the ring served to one generate with int8 LLM weights (B1-B4)
+    with cut_depth():
+        cfg = dict(SERVING, use_lora=True)
+        for opt in DDP_OPTIONS:  # a rehearsal's model options
+            key, _, value = opt.partition("=")
+            if key.startswith("model."):
+                cfg[key[len("model."):]] = value
+        model = Myriad.from_config(cfg, device=dev, class_names=SCENES)
+    model.init_random(seed)
+    model.vision_expert.build_text_features()
+    loaded, skipped = model.load_checkpoint(r0["ckpt"])
+    check(bool(loaded) and not skipped, f"ring: loaded {len(loaded)}, skipped {skipped[:3]}")
+    samples = _samples(seed, model.arch.img_size)
+    names = ["B1 int8_matmul", "B2 decode_attention", "B3 prefill_attention", "B4 kv_write"]
+    out, wall, launches = drive(checks, "ddp_ring_generate",
+                                lambda: model.generate(samples, max_new_tokens=NEW_TOKENS), names)
+    check_tokens(out["token_ids"], BATCH, NEW_TOKENS, model.arch.llama.vocab_size)
+    layers = model.arch.llama.num_layers
+    b2, b3 = launches["B2 decode_attention"], launches["B3 prefill_attention"]
+    check(b2 % layers == 0 and b3 % layers == 0, f"launches {launches}")
+    print(f"the ring served: int8 LLM weights and KV, LoRA, {len(loaded)} leaves merged by "
+          f"load_checkpoint, none skipped; greedy generate (batch "
+          f"{BATCH}, {NEW_TOKENS} tokens, {layers} layers) {wall:.3f} s; launches {launches}; "
+          f"card: {card}", flush=True)
+    del model
+
+
 def say(t_start, title) -> None:
     """A phase's header, with the seconds since the build started."""
     print(f"{title} [{time.time() - t_start:.0f} s]", flush=True)
@@ -3680,7 +4161,13 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-kernels", default=",".join(n for n, _ in PHASE2),
                         help="the kernels that --parent times, comma-separated "
                         "(default: all, %(default)s)")
+    parser.add_argument("--ddp-cards", type=int, metavar="N",
+                        help="run phase 16 (a) alone over N ranks, one a card (NCCL), and "
+                        "exit: a host of N cards")
+    parser.add_argument("--ddp-rank", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.ddp_rank:  # one rank of phase 16, started by ddp_ranks
+        return ddp_rank(args.ddp_rank, args.seed)
     kernels = args.parent_kernels.split(",")
     if any(k not in dict(PHASE2) for k in kernels):
         parser.error(f"--parent-kernels takes names from {[n for n, _ in PHASE2]}")
@@ -3703,6 +4190,17 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; TF32 off for matmul and "
           f"cuDNN convolutions (cuDNN convs default to TF32)", flush=True)
+    if args.ddp_cards:
+        cards = torch.cuda.device_count()
+        if cards < args.ddp_cards:
+            print(f"chip_smoke: --ddp-cards {args.ddp_cards} on a host of {cards} cards",
+                  file=sys.stderr)
+            return 2
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip().splitlines()
+        ddp_train(dev, args.seed, [], " | ".join(smi[:args.ddp_cards]), args.ddp_cards)
+        return 0
 
     from myriad_tpu_torch.ops import _cuda
 
@@ -3764,6 +4262,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     say(t_start, "phase 15: MiniGPT-4 stage-1 and stage-2 training over JPEGs at full width")
     minigpt4_slice(dev, args.seed, checks, card)
+    torch.cuda.empty_cache()
+    say(t_start, "phase 16: data parallelism: two ranks on card 0, a one-rank NCCL group")
+    ddp_slice(dev, args.seed, checks, card)
     say(t_start, "all phases done")
     print(card)
     print(json.dumps({"kernels": [c.record() for c in checks]}))

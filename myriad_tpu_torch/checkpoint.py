@@ -6,7 +6,9 @@ integer tag (or a string of digits) joins the ring, and past
 ``max_checkpoints`` the oldest is deleted; other tags ("best") stay.  Each
 save is an Orbax checkpoint directory, ``checkpoint_{tag}``, in the layout
 the JAX package restores and resumes (``orbax_format.checkpointer.save``);
-``restore(tag)`` reads one back.  ``load_checkpoint`` and
+``restore(tag)`` reads one back.  Across ranks every rank calls ``save``:
+rank 0 clears the directory, writes it and deletes the ring's oldest, with
+barriers between, as the JAX manager's primary host does.  ``load_checkpoint`` and
 ``is_port_checkpoint`` still read the ``checkpoint_{tag}.pth`` files the port
 wrote before (trainables by name, the optimizer's state, ``epoch``,
 ``global_step`` and a ``format`` marker).  ``merge_into`` copies a
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from myriad_tpu_torch.common import dist
 from myriad_tpu_torch.orbax_format import checkpointer
 
 FORMAT = "myriad_tpu_torch.checkpoint/1"
@@ -243,20 +246,31 @@ class CheckpointManager:
         self.output_dir = output_dir
         self.max_checkpoints = max_checkpoints
         self._saved: List[str] = []
-        os.makedirs(output_dir, exist_ok=True)
+        if dist.is_main_process():
+            os.makedirs(output_dir, exist_ok=True)
 
     def path(self, tag) -> str:
         return os.path.join(self.output_dir, f"checkpoint_{tag}")
 
-    def save(self, tag, state: Dict) -> str:
+    def save(self, tag, state: Optional[Dict]) -> str:
         """Write ``state`` (nested dicts and lists of tensors, arrays and
         numbers) as the directory ``checkpoint_{tag}``; an integer tag joins
-        the ring."""
-        path = checkpointer.save(self.path(tag), state)
+        the ring.  Every rank calls it (``state`` is read on rank 0 alone);
+        no rank returns before the directory is whole."""
+        main = dist.is_main_process()
+        path = os.path.abspath(self.path(tag))
+        if main and os.path.exists(path):
+            shutil.rmtree(path)
+        dist.barrier("ckpt_clear")
+        if main:
+            checkpointer.save(path, state)
+        dist.barrier("ckpt_write")
         if isinstance(tag, int) or (isinstance(tag, str) and tag.isdigit()):
             self._saved.append(path)
             if self.max_checkpoints > 0 and len(self._saved) > self.max_checkpoints:
-                shutil.rmtree(self._saved.pop(0), ignore_errors=True)
+                victim = self._saved.pop(0)
+                if main:
+                    shutil.rmtree(victim, ignore_errors=True)
         return path
 
     def restore(self, tag) -> Optional[Dict]:

@@ -1,35 +1,183 @@
-"""Process plumbing for one process on one card (counterpart of
+"""Process plumbing for data parallelism across ranks (counterpart of
 ``myriad_tpu/common/dist.py``).
 
-The port trains in one process: rank 0 of a world of 1.  Data parallelism
-across cards is not ported; ``init_distributed_mode`` raises when the run
-config or the launcher asks for more than one process, or for a device mesh
-(``model_shards`` > 1, ``use_mesh``).
+The JAX package trains one program over a global batch: each process feeds
+its rows into the ``data`` axis of a device mesh and XLA reduces the
+gradient.  The port runs one process a card, launched by ``torchrun``:
+
+    torchrun --nproc_per_node N -m myriad_tpu_torch.train --cfg-path ...
+
+Rank, world and local rank come from the launcher's environment (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``), as the JAX
+package takes them from ``jax.process_index()`` and ``jax.process_count()``.
+``init_distributed_mode`` joins the process group when the launcher's
+``WORLD_SIZE`` is above 1 and is a no-op otherwise; the run config's
+``world_size`` decides nothing (the JAX package never reads it); its
+``dist_url`` is the rendezvous (``env://``, the configs' and the default, or
+a ``file://`` path).  With
+``model_shards: 1``, ``use_mesh`` is the JAX package's data axis: data
+parallel over the launched ranks, a world of one in a single process.
+``model_shards`` > 1 (tensor parallelism over the ``model`` axis) raises.
+
+The transport is fixed before the group is built: gloo for CPU ranks; NCCL
+when every rank of the host has a card of its own; gloo on CUDA tensors when
+the ranks outnumber the host's cards (NCCL refuses two ranks on one device).
+Rank r runs on ``cuda:(LOCAL_RANK % cards)``.  Nothing retries another
+transport after a failure.
 """
 
 from __future__ import annotations
 
+import atexit
+import functools
+import logging
 import os
+from typing import Iterable, List, Optional, Tuple
+
+import torch
+import torch.distributed as tdist
+
+def _env_int(name: str, default: int) -> int:
+    value = os.environ.get(name)
+    return int(value) if value not in (None, "") else default
 
 
-def init_distributed_mode(run_cfg=None) -> None:
+def launched_world() -> int:
+    """The launcher's ``WORLD_SIZE`` (1 without a launcher)."""
+    return _env_int("WORLD_SIZE", 1)
+
+
+def transport(device_type: str, local_world: int, cards: int) -> str:
+    """The backend for ``local_world`` ranks on one host with ``cards`` cards:
+    gloo for CPU ranks, NCCL when each rank has a card of its own, else gloo
+    on CUDA tensors."""
+    if device_type != "cuda":
+        return "gloo"
+    return "nccl" if cards >= local_world else "gloo"
+
+
+def init_distributed_mode(run_cfg=None, device_type: str = "cuda") -> Optional[str]:
+    """Join the launcher's process group when its ``WORLD_SIZE`` is above 1
+    (``device_type`` the run's: ``cuda`` or ``cpu``); returns the backend
+    joined, None in a world of one.  ``model_shards`` > 1 raises."""
     run_cfg = run_cfg or {}
-    world = max(int(run_cfg.get("world_size", 1) or 1), int(os.environ.get("WORLD_SIZE", "1")))
-    if world > 1:
-        raise NotImplementedError(f"world_size={world}: data parallelism across cards is "
-                                  "not ported; the port trains in one process")
-    if int(run_cfg.get("model_shards", 1) or 1) > 1 or run_cfg.get("use_mesh"):
-        raise NotImplementedError(f"model_shards={run_cfg.get('model_shards')}, use_mesh="
-                                  f"{run_cfg.get('use_mesh')}: a device mesh is not ported")
+    shards = int(run_cfg.get("model_shards", 1) or 1)
+    if shards > 1:
+        raise NotImplementedError(
+            f"model_shards={shards}: tensor parallelism over the model axis is not ported "
+            "(one H100 holds the model); the port is data parallel over its ranks")
+    if is_dist_avail_and_initialized():
+        return tdist.get_backend()
+    world = launched_world()
+    if world <= 1:
+        return None
+    rank = _env_int("RANK", 0)
+    local_world = _env_int("LOCAL_WORLD_SIZE", world)
+    cards = torch.cuda.device_count() if device_type == "cuda" else 0
+    backend = transport(device_type, local_world, cards)
+    if device_type == "cuda":
+        torch.cuda.set_device(get_local_rank() % cards)
+    logging.info("joining the process group: rank %d of %d, backend %s (%d ranks on this "
+                 "host, %d cards)", rank, world, backend, local_world, cards)
+    tdist.init_process_group(backend, init_method=str(run_cfg.get("dist_url") or "env://"),
+                             world_size=world, rank=rank)
+    atexit.register(destroy)
+    return backend
+
+
+def destroy() -> None:
+    """Leave the process group (at exit)."""
+    if is_dist_avail_and_initialized():
+        tdist.destroy_process_group()
+
+
+def device_of(name: str = "cuda") -> torch.device:
+    """This rank's device for a run on ``name``: ``cuda:(LOCAL_RANK % cards)``
+    under a launcher, ``cuda`` alone otherwise; the CPU as it is."""
+    device = torch.device(name)
+    if device.type != "cuda" or device.index is not None or launched_world() <= 1:
+        return device
+    return torch.device("cuda", get_local_rank() % max(torch.cuda.device_count(), 1))
+
+
+def is_dist_avail_and_initialized() -> bool:
+    return tdist.is_available() and tdist.is_initialized()
 
 
 def get_rank() -> int:
-    return 0
+    return tdist.get_rank() if is_dist_avail_and_initialized() else 0
+
+
+def get_world_size() -> int:
+    return tdist.get_world_size() if is_dist_avail_and_initialized() else 1
+
+
+def get_local_rank() -> int:
+    return _env_int("LOCAL_RANK", 0)
 
 
 def is_main_process() -> bool:
-    return True
+    return get_rank() == 0
+
+
+def main_process(func):
+    """Run ``func`` on rank 0 only (None elsewhere)."""
+
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs):
+        if is_main_process():
+            return func(*args, **kwargs)
+        return None
+
+    return wrapper
+
+
+def _collective_device() -> torch.device:
+    """Where a collective's scalars live: the card under NCCL, else the CPU."""
+    if tdist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def all_sum_scalars(*values: float) -> Tuple[float, ...]:
+    """Python scalars summed over the ranks, in fp64."""
+    if get_world_size() <= 1:
+        return values
+    t = torch.tensor(values, dtype=torch.float64, device=_collective_device())
+    tdist.all_reduce(t)
+    return tuple(t.cpu().tolist())
+
+
+def all_sum_(tensors: Iterable[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum ``tensors`` over the ranks in place, one collective a dtype and
+    device (the tensors flattened into one buffer and copied back); a no-op
+    outside a process group.  Every rank receives the same bits."""
+    tensors = list(tensors)
+    if not is_dist_avail_and_initialized():
+        return tensors
+    groups = {}
+    for t in tensors:
+        groups.setdefault((t.dtype, t.device), []).append(t)
+    for group in groups.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        tdist.all_reduce(flat)
+        offset = 0
+        for t in group:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+    return tensors
+
+
+def broadcast_object(obj):
+    """Rank 0's ``obj`` on every rank (``obj`` itself in a world of one)."""
+    if get_world_size() <= 1:
+        return obj
+    box = [obj]
+    tdist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def barrier(name: str = "barrier") -> None:
-    """A no-op in one process."""
+    """Wait for every rank (a no-op in a world of one)."""
+    if get_world_size() > 1:
+        tdist.barrier()

@@ -1,9 +1,9 @@
 """Windowed metric logging (counterpart of ``myriad_tpu/common/logger.py``).
 
 ``SmoothedValue`` tracks a deque window and a global sum and count;
-``MetricLogger.log_every`` logs the iteration time, data time and ETA.  The
-port runs one process (``common.dist``), so there is nothing to gather
-across processes.
+``MetricLogger.log_every`` logs the iteration time, data time and ETA.
+``synchronize_between_processes`` sums each meter's count and total over the
+ranks (``dist.all_sum_scalars``), so the global averages are the job's.
 """
 
 from __future__ import annotations
@@ -32,6 +32,14 @@ class SmoothedValue:
         self.deque.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self) -> None:
+        """Sum the count and total over the ranks (the window stays local)."""
+        if dist.get_world_size() <= 1:
+            return
+        count, total = dist.all_sum_scalars(float(self.count), self.total)
+        self.count = int(count)
+        self.total = total
 
     @property
     def median(self) -> float:
@@ -79,6 +87,10 @@ class MetricLogger:
         if attr in self.meters:
             return self.meters[attr]
         raise AttributeError(f"'MetricLogger' object has no attribute '{attr}'")
+
+    def synchronize_between_processes(self) -> None:
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
 
     def global_avg(self) -> str:
         return self.delimiter.join(

@@ -1,9 +1,11 @@
 """Data loading (counterpart of ``myriad_tpu/datasets/loaders.py``).
 
 ``DataLoader`` is map-style: batches of indices (shuffled by
-``default_rng(seed + epoch)`` when ``shuffle``, the last short batch dropped
-when ``drop_last``), collated by the dataset's ``collater``, built by a
-thread pool that keeps ``2 * num_workers`` batches in flight.  ``IterLoader``
+``default_rng(seed + epoch)`` when ``shuffle``, or a ``DistributedSampler``'s
+shard when given one, the last short batch dropped when ``drop_last``),
+collated by the dataset's ``collater``, built by a thread pool that keeps
+``2 * num_workers`` batches in flight.  ``DistributedSampler`` gives rank r
+of n its strided share of one permutation, the same on every rank.  ``IterLoader``
 wraps it into an endless iterator that starts the next epoch when one ends;
 ``PrefetchLoader`` builds batches ahead of the consumer in a background
 thread.  ``IterableBatcher`` batches an endless sample stream (the tar
@@ -25,8 +27,10 @@ import numpy as np
 class DataLoader:
     def __init__(self, dataset, batch_size: int, num_workers: int = 0, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
-                 collate_fn: Optional[Callable] = None):
+                 collate_fn: Optional[Callable] = None,
+                 sampler: Optional["DistributedSampler"] = None):
         self.dataset = dataset
+        self.sampler = sampler
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.shuffle = shuffle
@@ -37,15 +41,19 @@ class DataLoader:
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
+        if self.sampler is not None:
+            self.sampler.set_epoch(epoch)
 
     def _indices(self) -> np.ndarray:
+        if self.sampler is not None:
+            return np.asarray(list(iter(self.sampler)), dtype=np.int64)
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self._seed + self._epoch).shuffle(idx)
         return idx
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.sampler) if self.sampler is not None else len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _fetch(self, indices):
@@ -67,6 +75,38 @@ class DataLoader:
                 futures[i] = None
                 if len(futures) < len(batches):
                     futures.append(pool.submit(self._fetch, batches[len(futures)]))
+
+
+class DistributedSampler:
+    """Rank ``rank``'s share of the index space among ``num_replicas``: one
+    permutation on every rank (``default_rng(seed + epoch)`` when
+    ``shuffle``, no rank offset), padded from its head to a multiple of
+    ``num_replicas``, then every ``num_replicas``-th index from ``rank``."""
+
+    def __init__(self, dataset, num_replicas: int, rank: int, shuffle: bool = True,
+                 seed: int = 0):
+        self.size = len(dataset)
+        self.num_replicas = num_replicas
+        self.rank = rank
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self.num_samples = -(-self.size // num_replicas)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __iter__(self):
+        idx = np.arange(self.size)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        pad = self.num_samples * self.num_replicas - self.size
+        if pad > 0:
+            idx = np.concatenate([idx, idx[:pad]])
+        return iter(idx[self.rank::self.num_replicas].tolist())
+
+    def __len__(self):
+        return self.num_samples
 
 
 class IterLoader:

@@ -16,8 +16,9 @@ or port ``ckpt:`` load over them; the towers serve in int8 with
 ``qformer_weight_dtype`` (the TPU harness's profile).
 
 It runs on the card named by the config's ``run.device`` (``cuda`` when
-unset; without a card that raises), and ``run.device: cpu`` runs it on the
-CPU.  The images are decoded and resized on the host exactly as PIL does
+unset; without a card that raises), holding the card lock
+(``common.card_lock``) for its run, and ``run.device: cpu`` runs it on the
+CPU without the lock.  The images are decoded and resized on the host exactly as PIL does
 (``datasets.jpeg.read_image``, ``processors.functional``) and normalised to float32, as
 the JAX harness feeds its towers.  ``--engine`` serves every image as a
 request of the continuous-batching engine over ``--bs`` slots
@@ -41,6 +42,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from myriad_tpu_torch.common.card_lock import card_lock
 from myriad_tpu_torch.common.config import Config, get_model_class
 from myriad_tpu_torch.datasets.anomaly_detection import AnomalyDetectionDataset
 from myriad_tpu_torch.datasets.loaders import DataLoader
@@ -416,9 +418,15 @@ def run_engine(args, model, dataloader, save_path: str) -> Dict:
 
 
 def main(argv=None) -> Dict:
+    """Build and run; on the card under the card lock (``common.card_lock``,
+    waiting up to 30 minutes for another holder), never on the CPU."""
     args = parse_args(argv)
     cfg = Config(args)
-    return run(args, cfg, build_model(args, cfg))
+    run_cfg = cfg.run_cfg if cfg.config.get("run") else {}
+    if torch.device(run_cfg.get("device") or "cuda").type != "cuda":
+        return run(args, cfg, build_model(args, cfg))
+    with card_lock("eval_aqa", max_hold_s=10800.0, wait_s=1800.0):
+        return run(args, cfg, build_model(args, cfg))
 
 
 if __name__ == "__main__":

@@ -58,6 +58,15 @@ class TrainableModel:
                     names.append(name)
         return names
 
+    def train_nll(self, arrays: Dict[str, torch.Tensor], static=()):  # pragma: no cover
+        raise NotImplementedError
+
+    def train_loss(self, arrays: Dict[str, torch.Tensor], static=()) -> torch.Tensor:
+        """The loss of one batch: ``train_nll``'s sum over its token count (at
+        least 1), the mean over the batch's target tokens."""
+        total, count = self.train_nll(arrays, static)
+        return total / count.clamp_min(1)
+
     def trainable_state_dict(self) -> Dict[str, torch.Tensor]:
         params = dict(self.module.named_parameters())
         return {n: params[n] for n in self.trainable_names}

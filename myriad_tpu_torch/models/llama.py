@@ -27,7 +27,7 @@ package's cache writes do.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -368,10 +368,14 @@ class LlamaForCausalLM(nn.Module):
         return self.logits(self.model(inputs_embeds, cache, kv_limit))
 
 
-def lm_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                     ignore_index: int = -100) -> torch.Tensor:
-    """The shifted LM loss in fp32 with ``ignore_index`` masked: logits (B, T,
-    V), targets (B, T); the mean over the unmasked positions."""
+def lm_nll(logits: torch.Tensor, targets: torch.Tensor,
+           ignore_index: int = -100) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The parts of the shifted LM loss (the JAX package's
+    ``lm_cross_entropy``) in fp32 with ``ignore_index`` masked: logits (B, T,
+    V), targets (B, T); (the nll summed over the unmasked positions, their
+    count as int64).  The loss is the sum over the count (at least 1); ranks
+    that hold parts of one batch sum both over the ranks before dividing
+    (the global token mean)."""
     logits = logits[:, :-1].float()
     labels = targets[:, 1:]
     valid = labels != ignore_index
@@ -379,4 +383,4 @@ def lm_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum(), valid.sum()

@@ -32,7 +32,7 @@ from myriad_tpu_torch.models.base import TrainableModel
 from myriad_tpu_torch.models.eva_vit import EvaViT
 from myriad_tpu_torch.models.layers import (Dense, LayerNormFp32, Policy, init_random_,
                                             new_param)
-from myriad_tpu_torch.models.llama import LlamaForCausalLM, lm_cross_entropy
+from myriad_tpu_torch.models.llama import LlamaForCausalLM, lm_nll
 from myriad_tpu_torch.models.myriad import MyriadArch
 from myriad_tpu_torch.models.qformer import QFormer
 from myriad_tpu_torch.tokenization import load_llama_tokenizer
@@ -74,10 +74,11 @@ class MiniGPT4Module(nn.Module):
 
     def forward_train(self, image: torch.Tensor, before_ids: torch.Tensor,
                       after_ids: torch.Tensor, text_ids: torch.Tensor, text_mask: torch.Tensor,
-                      bos_id: int = 1) -> torch.Tensor:
+                      bos_id: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
         """[bos][before][image][after][text] through the LLaMA without a cache;
-        the fp32 cross entropy of the text, the prefix and the padding masked
-        out (-100)."""
+        the parts of the fp32 cross entropy of the text (``lm_nll``: the nll
+        sum and the token count), the prefix and the padding masked out
+        (-100)."""
         img = self.encode_img(image)
         b = image.shape[0]
         embed = self.llama.embed
@@ -93,7 +94,7 @@ class MiniGPT4Module(nn.Module):
         text_targets = torch.where(text_mask.bool(), text_ids.long(),
                                    torch.full_like(text_ids.long(), -100))
         logits = self.llama(inputs, None, attention_mask=mask)
-        return lm_cross_entropy(logits, torch.cat([ignore, text_targets], dim=1))
+        return lm_nll(logits, torch.cat([ignore, text_targets], dim=1))
 
 
 class MiniGPT4(TrainableModel):
@@ -264,6 +265,7 @@ class MiniGPT4(TrainableModel):
                   "after": after, "text_ids": text_ids, "text_mask": text_mask}
         return arrays, ()
 
-    def train_loss(self, arrays: Dict[str, torch.Tensor], static=()) -> torch.Tensor:
+    def train_nll(self, arrays: Dict[str, torch.Tensor], static=()):
+        """(nll sum, token count) of one batch; ``train_loss`` is their quotient."""
         return self.module.forward_train(arrays["image"], arrays["before"], arrays["after"],
                                          arrays["text_ids"], arrays["text_mask"])

@@ -47,7 +47,7 @@ from myriad_tpu_torch.models.eva_vit import EvaViT
 from myriad_tpu_torch.models.imagebind import ImageBindConfig
 from myriad_tpu_torch.models.layers import (Dense, LayerNormFp32, Policy,
                                             init_random_, new_param)
-from myriad_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM, lm_cross_entropy,
+from myriad_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM, lm_nll,
                                            serving_cache_dtype)
 from myriad_tpu_torch.models.networks import LoraAdaptorV2, VEInstructorV2, VETokenizer
 from myriad_tpu_torch.models.qformer import QFormer
@@ -188,16 +188,18 @@ class MyriadModule(nn.Module):
 
     def forward_train(self, image: torch.Tensor, maps: torch.Tensor, before_ids: torch.Tensor,
                       after_ids: torch.Tensor, text_ids: torch.Tensor, text_mask: torch.Tensor,
-                      stage: int, bos_id: int = 1, add_bos: bool = True) -> torch.Tensor:
-        """The training loss: fp32 cross entropy of the target text, the
-        prefix and the padding masked out (-100)."""
+                      stage: int, bos_id: int = 1,
+                      add_bos: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training loss's parts (``lm_nll``: the fp32 nll summed over the
+        target text's tokens, and their count), the prefix and the padding
+        masked out (-100)."""
         logits, p = self.train_logits(image, maps, before_ids, after_ids, text_ids, text_mask,
                                       stage, bos_id, add_bos=add_bos)
         b = image.shape[0]
         ignore = torch.full((b, p), -100, dtype=torch.int64, device=logits.device)
         text_targets = torch.where(text_mask.bool(), text_ids.long(),
                                    torch.full_like(text_ids.long(), -100))
-        return lm_cross_entropy(logits, torch.cat([ignore, text_targets], dim=1))
+        return lm_nll(logits, torch.cat([ignore, text_targets], dim=1))
 
 
 # config keys whose other values the port does not serve: a checkpoint that
@@ -660,9 +662,11 @@ class Myriad(TrainableModel):
                   "after": after, "text_ids": text_ids, "text_mask": text_mask}
         return arrays, (stage,)
 
-    def train_loss(self, arrays: Dict[str, torch.Tensor], static: Tuple[int]) -> torch.Tensor:
-        """The loss of one batch (the JAX package's ``pure_loss`` over the
-        module's own parameters)."""
+    def train_nll(self, arrays: Dict[str, torch.Tensor],
+                  static: Tuple[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(nll sum, token count) of one batch; ``train_loss`` is their
+        quotient, the JAX package's ``pure_loss`` over the module's own
+        parameters."""
         (stage,) = static
         return self.module.forward_train(arrays["image"], arrays["maps"], arrays["before"],
                                          arrays["after"], arrays["text_ids"],

@@ -1,13 +1,35 @@
 """The training loop (counterpart of ``myriad_tpu/runners/runner_base.py``).
 
-One process on one device.  A training iteration is the model's
+One process a device; under a launcher, data parallel over the ranks
+(``common/dist.py``).  A training iteration is the model's
 ``prepare_train_arrays`` (the stage draws, the vision expert's maps, the
-tokenised targets), ``train_loss`` and its backward through the trainables,
-then ``AdamW.step`` (``common/optim.py``: the optax chain of
-``make_optimizer``, gradient accumulation as ``optax.MultiSteps``).  The
-loader halves the batch of an AnomalyDetection dataset, whose NSA twins
+tokenised targets), ``train_nll`` and the backward of the loss through the
+trainables, then ``AdamW.step`` (``common/optim.py``: the optax chain of
+``make_optimizer``, gradient accumulation as ``optax.MultiSteps``).
+
+Across ranks the loss is the JAX package's over the global batch, the nll
+summed over every rank's answer tokens over their global count
+(``myriad_tpu/models/llama.py::lm_cross_entropy`` reduced by GSPMD; the
+port's ``lm_nll`` gives the parts), not the mean of the ranks' means, which
+differs when ranks hold different numbers of tokens.  Each rank sums its (nll, count) with the others' (one
+collective), backpropagates its own nll over the global count, and the
+trainables' gradients are summed over the ranks in one flat buffer
+(``dist.all_sum_``): the gradient of the global token mean on every rank,
+the same bits, before clipping and AdamW, so the trainables stay
+bit-identical.  ``DistributedDataParallel`` with the loss scaled by
+``world / global count`` gives the same gradient, but it hooks a module's
+``forward`` (the runner calls ``forward_train`` through the host model) and
+broadcasts every parameter of the module when it wraps it, the frozen
+towers included.  The reported loss is the global one, the same on every
+rank.
+
+The loader halves the batch of an AnomalyDetection dataset, whose NSA twins
 double it back; it shuffles the training split from the run's seed, drops
-the last short batch and builds one batch ahead (``PrefetchLoader``).  A
+the last short batch and builds one batch ahead (``PrefetchLoader``).
+Under a world above 1 each map-style split takes a ``DistributedSampler``
+(one permutation from ``base_seed`` on every rank, the rank's strided
+share; the eval splits padded and in order), while host work with a rank of
+its own (worker seeds, ``MultiIterLoader``) takes ``base_seed + rank``.  A
 stream without ``__len__`` (tar shards) is batched by ``IterableBatcher``,
 and several training datasets are mixed by their ``sample_ratio``
 (``MultiIterLoader``).  After
@@ -21,7 +43,10 @@ ring: the JAX runner's state, ``{"model": the trainables as the JAX tree,
 directory the JAX package resumes.  ``resume_ckpt_path`` takes such a
 directory (written by either package), the port's earlier ``.pth`` ring
 files, or a parameter file, and continues from the epoch after it; the
-optimizer's state is matched by name (``AdamW.load_optax_tree``).
+optimizer's state is matched by name (``AdamW.load_optax_tree``).  Rank 0
+alone makes ``output_dir``, writes ``log.txt`` and writes the ring (every
+rank calls the save, which barriers around rank 0's write); every rank
+reads ``resume_ckpt_path``.
 """
 
 from __future__ import annotations
@@ -40,8 +65,9 @@ from myriad_tpu_torch.checkpoint import CheckpointManager
 from myriad_tpu_torch.common import dist
 from myriad_tpu_torch.common.optim import AdamW, build_schedule
 from myriad_tpu_torch.convert_from_jax import jax_leaves, tree_of
-from myriad_tpu_torch.datasets.loaders import (DataLoader, IterableBatcher, IterLoader,
-                                               MultiIterLoader, PrefetchLoader)
+from myriad_tpu_torch.datasets.loaders import (DataLoader, DistributedSampler,
+                                               IterableBatcher, IterLoader, MultiIterLoader,
+                                               PrefetchLoader)
 
 
 class RunnerBase:
@@ -62,7 +88,8 @@ class RunnerBase:
         self.batch_size_train = int(self.run_cfg.get("batch_size_train", 4))
         self.num_workers = int(self.run_cfg.get("num_workers", 4))
         self.output_dir = os.path.join(str(self.run_cfg.get("output_dir", "./output")), job_id)
-        os.makedirs(self.output_dir, exist_ok=True)
+        if dist.is_main_process():
+            os.makedirs(self.output_dir, exist_ok=True)
         self.schedule = build_schedule(
             self.run_cfg.get("lr_sched", "linear_warmup_cosine_lr"),
             init_lr=float(self.run_cfg.get("init_lr", 1e-4)),
@@ -108,13 +135,23 @@ class RunnerBase:
                     loaders.append(IterableBatcher(dataset, bs))
                     continue
                 dl = DataLoader(dataset, batch_size=bs, shuffle=shuffle, drop_last=True,
-                                num_workers=self.num_workers, seed=self.seed)
+                                num_workers=self.num_workers, seed=self.seed,
+                                sampler=self._sampler(dataset, shuffle))
                 if bool(self.run_cfg.get("prefetch", True)):
                     dl = PrefetchLoader(dl)
                 loaders.append(IterLoader(dl))
         if not loaders:
             raise ValueError("no dataset has a train split")
         return loaders, ratios
+
+    def _sampler(self, dataset, shuffle: bool):
+        """Under a world above 1, this rank's ``DistributedSampler`` over a
+        map-style split, seeded without the rank offset, so that every rank
+        draws one permutation; None in a world of one."""
+        if dist.get_world_size() <= 1:
+            return None
+        return DistributedSampler(dataset, dist.get_world_size(), dist.get_rank(),
+                                  shuffle=shuffle, seed=self.base_seed)
 
     @property
     def train_loader(self):
@@ -130,18 +167,36 @@ class RunnerBase:
 
     # -- the step ----------------------------------------------------------------
     def train_iteration(self, samples, rng: np.random.Generator):
-        """One batch: forward, backward, optimizer.  Returns (loss, the rate of
-        this global step) as host floats."""
+        """One batch: forward, backward (the global token mean's gradient
+        across ranks), optimizer.  Returns (loss, the rate of this global
+        step) as host floats."""
         arrays, static = self.model.prepare_train_arrays(samples, rng)
         self.optimizer.zero_grad()
-        loss = self.model.train_loss(arrays, static)
-        loss.backward()
+        loss = self._global_mean_backward(*self.model.train_nll(arrays, static))
         self.optimizer.step()
         lr = float(self.schedule(self.global_step // max(self.accum_grad_iters, 1)))
         self.global_step += 1
         loss = float(loss.detach())
         self.losses.append(loss)
         return loss, lr
+
+    def _global_mean_backward(self, total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+        """Backpropagate this rank's share of the global token mean, then sum
+        the trainables' gradients over the ranks; returns the global loss.
+        Outside a process group the sums are this process's own: the batch's
+        mean, ``train_loss``'s arithmetic, and its gradient (a tensor the
+        stage leaves unused gets zeros, as AdamW reads a missing one)."""
+        sums = torch.stack([total.detach().double(), count.double()])
+        dist.all_sum_([sums])
+        n = sums[1].clamp_min(1)
+        (total / n.to(total.dtype)).backward()
+        grads = []
+        for _, p in self.model.trainable_parameters():
+            if p.grad is None:  # a stage's unused tensor: zero on every rank
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        dist.all_sum_(grads)
+        return sums[0].to(total.dtype) / n.to(total.dtype)
 
     # -- checkpoints -------------------------------------------------------------
     def _to_tree(self, tensors: Dict[str, torch.Tensor]) -> Dict:
@@ -152,11 +207,16 @@ class RunnerBase:
         return {name: t for _, name, t in jax_leaves(tree)}
 
     def _save_checkpoint(self, epoch, is_best: bool = False) -> str:
-        state = {"model": self._to_tree(self.model.trainable_state_dict()),
-                 "optimizer": self.optimizer.optax_tree(self._to_tree),
-                 "epoch": np.asarray(epoch), "global_step": np.asarray(self.global_step)}
+        """Every rank calls it; rank 0 builds the state and writes it (the
+        trainables and the optimizer's state are the same on every rank)."""
+        state = None
+        if dist.is_main_process():
+            state = {"model": self._to_tree(self.model.trainable_state_dict()),
+                     "optimizer": self.optimizer.optax_tree(self._to_tree),
+                     "epoch": np.asarray(epoch), "global_step": np.asarray(self.global_step)}
         path = self.ckpt_manager.save("best" if is_best else epoch, state)
-        logging.info("Saved checkpoint at epoch %d to %s", epoch, path)
+        if dist.is_main_process():
+            logging.info("Saved checkpoint at epoch %d to %s", epoch, path)
         return path
 
     def _resume(self, path: str) -> None:
@@ -181,10 +241,12 @@ class RunnerBase:
         logging.info("Resumed from %s (epoch %d, %d tensors)", path, self.start_epoch,
                      len(loaded))
 
+    @dist.main_process
     def log_stats(self, stats: Dict, split_name: str = "train") -> None:
         with open(os.path.join(self.output_dir, "log.txt"), "a") as f:
             f.write(json.dumps({f"{split_name}_{k}": v for k, v in stats.items()}) + "\n")
 
+    @dist.main_process
     def log_config(self) -> None:
         with open(os.path.join(self.output_dir, "log.txt"), "a") as f:
             f.write(json.dumps(self.config.to_dict(), default=str) + "\n")
@@ -196,7 +258,8 @@ class RunnerBase:
 
     def eval_loader(self, split_name: str):
         """A loader over the datasets' ``split_name`` split, in order, the last
-        short batch kept; None when no dataset has the split."""
+        short batch kept (this rank's padded share under a world above 1);
+        None when no dataset has the split."""
         for splits in self.datasets.values():
             dataset = splits.get(split_name)
             if dataset is not None:
@@ -204,7 +267,8 @@ class RunnerBase:
                 if getattr(dataset, "DatasetName", "") == "AnomalyDetection":
                     bs = max(bs // 2, 1)
                 return DataLoader(dataset, batch_size=bs, shuffle=False, drop_last=False,
-                                  num_workers=self.num_workers, seed=self.seed)
+                                  num_workers=self.num_workers, seed=self.seed,
+                                  sampler=self._sampler(dataset, False))
         return None
 
     def eval_epoch(self, split_name: str, epoch):

@@ -3,11 +3,14 @@ model and the datasets from the config, runs an epoch as
 ``iters_per_epoch`` training iterations of the runner, and evaluates a
 split as the JAX task does: ``evaluation`` gathers ``valid_step``'s results
 over the loader (``valid_step`` is left to a task), ``after_evaluation``
-turns them into metrics (None here)."""
+turns them into metrics (None here).  ``save_result`` writes each rank's
+results and merges them on rank 0."""
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 from typing import Dict
 
 import numpy as np
@@ -59,7 +62,7 @@ class BaseTask:
         and ``step`` (the iteration, ending with the loss read on the host)
         are timed on ``self.timer`` across epochs.  The prompt and task
         stages are drawn from ``default_rng(base_seed + epoch)``, as the JAX
-        package draws them."""
+        package draws them.  The averages are summed over the ranks."""
         metric_logger = MetricLogger(delimiter="  ")
         metric_logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value:.6f}"))
         metric_logger.add_meter("loss", SmoothedValue(window_size=1, fmt="{value:.4f}"))
@@ -73,6 +76,7 @@ class BaseTask:
             with self.timer.phase("step"):
                 loss, lr = runner.train_iteration(samples, rng)
             metric_logger.update(loss=loss, lr=lr)
+        metric_logger.synchronize_between_processes()
         self.timer.log(f"phase timings to epoch {epoch}")
         mem = device_memory_stats(runner.device)
         if mem:
@@ -94,3 +98,33 @@ class BaseTask:
 
     def after_evaluation(self, val_result, split_name, epoch, **kwargs):
         return None
+
+    @staticmethod
+    def save_result(result, result_dir: str, filename: str, remove_duplicate: str = "") -> str:
+        """Each rank writes ``{filename}_rank{r}.json``; rank 0 merges them in
+        rank order into ``{filename}.json``, keeping the first item of each
+        ``remove_duplicate`` key when one is named (the padded eval shares
+        repeat rows); every rank returns the merged file's path once it is
+        written."""
+        os.makedirs(result_dir, exist_ok=True)
+        with open(os.path.join(result_dir, f"{filename}_rank{dist.get_rank()}.json"), "w") as f:
+            json.dump(result, f)
+        dist.barrier("save_result")
+        final_file = os.path.join(result_dir, f"{filename}.json")
+        if dist.is_main_process():
+            merged = []
+            for rank in range(dist.get_world_size()):
+                with open(os.path.join(result_dir, f"{filename}_rank{rank}.json")) as f:
+                    merged += json.load(f)
+            if remove_duplicate:
+                seen, unique = set(), []
+                for item in merged:
+                    if item[remove_duplicate] not in seen:
+                        seen.add(item[remove_duplicate])
+                        unique.append(item)
+                merged = unique
+            with open(final_file, "w") as f:
+                json.dump(merged, f)
+            logging.info("result file saved to %s", final_file)
+        dist.barrier("save_result_merge")
+        return final_file

@@ -5,6 +5,10 @@ CLI and config).
         --cfg-path train_configs/loraadapter_simple_myriad_finetune.yaml \\
         [--options run.max_epoch=1 run.iters_per_epoch=10 ...]
 
+Data parallel over N cards of a host, one rank a card:
+
+    torchrun --nproc_per_node N -m myriad_tpu_torch.train --cfg-path ...
+
 Builds ``common.config.Config`` from the YAML (with the port's copies of the
 default YAMLs) and ``--options``, then the task, the datasets, the model and
 ``RunnerBase``, and trains.  The model is ``model.arch``'s (``myriad`` or
@@ -14,8 +18,12 @@ checkpoint load over them.  It runs on
 ``run.device``: unset means ``cuda``, ``cpu`` runs on the CPU, and the
 shared configs' ``tpu`` (the JAX package's accelerator) is read as ``cuda``,
 which the first log line says.  Without a card ``cuda`` raises; nothing
-falls back to the CPU.  ``build`` returns the runner before it trains;
-``main`` trains it and returns it.
+falls back to the CPU.  Under a launcher (``WORLD_SIZE`` above 1) the
+process joins the group before anything touches the card
+(``common.dist.init_distributed_mode``) and runs on ``cuda:LOCAL_RANK``
+(modulo the host's cards); ``batch_size_train`` is each rank's batch.
+``build`` returns the runner before it trains; ``main`` trains it and
+returns it.
 """
 
 from __future__ import annotations
@@ -77,12 +85,17 @@ def build(argv=None):
     when ``run.resume_ckpt_path`` names a checkpoint), not yet trained."""
     args = parse_args(argv)
     cfg = Config(args)
-    setup_logger()
     device, note = resolve_device(cfg.run_cfg)
+    backend = dist.init_distributed_mode(cfg.run_cfg, device.type)
+    device = dist.device_of(device.type)
+    setup_logger()
     logging.info(note)
-    dist.init_distributed_mode(cfg.run_cfg)
+    if backend:
+        logging.info("data parallel: rank %d of %d on %s over %s", dist.get_rank(),
+                     dist.get_world_size(), device, backend)
     setup_seeds(cfg)
-    job_id = datetime.now().strftime("%Y%m%d%H%M%S")
+    # one output directory for the job: rank 0's clock names it on every rank
+    job_id = dist.broadcast_object(datetime.now().strftime("%Y%m%d%H%M%S"))
     task = tasks.setup_task(cfg)
     datasets = task.build_datasets(cfg)
     model = task.build_model(cfg, device=device)
