@@ -56,7 +56,7 @@ Phases, each printing its own lines:
    print its device time by kernel and the device's busy share;
 6. free that model and build Myriad with int4 LLM weights
    (``llm_weight_dtype: int4``) at full width: greedy generate (batch 8, 90
-   tokens, median of 3), one speculative generate (K = 3, prompt-lookup
+   tokens, one timed run), one speculative generate (K = 3, prompt-lookup
    drafts) and one chat turn, each through kernel B5 and never B1; profile
    one greedy and one speculative generate and print the stage times; gate
    the first prefill's logits against the plain path's;
@@ -70,7 +70,8 @@ Phases, each printing its own lines:
    test tree written under build/ (24 PNGs with every row filter: 12 RGB
    900x900 and 12 gray 1024x1024, half of each anomalous, two classes):
    ``eval_configs/myriad.yaml`` at full width with int8 LLM weights and an int8
-   KV cache, random weights, ``--bs 8 --greedy --bench``, 90 new tokens; check
+   KV cache, random weights, ``--bs 8 --greedy --bench``, ``EVAL_TOKENS`` (48)
+   new tokens (as phases 9 (d), 11 and 12 (b, e): cut from 90); check
    24 rows with the harness's schema, each row's tokens identical to a direct
    ``Myriad.generate`` on the same collated batch, and B1-B4 launched; print
    the ``--bench`` line, its phase means, the PNG decode and resize time per
@@ -141,8 +142,8 @@ Phases, each printing its own lines:
    missing, every Q-Former payload equal to the npz quantized on the host):
    (b) ``evaluate.run`` over phase 8's tree at phase 8's batch (rows, tokens
    identical to a direct generate, the ``--bench`` line beside phase 8's);
-   (c) one generate at the harness's batch of 48 (images/s, median of 3
-   after a warm-up, peak memory); (d) a batch-1 chat: the upload's B1
+   (c) one generate at the harness's batch of 48 (images/s, one run after a
+   4-token warm-up, peak memory); (d) a batch-1 chat: the upload's B1
    launches (the Q-Former) and ``torch._int_mm`` calls (EVA, ImageBind, the
    cross-attention's keys and values) equal to the counts the architecture
    gives, ``encode_img`` gated against the plain path, one turn; (e) top-p
@@ -207,6 +208,28 @@ Phases, each printing its own lines:
    all-reduce of the trainables' gradients timed.  (c) The ring served by
    ``load_checkpoint`` to a greedy generate with int8 LLM weights and KV
    (batch 8, 90 tokens) launching B1-B4.
+17. after phase 16: tensor-parallel serving.  Two ranks on card 0 (this
+   script with ``--tp-rank``, ``torchrun``'s environment, gloo on CUDA
+   tensors; ``parallel.mesh.make_mesh(2)``, a 60-s timeout on every
+   collective) each build Myriad at full width with the 32-layer int8 LLaMA
+   (int8 KV; EVA at 4 of 39 blocks) from --seed and ``Myriad.shard`` it;
+   rank 0 keeps the whole LLaMA as the oracle.  Every rank's shard is the
+   slice of the whole weights bit for bit (the Megatron layout written out
+   here, apart from the rule tables) and the prefix the same bits on every
+   rank; greedy ``generate`` (batch 8, 90 tokens): the prefill logits
+   within ``TP_TOL`` of the one-rank run's, the argmax of every
+   teacher-forced step on the one-rank transcript equal wherever its top-2
+   margin exceeds ``TP_TOL``, rows identical counted; speculative generate
+   (K = 3, lookup drafts, 2 tokens): the first verify round's logits within
+   ``TP_TOL``; the engine (phase 9's schedule, 4 tokens a request) under
+   the same margin rule against the one-rank engine; B1-B4 launched at the
+   one-rank counts on every rank, B5 never; the collectives and their host
+   time in a decode step, seconds a generate, peak memory a rank.  With
+   ``--tp-cards N`` (and nothing else): N ranks, one a card, over NCCL, the
+   same checks, images/s beside one card's and the all-reduce per step; at
+   N = 2 also the int4 LLaMA (B5, never B1).  Phase 2 holds B1-B5 at the
+   shards' shapes (n = 2 and 4; B1's and B5's row-parallel shapes in the
+   fp32-output mode).
 
 With ``--parent DIR`` (a checkout of another tree, such as the parent
 commit's), phase 1 also builds DIR's kernels, compares their SASS with this
@@ -241,6 +264,10 @@ AQA_QUESTION = ("<Img><ImageHere></Img>This image may be simulated by photo edit
 SCENES = ["bottle", "cable", "capsule", "hazelnut"]
 BATCH = 8
 NEW_TOKENS = 90
+# tokens of the eval entry point's runs and of the generates held to them (phases 8, 9 (d),
+# 11 and 12 (b, e)): cut from 90 for the script's seconds; phases 3-7, 9 (a-c), 12's
+# batch of 48, 13, 16 and 17 decode NEW_TOKENS
+EVAL_TOKENS = 48
 # the serving profile of eval_configs/myriad.yaml that Myriad.from_config reads
 SERVING = {"arch_preset": "full", "llm_weight_dtype": "int8", "llm_kv_dtype": "int8",
            "end_sym": "###"}
@@ -382,7 +409,8 @@ def cluster_launch_report(lib_path) -> None:
                           f"{line.split('ptxas info    : ')[-1].strip()}")
     llm = ((4096, 4096), (4096, 11008), (11008, 4096))
     b1_plans = ([(m, k, n) for m in (1, BATCH, VERIFY_ROWS, CHAT_DELTA_ROWS, 240)
-                 for k, n in llm] + [(QFORMER_ROWS, k, n) for k, n in QFORMER_SHAPES])
+                 for k, n in llm] + [(QFORMER_ROWS, k, n) for k, n in QFORMER_SHAPES]
+                + [(BATCH, k, n) for k, n, _, _ in TP_B1_SHAPES])
     for m, k, n in b1_plans:
         plan = quant.int8_launch(m, k, n)
         print(f"  B1 launch at M={m} {k}x{n}: grid ({plan['splits']}, {plan['tiles']}) = "
@@ -404,11 +432,15 @@ def cluster_launch_report(lib_path) -> None:
                   f"at once", flush=True)
             check(plan["splits"] == 1 or plan["clusters"] > 0,
                   f"the card holds no cluster of B5 at M={m}, {k}x{n}")
-    for rows, kv_len in ((BATCH, 320), (1, CHAT_KV_LEN), (BATCH, 8192), (1, 8192), (BATCH, 64)):
-        plan = da.cluster_launch(rows, 32, kv_len)
-        blocks = plan["splits"] * 32 * rows
-        print(f"  B2 launch at B={rows} H=32 kv_len={kv_len} int8: grid ({plan['splits']}, 32, "
-              f"{rows}) = {blocks} blocks of 128 threads, cluster ({plan['splits']}, 1, 1); "
+    # and on a rank's heads at n = 2 and 4 (phase 17): the split follows B x H
+    for rows, heads, kv_len in ((BATCH, 32, 320), (1, 32, CHAT_KV_LEN), (BATCH, 32, 8192),
+                                (1, 32, 8192), (BATCH, 32, 64),
+                                *((BATCH, hh, kv) for hh in TP_HEADS for kv in (320, 416))):
+        plan = da.cluster_launch(rows, heads, kv_len)
+        blocks = plan["splits"] * heads * rows
+        print(f"  B2 launch at B={rows} H={heads} kv_len={kv_len} int8: grid ({plan['splits']}, "
+              f"{heads}, {rows}) = {blocks} blocks of 128 threads, cluster ({plan['splits']}, 1, "
+              f"1); "
               f"dynamic shared memory {plan['smem']} B a block; the card holds "
               f"{plan['clusters']} such clusters at once", flush=True)
         check(plan["splits"] == 1 or plan["clusters"] > 0,
@@ -655,6 +687,46 @@ def b1_checks(dev, g, b1, inputs):
                        shape=(f"M={m}{tags.get(m, '')} {k}x{n}", work) if on_path else None,
                        deterministic=True)
         del w_bf16
+    print("B1 at the tensor-parallel shards (phase 17, n = 2 and 4 ranks): q/k/v and gate/up "
+          "column-parallel (bf16 out, tolerance as above); o and down row-parallel in the "
+          "fp32-output mode (tolerance 2^-14 x max(|x| @ |W| x scale): fp32 sums in another "
+          "order, no rounding); library: torch.matmul on the bf16 weight")
+    for k, n, f32, n_ranks in TP_B1_SHAPES:
+        if f32 and not _has_fp32_mode(quant.int8_weight_only_matmul):
+            continue  # another tree's package (--parent) without the mode
+        w8, scale = quant.quantize_per_channel(_randn(g, dev, k, n) * 0.02)
+        w_bf16 = (w8.float() * scale).to(bf16)
+        kw = {"out_dtype": torch.float32} if f32 else {}  # no keyword: a parent's wrapper
+        for m in (BATCH, VERIFY_ROWS):
+            x = _randn(g, dev, m, k, dtype=bf16)
+            work = (m * k * 2 + k * n + n * 4 + m * n * (4 if f32 else 2), 2 * m * k * n)
+            name = (f"M={m}{' (verify rows)' if m == VERIFY_ROWS else ''} {k}x{n} "
+                    f"(n={n_ranks} {'row-parallel, fp32 out' if f32 else 'column-parallel'})")
+            tol = ((lambda ref, x=x, w8=w8, scale=scale: 2.0 ** -14 * (
+                x.abs().float() @ w8.abs().float() * scale).max().item()) if f32
+                   else (lambda ref: 2.0 ** -7 * ref.float().abs().max().item()))
+            b1.compare(name, lambda: quant.int8_weight_only_matmul(x, w8, scale, **kw),
+                       lambda: quant.int8_weight_only_matmul_plain(x, w8, scale, **kw),
+                       tol, library=lambda: torch.matmul(x, w_bf16), shape=(name, work),
+                       deterministic=True)
+        del w_bf16
+
+
+def _has_fp32_mode(wrapper) -> bool:
+    """Whether a B1 or B5 wrapper takes ``out_dtype`` (the fp32-output mode)."""
+    import inspect
+
+    return "out_dtype" in inspect.signature(wrapper).parameters
+
+
+# phase 17's shards of Vicuna-7B's projections: (K, N, fp32-output mode, ranks)
+TP_B1_SHAPES = tuple((k, n, f32, r) for r in (2, 4) for k, n, f32 in (
+    (4096, 4096 // r, False), (4096 // r, 4096, True), (4096, 11008 // r, False),
+    (11008 // r, 4096, True)))
+# int4 under n = 2: 5504 = 43 groups of 128, so the row shards hold whole groups
+TP_B5_SHAPES = ((4096, 2048, False), (2048, 4096, True), (4096, 5504, False),
+                (5504, 4096, True))
+TP_HEADS = (16, 8)  # the heads a rank holds at n = 2 and 4
 
 
 def _randn(g, dev, *shape, dtype=None):
@@ -786,6 +858,14 @@ def b2_checks(dev, g, b2, inputs):
     _decode_checks(b2, da.decode_attention, da.decode_attention_plain, a,
                    ((ATT_B, LONG_T), (1, LONG_T), (1, CHAT_KV_LEN)))
     _engine_decode_check(b2, a, dev)
+    print("B2 at the tensor-parallel shards (phase 17): a rank's 16 or 8 of the 32 heads, "
+          "at kv_len 320 and the engine's step; the cluster split at each")
+    for hh in TP_HEADS:
+        part = {k: v[:, :hh].contiguous() for k, v in a.items()
+                if k in ("q1", "k8", "v8", "ks", "vs", "kdq", "vdq", "kdq_len", "vdq_len")}
+        part["mask"] = a["mask"]
+        _shard_decode_check(b2, part, dev, hh)
+        _engine_decode_check(b2, part, dev, heads=hh)
 
 
 # the serving engine's per-row frontiers at a decode step: spread over 64-410
@@ -793,7 +873,28 @@ def b2_checks(dev, g, b2, inputs):
 ENGINE_FRONTIERS = (64, 410, 297, 120, 233, 350, 180, 389)
 
 
-def _engine_decode_check(b2, a, dev):
+def _shard_decode_check(b2, a, dev, hh):
+    """B2 at kv_len 320 on a rank's ``hh`` heads (int8), against SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from myriad_tpu_torch.ops import decode_attention as da
+
+    b, d = ATT_B, ATT_D
+    args = dict(mask=a["mask"], scale=d ** -0.5, k_scale=a["ks"], v_scale=a["vs"],
+                kv_len=KV_LEN)
+    name = f"int8 B={b} H={hh} T={ATT_T} kv_len={KV_LEN} D={d} (a rank's heads)"
+    work = (_decode_bytes(b, KV_LEN) * hh // ATT_H, 4 * b * hh * KV_LEN * d)
+    b2.compare(name, lambda: da.decode_attention(a["q1"], a["k8"], a["v8"], **args),
+               lambda: da.decode_attention_plain(a["q1"], a["k8"], a["v8"], **args),
+               lambda ref: 2e-2,
+               library=lambda: F.scaled_dot_product_attention(
+                   a["q1"], a["kdq_len"], a["vdq_len"], attn_mask=a["mask"].to(torch.bfloat16),
+                   scale=d ** -0.5),
+               shape=(name, work), deterministic=True)
+
+
+def _engine_decode_check(b2, a, dev, heads=None):
     """B2 at the engine's decode step: kv_len = the bucket, every row masked at
     its own frontier through the (B, 1, 1, kv_len) mask.  The library call is
     SDPA with the same mask as booleans.  The bound counts what the data
@@ -804,7 +905,7 @@ def _engine_decode_check(b2, a, dev):
     from myriad_tpu_torch.ops import decode_attention as da
     from myriad_tpu_torch.ops.attention import causal_mask
 
-    b, h, t, d = ATT_B, ATT_H, ATT_T, ATT_D
+    b, h, t, d = ATT_B, heads or ATT_H, ATT_T, ATT_D
     front = torch.tensor(ENGINE_FRONTIERS, device=dev, dtype=torch.int32)
     mask = causal_mask(front[:, None], t)
     allowed = mask == 0
@@ -818,7 +919,8 @@ def _engine_decode_check(b2, a, dev):
                lambda ref: 2e-2,
                library=lambda: F.scaled_dot_product_attention(
                    a["q1"], a["kdq"], a["vdq"], attn_mask=allowed, scale=d ** -0.5),
-               shape=("engine decode, ragged frontiers", work), deterministic=True)
+               shape=("engine decode, ragged frontiers"
+                      + (f", a rank's {h} heads" if heads else ""), work), deterministic=True)
 
 
 def b3_checks(dev, g, b3, inputs):
@@ -837,9 +939,16 @@ def b3_checks(dev, g, b3, inputs):
     ragged = torch.tensor([297, 300, 310, 299, 305, 301, 296, 320], device=dev,
                           dtype=torch.int32)
     print("B3: 16 rows or more on the tensor cores, fewer with the keys split over blocks; "
-          "the 4-row verify chunk with ragged positions is a path shape of its own")
-    for tq, offset in ((297, 0), (33, 264), (7, 290), (SPEC_K + 1, None)):
-        qq = _randn(g, dev, b, h, tq, d, dtype=bf16)
+          "the 4-row verify chunk with ragged positions is a path shape of its own; the "
+          "prefill and the verify chunk again on a rank's 16 and 8 heads (phase 17)")
+    full_a = a
+    for tq, offset, hh in ((297, 0, h), (33, 264, h), (7, 290, h), (SPEC_K + 1, None, h),
+                           *((tq, off, hx) for hx in TP_HEADS
+                             for tq, off in ((297, 0), (SPEC_K + 1, None)))):
+        if hh != h:
+            a = {k: full_a[k][:, :hh].contiguous()
+                 for k in ("k8", "v8", "ks", "vs", "kbf", "vbf", "kdq", "vdq")}
+        qq = _randn(g, dev, b, hh, tq, d, dtype=bf16)
         start = ragged if offset is None else torch.full((b,), offset, device=dev,
                                                          dtype=torch.int32)
         pos = (start[:, None] + torch.arange(tq, device=dev, dtype=torch.int32)[None]
@@ -848,23 +957,28 @@ def b3_checks(dev, g, b3, inputs):
         # what this run's data needs: each batch row's keys up to its last
         # position, and each query's keys up to its own
         row_keys = int((pos.max(dim=1).values.long() + 1).clamp(max=t).sum())
-        pairs = int((pos.long() + 1).clamp(max=t).sum()) * h
-        nbytes = 2 * b * h * tq * d * 2 + h * row_keys * (2 * d + 2 * 2) + b * tq * 4
+        pairs = int((pos.long() + 1).clamp(max=t).sum()) * hh
+        nbytes = 2 * b * hh * tq * d * 2 + hh * row_keys * (2 * d + 2 * 2) + b * tq * 4
         cmask = causal_mask(pos, t).to(bf16)
         for label, kk, vv, kss, vss in (("int8", a["k8"], a["v8"], a["ks"], a["vs"]),
                                         ("bf16", a["kbf"], a["vbf"], None, None)):
             args = dict(scale=d ** -0.5, k_scale=kss, v_scale=vss)
-            is_main = label == "int8" and tq == 297
-            is_verify = label == "int8" and offset is None
-            b3.compare(f"{label} tq={tq} {where} Tk={t}",
+            if hh != h and label != "int8":
+                continue
+            is_main = label == "int8" and tq == 297 and hh == h
+            is_verify = label == "int8" and offset is None and hh == h
+            is_shard = hh != h
+            tag = f" H={hh} (a rank's heads)" if is_shard else ""
+            b3.compare(f"{label} tq={tq} {where} Tk={t}{tag}",
                        lambda: pa.prefill_attention(qq, kk, vv, pos, **args),
                        lambda: pa.prefill_attention_plain(qq, kk, vv, pos, **args),
                        lambda ref: 2e-2,
                        library=(lambda: F.scaled_dot_product_attention(
                            qq, a["kdq"], a["vdq"], attn_mask=cmask, scale=d ** -0.5))
-                       if is_main or is_verify else None,
+                       if is_main or is_verify or is_shard else None,
                        main=(nbytes, 4 * d * pairs) if is_main else None,
-                       shape=("verify", (nbytes, 4 * d * pairs)) if is_verify else None,
+                       shape=(("verify" if offset is None else "prefill") + tag,
+                              (nbytes, 4 * d * pairs)) if is_verify or is_shard else None,
                        deterministic=True)
 
 
@@ -896,6 +1010,27 @@ def b5_checks(dev, g, b5, inputs):
                        shape=(name, work) if m > 1 and not is_main else None,
                        deterministic=True)
         del w_bf16
+    print("B5 at the tensor-parallel shards (phase 17, n = 2): q/k/v and gate/up "
+          "column-parallel (bf16 out); o and down row-parallel in the fp32-output mode "
+          "(tolerance 2^-14 x max(|x| @ |W|): fp32 sums in another order, no rounding)")
+    for k, n, f32 in TP_B5_SHAPES:
+        if f32 and not _has_fp32_mode(quant.int4_weight_only_matmul):
+            continue  # another tree's package (--parent) without the mode
+        w4, s4 = quant.quantize_int4_grouped(_randn(g, dev, k, n) * 0.02)
+        w_deq = quant.dequant_int4(w4, s4)
+        w_bf16 = w_deq.to(bf16)
+        kw = {"out_dtype": torch.float32} if f32 else {}  # no keyword: a parent's wrapper
+        x = _randn(g, dev, BATCH, k, dtype=bf16)
+        work = (BATCH * k * 2 + k * n // 2 + s4.numel() * 4 + BATCH * n * (4 if f32 else 2),
+                2 * BATCH * k * n)
+        name = f"M={BATCH} {k}x{n} (n=2 {'row-parallel, fp32 out' if f32 else 'column-parallel'})"
+        tol = ((lambda ref, x=x, w=w_deq: 2.0 ** -14 * (x.abs().float() @ w.abs()).max().item())
+               if f32 else (lambda ref: 2.0 ** -7 * ref.float().abs().max().item()))
+        b5.compare(name, lambda: quant.int4_weight_only_matmul(x, w4, s4, **kw),
+                   lambda: quant.int4_weight_only_matmul_plain(x, w4, s4, **kw), tol,
+                   library=lambda: torch.matmul(x, w_bf16), shape=(name, work),
+                   deterministic=True)
+        del w_bf16, w_deq
 
 
 def b2r_checks(dev, g, b2r, inputs):
@@ -992,7 +1127,11 @@ def b4_checks(dev, g, b4, inputs):
     engine = torch.tensor(ENGINE_FRONTIERS, device=dev, dtype=torch.int32)
     cases = ((BATCH, h, 1, d, "greedy decode", 300), (1, h, 1, d, "chat decode", 300),
              (BATCH, h, tw, d, "verify round", starts), (BATCH, h, 297, d, "prefill", 0),
-             (BATCH, h, 1, d, "engine decode", engine), (1, 1, 1, 8, "launch floor", 300))
+             (BATCH, h, 1, d, "engine decode", engine), (1, 1, 1, 8, "launch floor", 300),
+             # a rank's heads (phase 17)
+             *((BATCH, hh, tq, d, f"{label}, a rank's {hh} heads", idx) for hh in TP_HEADS
+               for tq, label, idx in ((1, "engine decode", engine), (tw, "verify round", starts),
+                                      (297, "prefill", 0))))
     for bq, hq, tq, dq, label, idx in cases:
         k = (randn(bq, tq, hq, dq) * 4).to(bf16).transpose(1, 2)
         v = randn(bq, tq, hq, dq).to(bf16).transpose(1, 2)
@@ -1170,10 +1309,10 @@ def full_slice(dev, seed, checks, card):
     for c in checks:
         if c.name in names:
             c.launches = c.counter.count
-    walls = [wall0] + [timed(lambda: model.generate(samples, max_new_tokens=NEW_TOKENS))[1]
-                       for _ in range(2)]
+    # one timed run after the warm-up, for the script's seconds
+    walls = [wall0]
     peak = torch.cuda.max_memory_allocated(dev)
-    wall = statistics.median(walls)
+    wall = wall0
 
     tokens, maps = out["token_ids"], out["ve_anomaly_maps"]
     vocab = model.arch.llama.vocab_size
@@ -1185,7 +1324,7 @@ def full_slice(dev, seed, checks, card):
     print(f"generate: tokens {tuple(tokens.shape)} in [0, {vocab}); maps "
           f"{tuple(maps.shape)} in [{float(maps.min()):.4f}, {float(maps.max()):.4f}]")
     print(f"kernel launches in the generate run: {launches}")
-    print(f"throughput: {BATCH / wall:.4f} images/s, median of 3 runs ({BATCH} images, "
+    print(f"throughput: {BATCH / wall:.4f} images/s, one run after a warm-up ({BATCH} images, "
           f"{NEW_TOKENS} new tokens; wall s {', '.join(f'{w:.3f}' for w in walls)}, host "
           f"clock after synchronize); peak device memory {peak / 2**30:.2f} GiB; "
           f"card: {card}", flush=True)
@@ -1401,7 +1540,8 @@ KERNEL_OF = {"int8_matmul_tc_kernel": "B1", "decode_attention_cluster_kernel": "
              "prefill_attention_tc_kernel": "B3", "prefill_attention_split_kernel": "B3",
              "prefill_attention_merge_kernel": "B3", "kv_write_kernel": "B4",
              "kv_quantize_write_kernel": "B4", "kv_quantize_write_rows_kernel": "B4",
-             "int4_matmul_tc_kernel": "B5",
+             "int4_matmul_tc_kernel": "B5", "int8_matmul_tc_f32_kernel": "B1",
+             "int4_matmul_tc_f32_kernel": "B5",
              "decode_attention_rows_split_kernel": "B2'",
              "decode_attention_rows_merge_kernel": "B2'"}
 
@@ -1480,14 +1620,13 @@ def int4_slice(dev, seed, checks, card):
     for c in checks:
         if c.name == b5:
             c.launches = launches[b5]
-    walls = [wall0] + [timed(lambda: model.generate(samples, max_new_tokens=NEW_TOKENS))[1]
-                       for _ in range(2)]
-    wall = statistics.median(walls)
+    walls = [wall0]  # one timed run, for the script's seconds
+    wall = wall0
     peak = torch.cuda.max_memory_allocated(dev)
     check_tokens(out["token_ids"], BATCH, NEW_TOKENS, vocab)
     print(f"int4 generate: launches {launches}")
     profile_generate(model, samples, card, wall0, "int4 greedy generate")
-    print(f"int4 throughput: {BATCH / wall:.4f} images/s, median of 3 runs ({BATCH} images, "
+    print(f"int4 throughput: {BATCH / wall:.4f} images/s, one run ({BATCH} images, "
           f"{NEW_TOKENS} new tokens; wall s {', '.join(f'{w:.3f}' for w in walls)}, host clock "
           f"after synchronize); peak device memory {peak / 2**30:.2f} GiB; card: {card}",
           flush=True)
@@ -1721,7 +1860,7 @@ def eval_slice(dev, seed, checks, card):
               flush=True)
 
     argv = ["--cfg-path", os.path.join(REPO, "eval_configs", "myriad.yaml"),
-            "--bs", str(BATCH), "--greedy", "--bench", "--max_new_tokens", str(NEW_TOKENS),
+            "--bs", str(BATCH), "--greedy", "--bench", "--max_new_tokens", str(EVAL_TOKENS),
             "--save_path", os.path.join(root, "rows.jsonl"),
             "--options", *EVAL_OPTIONS, f"model.seed={seed}",
             f"datasets.anomaly_detection.build_info.storage={root}"]
@@ -1761,9 +1900,9 @@ def eval_slice(dev, seed, checks, card):
     dataset = evaluate.build_dataset(args, cfg.datasets_cfg, root)
     same = 0
     for batch, tokens in zip(DataLoader(dataset, batch_size=BATCH), out["token_ids"]):
-        direct = model.generate(batch, max_new_tokens=NEW_TOKENS, do_sample=False)
+        direct = model.generate(batch, max_new_tokens=EVAL_TOKENS, do_sample=False)
         direct = direct["token_ids"].cpu().numpy()
-        check_tokens(torch.as_tensor(direct), BATCH, NEW_TOKENS, model.arch.llama.vocab_size)
+        check_tokens(torch.as_tensor(direct), BATCH, EVAL_TOKENS, model.arch.llama.vocab_size)
         check(np.array_equal(direct, tokens), "evaluate's tokens differ from a direct generate")
         same += len(tokens)
     check(same == n_images, f"compared {same} of {n_images} rows with a direct generate")
@@ -1800,15 +1939,16 @@ def _engine_prompts(model, seed, dev):
     return embeds, prompts, after
 
 
-def _engine_run(llama, prompts, spec_k=0, lookup=None, profile=False):
+def _engine_run(llama, prompts, spec_k=0, lookup=None, profile=False, new_tokens=NEW_TOKENS):
     """One run of the engine's schedule: ENGINE_ARRIVALS submits a tick until
-    every request is in, ticks until it drains.  Returns (engine, {request id:
-    Finished}, [(width, rows) of each admission chunk])."""
+    every request is in, ticks until it drains (``new_tokens`` a request).
+    Returns (engine, {request id: Finished}, [(width, rows) of each admission
+    chunk])."""
     from myriad_tpu_torch.generation import GenerationConfig
     from myriad_tpu_torch.serving import ServingEngine
 
     eng = ServingEngine(llama, slots=BATCH, bucket=_engine_bucket(spec_k),
-                        config=GenerationConfig(max_new_tokens=NEW_TOKENS), cache_dtype="int8",
+                        config=GenerationConfig(max_new_tokens=new_tokens), cache_dtype="int8",
                         segment=ENGINE_SEGMENT, admit_widths=ENGINE_WIDTHS,
                         max_admit_chunk=ENGINE_ADMIT_CHUNK, spec_k=spec_k, lookup_ids=lookup)
     eng.profile_sync = profile
@@ -2122,7 +2262,7 @@ def expert_slice(dev, seed, checks, card, model, eval_argv, eval_out, dataset):
         same = 0
         for b, (batch, tokens) in enumerate(zip(DataLoader(dataset, batch_size=BATCH),
                                                 out["token_ids"])):
-            direct = model.generate(batch, max_new_tokens=NEW_TOKENS, do_sample=False)
+            direct = model.generate(batch, max_new_tokens=EVAL_TOKENS, do_sample=False)
             check(np.array_equal(direct["token_ids"].cpu().numpy(), tokens),
                   f"k_shot {k}: evaluate's tokens differ from a direct generate")
             same += len(tokens)
@@ -2171,11 +2311,11 @@ def expert_slice(dev, seed, checks, card, model, eval_argv, eval_out, dataset):
         model.expert = expert
         try:
             out, wall, counts = drive(checks, label, lambda: model.generate(
-                samples, max_new_tokens=NEW_TOKENS, do_sample=False), needs)
+                samples, max_new_tokens=EVAL_TOKENS, do_sample=False), needs)
         finally:
             model.expert = model.vision_expert
         check_same_launches(checks, label, "aqa_eval", len(eval_out["rows"]) // BATCH)
-        check_tokens(out["token_ids"], BATCH, NEW_TOKENS, model.arch.llama.vocab_size)
+        check_tokens(out["token_ids"], BATCH, EVAL_TOKENS, model.arch.llama.vocab_size)
         print(f"  {label}: generate {wall:.3f} s, launches {counts}", flush=True)
         return out
 
@@ -2242,7 +2382,7 @@ def expert_slice(dev, seed, checks, card, model, eval_argv, eval_out, dataset):
         zero, _ = ve(images, scenes)
     out = generate_with("adgpt_generate", model.build_expert("adgpt"), batch)
     check(torch.equal(out["ve_anomaly_maps"], zero), "adgpt maps are not the zero-shot maps")
-    fused = model.generate(batch, max_new_tokens=NEW_TOKENS, do_sample=False)
+    fused = model.generate(batch, max_new_tokens=EVAL_TOKENS, do_sample=False)
     check(torch.equal(out["token_ids"], fused["token_ids"]),
           "adgpt tokens differ from the ImageBind expert's zero-shot generate")
     out = generate_with("no_expert_generate", None, batch)
@@ -2327,7 +2467,7 @@ def harness_slice(dev, seed, checks, card, eval_out, dataset):
 
     root = os.path.join(REPO, "build", "aqa_eval")
     argv = ["--cfg-path", os.path.join(REPO, "eval_configs", "myriad.yaml"),
-            "--bs", str(BATCH), "--greedy", "--bench", "--max_new_tokens", str(NEW_TOKENS),
+            "--bs", str(BATCH), "--greedy", "--bench", "--max_new_tokens", str(EVAL_TOKENS),
             "--save_path", os.path.join(root, "rows_harness.jsonl"),
             "--options", *HARNESS_OPTIONS, f"model.seed={seed}",
             f"datasets.anomaly_detection.build_info.storage={root}"]
@@ -2393,9 +2533,9 @@ def harness_slice(dev, seed, checks, card, eval_out, dataset):
     check(bench is not None, "no --bench line")
     same = 0
     for batch, tokens in zip(DataLoader(dataset, batch_size=BATCH), out["token_ids"]):
-        direct = model.generate(batch, max_new_tokens=NEW_TOKENS, do_sample=False)
+        direct = model.generate(batch, max_new_tokens=EVAL_TOKENS, do_sample=False)
         direct = direct["token_ids"].cpu().numpy()
-        check_tokens(torch.as_tensor(direct), BATCH, NEW_TOKENS, a.llama.vocab_size)
+        check_tokens(torch.as_tensor(direct), BATCH, EVAL_TOKENS, a.llama.vocab_size)
         check(np.array_equal(direct, tokens), "the harness eval's tokens differ from a direct "
               "generate")
         same += len(tokens)
@@ -2411,16 +2551,16 @@ def harness_slice(dev, seed, checks, card, eval_out, dataset):
     # (c) one generate at the harness's batch of 48
     scenes = [cls for cls, _, _ in EVAL_CLASSES]  # the classes the eval gave the expert
     samples48 = _samples(seed + 48, a.img_size, HARNESS_BATCH, scenes)
-    model.generate(samples48, max_new_tokens=NEW_TOKENS)  # warm-up
+    # a short warm-up and one timed run, for the script's seconds
+    model.generate(samples48, max_new_tokens=4)
     torch.cuda.reset_peak_memory_stats(dev)
     res, wall48, launches48 = drive(checks, "harness_b48", lambda: model.generate(
         samples48, max_new_tokens=NEW_TOKENS), needs)
-    walls = [wall48] + [timed(lambda: model.generate(samples48, max_new_tokens=NEW_TOKENS))[1]
-                        for _ in range(2)]
+    walls = [wall48]
     peak48 = torch.cuda.max_memory_allocated(dev)
     check_tokens(res["token_ids"], HARNESS_BATCH, NEW_TOKENS, a.llama.vocab_size)
     print(f"harness profile, batch {HARNESS_BATCH}: {HARNESS_BATCH / statistics.median(walls):.4f} "
-          f"images/s, median of 3 after a warm-up (wall s {', '.join(f'{w:.3f}' for w in walls)}, "
+          f"images/s, one run after a warm-up (wall s {', '.join(f'{w:.3f}' for w in walls)}, "
           f"host clock after synchronize; {NEW_TOKENS} new tokens); launches {launches48}; peak "
           f"device memory {peak48 / 2**30:.2f} GiB; card: {card}", flush=True)
     del res, samples48
@@ -2463,15 +2603,15 @@ def harness_slice(dev, seed, checks, card, eval_out, dataset):
 
     # (e) top-p sampling: reproducible from its seed
     samples = _samples(seed, a.img_size, BATCH, scenes)
-    kw = dict(max_new_tokens=NEW_TOKENS, do_sample=True, top_p=SAMPLE_TOP_P, temperature=1.0,
+    kw = dict(max_new_tokens=EVAL_TOKENS, do_sample=True, top_p=SAMPLE_TOP_P, temperature=1.0,
               seed=seed + 5)
     (s1, wall_s, _) = drive(checks, "harness_sampled_generate",
                             lambda: model.generate(samples, **kw), needs)
     s2 = model.generate(samples, **kw)
-    check_tokens(s1["token_ids"], BATCH, NEW_TOKENS, a.llama.vocab_size)
+    check_tokens(s1["token_ids"], BATCH, EVAL_TOKENS, a.llama.vocab_size)
     check(torch.equal(s1["token_ids"], s2["token_ids"]), "sampled generate: the same seed gave "
           "other tokens")
-    greedy = model.generate(samples, max_new_tokens=NEW_TOKENS)["token_ids"]
+    greedy = model.generate(samples, max_new_tokens=EVAL_TOKENS)["token_ids"]
     apart = (s1["token_ids"] != greedy).float().mean().item()
     turns = []
     for _ in range(2):
@@ -3948,20 +4088,22 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def ddp_ranks(out_dir, seed, world):
-    """Launch ``world`` ranks as ``torchrun`` would (``RANK``, ``WORLD_SIZE``,
-    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``)
-    and wait for them (killed at ``DDP_RANK_WALL_S``); their results."""
+def ddp_ranks(out_dir, seed, world, command=None, flag="--ddp-rank", wall=None, env=None):
+    """Launch ``world`` ranks of ``command`` (``DDP_RANK_COMMAND``) with
+    ``flag DIR`` as ``torchrun`` would (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``,
+    and ``env``) and wait for them (killed at ``wall``, ``DDP_RANK_WALL_S``
+    by default); their results."""
     env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
-               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), **(env or {}))
     procs = []
     for rank in range(world):
         log = open(os.path.join(out_dir, f"rank{rank}.log"), "w")
         procs.append((subprocess.Popen(
-            DDP_RANK_COMMAND + ["--ddp-rank", out_dir, "--seed", str(seed)], cwd=REPO,
+            (command or DDP_RANK_COMMAND) + [flag, out_dir, "--seed", str(seed)], cwd=REPO,
             env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)), stdout=log,
             stderr=subprocess.STDOUT), log))
-    t_end = time.time() + DDP_RANK_WALL_S
+    t_end = time.time() + (wall or DDP_RANK_WALL_S)
     try:
         for proc, log in procs:
             try:
@@ -4147,6 +4289,422 @@ def ddp_slice(dev, seed, checks, card):
     del model
 
 
+# phase 17: tensor-parallel serving: the LLaMA sharded over the ranks of one model group
+TP_WORLD = 2  # ranks on card 0 (gloo on CUDA tensors: NCCL refuses two ranks on one card)
+TP_VIT_BLOCKS = 4  # of EVA-ViT-g's 39: the towers are whole on every rank, not the subject
+# logits (fp32, absolute): the sharded model's against the one-rank model's on the same
+# inputs.  The row-parallel sums change order (fp32 partials summed over the ranks), which
+# moves a bf16 rounding of o's and down's outputs now and then; 32 layers carry it to the
+# logits.  The argmax is held wherever the one-rank top-2 margin exceeds it.
+TP_TOL = 0.5
+TP_SPEC_TOKENS = 2  # the speculative run's tokens: its first verify round is the check
+TP_ENGINE_TOKENS = 4  # the engine's tokens a request (phase 9's schedule, cut from 90)
+TP_TIMEOUT_S = 60  # every collective of the group: a rank that hangs fails the phase
+TP_RANK_WALL_S = 420  # the ranks' own limit (the phase's time, with room for a slow host)
+TP_FORCE_CHUNK = 10  # transcript tokens a teacher-forced forward feeds (rows <= 256: B1)
+TP_STEP_PROBE = 4  # decode steps whose collectives are counted and timed
+TP_RANK_COMMAND = [sys.executable, os.path.abspath(__file__)]
+TP_DEVICE = "cuda"  # the ranks' device type (a rehearsal's "cpu")
+TP_NAMES = ["B1 int8_matmul", "B2 decode_attention", "B3 prefill_attention", "B4 kv_write",
+            "B5 int4_matmul"]
+
+
+def _digest(tensors) -> list:
+    """A cheap fingerprint of tensors' bytes (sum and position-weighted sum of
+    the bytes as int64), to compare bits across ranks."""
+    import torch
+
+    out = []
+    for t in tensors:
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8).long()
+        w = torch.arange(1, b.numel() + 1, device=b.device, dtype=torch.int64) % 65521
+        out += [int(b.sum()), int((b * w).sum())]
+    return out
+
+
+def _megatron_slice(name, t, r, n):
+    """Rank r's piece of the whole LLaMA's leaf ``name`` on a model axis of n,
+    written from the Megatron layout alone (independent of the rule tables):
+    q/k/v/gate/up keep their output columns (the int8 weight's dim 1, its
+    scale's dim 0, a float weight's dim 0, lora_b's dim 0), o/down their
+    input rows (dim 0 of the int8 weight, dim 1 of a float weight; the scale
+    whole), the embedding its hidden columns, lm_head its vocabulary."""
+    def cut(dim):
+        w = t.shape[dim] // n
+        return t.narrow(dim, r * w, w)
+
+    col = any(p in name for p in ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"))
+    row = "o_proj" in name or "down_proj" in name
+    leaf = name.rsplit(".", 1)[-1]
+    if "lora_a" in name:
+        return t
+    if col:
+        if leaf in ("w_int8", "w_int4", "scale4"):
+            return cut(1)
+        return cut(0)  # scale (N,), a float weight (N, K), lora_b (N, r)
+    if row:
+        if leaf in ("w_int8", "w_int4"):
+            return cut(0)
+        return t if leaf in ("scale", "scale4") else cut(1)
+    if name.endswith("embed_tokens.embedding") or name == "lm_head":
+        return cut(1)
+    return t
+
+
+class _Logits:
+    """Records a LLaMA's logits calls while active: every call's argmax and
+    top-2 margin (fp32), and the first ``keep`` calls whole."""
+
+    def __init__(self, llama, keep=0):
+        self.llama, self.keep = llama, keep
+        self.whole, self.top, self.calls = [], [], 0
+
+    def __enter__(self):
+        orig = self.orig = self.llama.logits
+
+        def rec(hidden):
+            out = orig(hidden)
+            if self.calls < self.keep:
+                self.whole.append(out.detach().float().clone())
+            v, i = out.detach().float().topk(2, dim=-1)
+            self.top.append((i[..., 0], v[..., 0] - v[..., 1]))
+            self.calls += 1
+            return out
+        self.llama.logits = rec
+        return self
+
+    def __exit__(self, *exc):
+        del self.llama.logits
+
+
+def _margin_rule(ours, theirs, tol):
+    """(calls compared, first call that diverged or None, its margin): the
+    argmax of ours against theirs call by call while the runs agree; a
+    differing argmax where theirs has a top-2 margin above ``tol`` fails."""
+    for n, ((a, _), (b, m)) in enumerate(zip(ours.top, theirs.top)):
+        if a.shape != b.shape:
+            return n, n, None
+        differ = a != b
+        bad = differ & (m > tol)
+        if bool(bad.any()):
+            check(False, f"call {n}: argmax differs where the one-rank margin is "
+                  f"{m[bad].max().item():.4f} > {tol}")
+        if bool(differ.any()):
+            return n + 1, n, float(m[differ].max())
+    return min(len(ours.top), len(theirs.top)), None, None
+
+
+def _forced_logits(llama, embeds, tokens, chunk):
+    """Teacher-forced fp32 logits (B, 1 + S, V): the prefix's last position,
+    then each transcript token fed in ``chunk``-token forwards (positions and
+    causality absolute: the logits of step-by-step decoding)."""
+    import torch
+
+    from myriad_tpu_torch.models.llama import init_cache
+
+    b, s = tokens.shape
+    cache = init_cache(llama.config, b, embeds.shape[1] + s + TP_STEP_PROBE + 32, "int8",
+                       embeds.device)
+    out = [llama.prefill(embeds, cache)[:, -1:].float()]
+    for i in range(0, s, chunk):
+        out.append(llama(llama.embed(tokens[:, i:i + chunk]), cache).float())
+    return torch.cat(out, dim=1), cache
+
+
+def tp_rank(out_dir, seed) -> int:
+    """One rank of phase 17 (run as ``chip_smoke.py --tp-rank DIR``, the
+    launcher's environment set by ``tp_slice``): Myriad at full width with
+    the 32-layer int8 LLaMA, sharded over the world's one model group; rank
+    0 keeps the whole LLaMA as the oracle.  The results as
+    ``DIR/rank{RANK}.json``."""
+    import datetime
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from myriad_tpu_torch.common import dist
+    from myriad_tpu_torch.models.myriad import Myriad
+    from myriad_tpu_torch.parallel.mesh import make_mesh
+    from myriad_tpu_torch.parallel.partition import shard_state_dict
+
+    counters = _kernel_counters()
+    t0 = time.time()
+    world = dist.launched_world()
+    mesh = make_mesh(world, device=TP_DEVICE, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    rank, dev = mesh.model_rank, mesh.device
+    res = {"rank": rank, "world": world, "backend": mesh.backend, "device": str(dev)}
+
+    def gathered(values):
+        t = torch.tensor(values, dtype=torch.float64, device=dev)
+        return mesh.all_gather(t[None]).reshape(world, -1).tolist()
+
+    def counted(fn):
+        for c in counters.values():
+            c.count = 0
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t, {n: counters[n].count for n in TP_NAMES}
+
+    for weights in (("int8", "int4") if os.environ.get("TP_INT4") == "1" else ("int8",)):
+        with cut_depth(layers=32, blocks=TP_VIT_BLOCKS):
+            model = Myriad.from_config(dict(SERVING, llm_weight_dtype=weights), device=dev,
+                                       class_names=SCENES)
+        model.init_random(seed)
+        model.vision_expert.build_text_features()
+        full = model.module.llama
+        layers = full.config.num_layers
+        whole = full.state_dict()
+        digests = gathered(_digest(whole.values()))
+        check(all(d == digests[0] for d in digests), "the ranks' whole weights differ")
+        model.shard(mesh)
+        shard = model.module.llama
+        mine = shard.state_dict()
+        bad = [k for k, v in mine.items()
+               if not torch.equal(v, _megatron_slice(k, whole[k], rank, world))]
+        check(not bad, f"rank {rank}: shards that are not the slice of the whole weights: "
+              f"{bad[:4]}")
+        check(not shard_state_dict.last_fallbacks,
+              f"replication fallbacks at full width: {shard_state_dict.last_fallbacks}")
+        del whole, mine
+        if rank != 0:
+            full = None
+            torch.cuda.empty_cache()
+        r = res.setdefault(weights, {"build_s": time.time() - t0, "layers": layers,
+                                     "shard_leaves": len(shard.state_dict())})
+
+        def one_rank(fn):
+            model.module.llama, model.mesh = full, None
+            try:
+                return fn()
+            finally:
+                model.module.llama, model.mesh = shard, mesh
+
+        prefix = []
+        orig_embeds = model.module.prefill_embeds
+
+        def keep_prefix(*a, **k):
+            out = orig_embeds(*a, **k)
+            prefix.append(out)
+            return out
+        model.module.prefill_embeds = keep_prefix
+        samples = _samples(seed, model.arch.img_size)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.inference_mode():
+            # (1) greedy generate, sharded, then rank 0's one-rank run of the same samples
+            with _Logits(shard, keep=1) as sh_log:
+                mesh.reset()
+                out, wall, launches = counted(
+                    lambda: model.generate(samples, max_new_tokens=NEW_TOKENS))
+            coll = dict(mesh.calls)
+            embeds = prefix[0]
+            dg = gathered(_digest([embeds]))
+            check(all(d == dg[0] for d in dg), "the prefix differs across ranks")
+            tokens = out["token_ids"]
+            check_tokens(tokens, BATCH, NEW_TOKENS, model.arch.llama.vocab_size)
+            r.update(wall_s=wall, launches=launches, calls=sh_log.calls, collectives=coll,
+                     tokens_digest=_digest([tokens]))
+            if rank == 0:
+                with _Logits(full, keep=1) as wh_log:
+                    ref, ref_wall, ref_launches = counted(
+                        lambda: one_rank(lambda: model.generate(samples,
+                                                                max_new_tokens=NEW_TOKENS)))
+                check(torch.equal(prefix[1], embeds), "the one-rank prefix differs")
+                d0 = (sh_log.whole[0] - wh_log.whole[0]).abs().max().item()
+                check(d0 <= TP_TOL, f"prefill logits differ by {d0} > {TP_TOL}")
+                ref_tokens = ref["token_ids"]
+                r.update(prefill_max_abs=d0, one_rank_wall_s=ref_wall,
+                         one_rank_launches=ref_launches, one_rank_calls=wh_log.calls,
+                         rows_identical=int((tokens == ref_tokens).all(dim=1).sum()),
+                         free_run=_margin_rule(sh_log, wh_log, TP_TOL))
+            else:
+                ref_tokens = torch.zeros_like(tokens)
+            mesh.broadcast_(ref_tokens)
+
+            # (2) teacher-forced on the one-rank transcript, and a few decode steps'
+            # collectives counted and timed
+            forced = ref_tokens[:, :NEW_TOKENS - 1].contiguous()
+            sh, cache = _forced_logits(shard, embeds, forced, TP_FORCE_CHUNK)
+            last = ref_tokens[:, -1:]
+            mesh.reset()
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            for _ in range(TP_STEP_PROBE):
+                last = shard(shard.embed(last), cache).argmax(-1)
+            torch.cuda.synchronize(dev)
+            r.update(step_s=(time.perf_counter() - t) / TP_STEP_PROBE,
+                     step_collectives={k: v / TP_STEP_PROBE for k, v in mesh.calls.items()},
+                     step_collective_s=mesh.seconds / TP_STEP_PROBE)
+            del cache
+            if rank == 0:
+                wh, _ = one_rank(lambda: _forced_logits(full, embeds, forced, TP_FORCE_CHUNK))
+                top2 = wh.topk(2, dim=-1).values
+                margin = top2[..., 0] - top2[..., 1]
+                differ = sh.argmax(-1) != wh.argmax(-1)
+                held = margin > TP_TOL
+                dmax = (sh - wh).abs().amax(dim=(0, 2))
+                check(not bool((differ & held).any()),
+                      f"teacher-forced argmax differs at {int((differ & held).sum())} "
+                      f"positions whose one-rank margin exceeds {TP_TOL}")
+                r.update(forced_positions=int(margin.numel()), forced_held=int(held.sum()),
+                         forced_differ=int(differ.sum()), forced_max_abs=float(dmax.max()),
+                         forced_median_step_max_abs=float(dmax.median()),
+                         forced_first_steps=[float(x) for x in dmax[:4]])
+                del wh
+            del sh
+
+            if weights == "int8":
+                # (3) speculative generate, K = 3, prompt-lookup drafts: the first
+                # verify round's logits
+                model.spec_k = SPEC_K
+                with _Logits(shard, keep=2) as sp_log:
+                    spec, spec_wall, spec_launches = counted(
+                        lambda: model.generate(samples, max_new_tokens=TP_SPEC_TOKENS))
+                r.update(spec_wall_s=spec_wall, spec_launches=spec_launches,
+                         spec_stats=spec.get("spec_stats"))
+                if rank == 0:
+                    with _Logits(full, keep=2) as sp_ref:
+                        one_rank(lambda: model.generate(samples,
+                                                        max_new_tokens=TP_SPEC_TOKENS))
+                    dv = (sp_log.whole[1] - sp_ref.whole[1]).abs().max().item()
+                    check(dv <= TP_TOL, f"the first verify round's logits differ by {dv}")
+                    r.update(verify_max_abs=dv, verify_shape=list(sp_log.whole[1].shape))
+                model.spec_k = 0
+
+                # (4) the engine: 24 requests over 8 slots, phase 9's schedule
+                prompts = [embeds[i % BATCH, :ENGINE_CUTS[i % 3]]
+                           for i in range(ENGINE_REQUESTS)]
+                with _Logits(shard) as en_log:
+                    (eng, done, chunks), eng_wall, eng_launches = counted(
+                        lambda: _engine_run(shard, prompts, new_tokens=TP_ENGINE_TOKENS))
+                check(sorted(done) == list(range(ENGINE_REQUESTS)), "the engine lost requests")
+                check(eng.mesh is mesh and eng._state["cache"][0]["k"].shape[1]
+                      == shard.config.kv_heads, "the engine's pool is not the rank's heads")
+                r.update(engine_wall_s=eng_wall, engine_launches=eng_launches,
+                         engine_steps=eng.stats["decode_steps"], engine_chunks=chunks,
+                         engine_digest=_digest([torch.as_tensor(done[i].tokens)
+                                                for i in range(ENGINE_REQUESTS)]))
+                if rank == 0:
+                    with _Logits(full) as en_ref:
+                        (_, ref_done, _), ref_eng_wall, _ = counted(
+                            lambda: _engine_run(full, prompts, new_tokens=TP_ENGINE_TOKENS))
+                    r.update(engine_rule=_margin_rule(en_log, en_ref, TP_TOL),
+                             engine_identical=sum(
+                                 done[i].tokens.tolist() == ref_done[i].tokens.tolist()
+                                 for i in range(ENGINE_REQUESTS)),
+                             engine_one_rank_wall_s=ref_eng_wall)
+                del eng, done
+
+            # NCCL's (or gloo's) all-reduce of one row-parallel output, timed
+            buf = torch.zeros(BATCH, shard.full_config.hidden_size, device=dev)
+            r["all_reduce_ms"] = _time_ms(lambda: mesh.all_reduce_(buf), launches=2 * layers,
+                                          repeats=5) * 2 * layers
+        r["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        model.module.prefill_embeds = orig_embeds
+        del model, full, shard
+        torch.cuda.empty_cache()
+    mesh.broadcast_(torch.zeros(1, device=dev))  # every rank done
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def tp_slice(dev, seed, checks, card, world=TP_WORLD):
+    """Phase 17: ``world`` ranks serving the LLaMA sharded over one model group
+    (``python3 chip_smoke.py --tp-rank DIR`` each, on this host's cards by
+    ``common.dist``'s rule: gloo on CUDA tensors when they share a card, NCCL
+    a card a rank), held to rank 0's one-rank runs."""
+    import shutil
+
+    import torch
+
+    from myriad_tpu_torch.common import dist
+
+    out_dir = os.path.join(REPO, "build", "tp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cards = torch.cuda.device_count() if TP_DEVICE == "cuda" else 0
+    backend = dist.transport(TP_DEVICE, world, cards)
+    extra = {"TP_INT4": "1" if backend == "nccl" and world == 2 else "0"}
+    t0 = time.time()
+    ranks = ddp_ranks(out_dir, seed, world, command=TP_RANK_COMMAND, flag="--tp-rank",
+                      wall=TP_RANK_WALL_S, env=extra)
+    t_ranks = time.time() - t0
+    check([r["rank"] for r in ranks] == list(range(world)), "rank numbering")
+    want = [f"cuda:{r % cards}" if cards else "cpu" for r in range(world)]
+    check([(r["backend"], r["device"]) for r in ranks] == [(backend, d) for d in want],
+          f"transport / device: {[(r['backend'], r['device']) for r in ranks]}")
+    for weights in [w for w in ("int8", "int4") if w in ranks[0]]:
+        r0 = ranks[0][weights]
+        layers = r0["layers"]
+        for r in ranks:
+            q = r[weights]
+            check(q["tokens_digest"] == r0["tokens_digest"], "the ranks' tokens differ")
+            check(q["launches"] == r0["launches"], f"launches differ across ranks: "
+                  f"{[x[weights]['launches'] for x in ranks]}")
+            if weights == "int8":
+                check(q["engine_digest"] == r0["engine_digest"], "the ranks' engines differ")
+                for c in checks:
+                    c.by_path[f"tp_generate_rank{r['rank']}"] = q["launches"].get(c.name, 0)
+                    c.by_path[f"tp_engine_rank{r['rank']}"] = q["engine_launches"].get(c.name, 0)
+        la, lo = r0["launches"], r0["one_rank_launches"]
+        kernel = "B5 int4_matmul" if weights == "int4" else "B1 int8_matmul"
+        other = "B1 int8_matmul" if weights == "int4" else "B5 int4_matmul"
+        check(la[kernel] > 0 and la[other] == 0 and all(la[n] > 0 for n in TP_NAMES[1:4]),
+              f"{weights}: launches {la}")
+        if r0["calls"] == r0["one_rank_calls"]:
+            check(la == lo, f"{weights}: sharded launches {la} against one rank's {lo}")
+        steps = r0["calls"] - 1
+        check(la[kernel] == 7 * layers * steps and la["B2 decode_attention"] == layers * steps
+              and la["B4 kv_write"] == layers * (steps + 1), f"{weights}: launches {la} for "
+              f"{steps} decode steps")
+        n_pos, held = r0["forced_positions"], r0["forced_held"]
+        print(f"{weights}: {world} ranks ({', '.join(want)}; {backend}"
+              f"{' on CUDA tensors' if backend == 'gloo' else ''}), Myriad at full width, "
+              f"the {layers}-layer {weights} LLaMA sharded ({r0['shard_leaves']} leaves a rank, "
+              f"each the slice of the whole weights bit for bit), EVA {TP_VIT_BLOCKS} of 39 "
+              f"blocks; ranks' wall {t_ranks:.1f} s; built in {r0['build_s']:.1f} s; the prefix "
+              f"the same bits on every rank", flush=True)
+        print(f"  greedy generate (batch {BATCH}, {NEW_TOKENS} tokens): sharded {r0['wall_s']:.3f} "
+              f"s ({BATCH / r0['wall_s']:.4f} images/s), one rank {r0['one_rank_wall_s']:.3f} s "
+              f"({BATCH / r0['one_rank_wall_s']:.4f} images/s); prefill logits max|d| "
+              f"{r0['prefill_max_abs']:.4e} (tol {TP_TOL}); rows identical to the one-rank "
+              f"run {r0['rows_identical']} of {BATCH}; free run: calls agreeing "
+              f"{r0['free_run'][0]}, first divergence at call {r0['free_run'][1]} (one-rank "
+              f"margin {r0['free_run'][2]}); launches {la} (one rank {lo}), equal on every rank",
+              flush=True)
+        print(f"  teacher-forced on the one-rank transcript ({TP_FORCE_CHUNK} tokens a forward): "
+              f"max|d| {r0['forced_max_abs']:.4e}, median of the steps' max "
+              f"{r0['forced_median_step_max_abs']:.4e}, first steps "
+              f"{[round(x, 5) for x in r0['forced_first_steps']]}; argmax held at {held} of "
+              f"{n_pos} positions (one-rank margin > {TP_TOL}), all agree; "
+              f"{r0['forced_differ']} differ in all", flush=True)
+        print(f"  a decode step: {r0['step_s'] * 1e3:.2f} ms; collectives {r0['step_collectives']}"
+              f", their host time {r0['step_collective_s'] * 1e3:.2f} ms; all-reduce of a "
+              f"row-parallel output ({BATCH}x4096 fp32) x {2 * layers}: "
+              f"{r0['all_reduce_ms']:.3f} ms (CUDA events, median of 5); card: {card}",
+              flush=True)
+        if weights == "int8":
+            print(f"  speculative generate (K={SPEC_K}, lookup drafts, {TP_SPEC_TOKENS} tokens): "
+                  f"{r0['spec_wall_s']:.3f} "
+                  f"s, {r0['spec_stats']}; first verify round {r0['verify_shape']} logits "
+                  f"max|d| {r0['verify_max_abs']:.4e} (tol {TP_TOL}); launches "
+                  f"{r0['spec_launches']}", flush=True)
+            rule = r0["engine_rule"]
+            print(f"  engine ({ENGINE_REQUESTS} requests over {BATCH} slots, phase 9's "
+                  f"schedule, {TP_ENGINE_TOKENS} tokens a request): sharded {r0['engine_wall_s']:.3f} s, one rank "
+                  f"{r0['engine_one_rank_wall_s']:.3f} s, {r0['engine_steps']} decode steps; "
+                  f"transcripts identical {r0['engine_identical']} of {ENGINE_REQUESTS}; "
+                  f"logits calls agreeing {rule[0]}, first divergence at {rule[1]} (one-rank "
+                  f"margin {rule[2]}); launches {r0['engine_launches']}", flush=True)
+        for r in ranks:
+            print(f"  rank {r['rank']}: peak device memory "
+                  f"{r[weights]['peak_bytes'] / 2**30:.2f} GiB; generate {r[weights]['wall_s']:.3f}"
+                  f" s; card: {card}", flush=True)
+    return ranks
+
+
 def say(t_start, title) -> None:
     """A phase's header, with the seconds since the build started."""
     print(f"{title} [{time.time() - t_start:.0f} s]", flush=True)
@@ -4165,9 +4723,15 @@ def main(argv=None) -> int:
                         help="run phase 16 (a) alone over N ranks, one a card (NCCL), and "
                         "exit: a host of N cards")
     parser.add_argument("--ddp-rank", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--tp-cards", type=int, metavar="N",
+                        help="run phase 17 alone over N ranks, one a card (NCCL; with N = 2 "
+                        "also the int4 LLaMA), and exit: a host of N cards")
+    parser.add_argument("--tp-rank", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.ddp_rank:  # one rank of phase 16, started by ddp_ranks
         return ddp_rank(args.ddp_rank, args.seed)
+    if args.tp_rank:  # one rank of phase 17, started by tp_slice
+        return tp_rank(args.tp_rank, args.seed)
     kernels = args.parent_kernels.split(",")
     if any(k not in dict(PHASE2) for k in kernels):
         parser.error(f"--parent-kernels takes names from {[n for n, _ in PHASE2]}")
@@ -4190,16 +4754,25 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; TF32 off for matmul and "
           f"cuDNN convolutions (cuDNN convs default to TF32)", flush=True)
-    if args.ddp_cards:
+    for flag, cards_wanted in (("--ddp-cards", args.ddp_cards), ("--tp-cards", args.tp_cards)):
+        if not cards_wanted:
+            continue
         cards = torch.cuda.device_count()
-        if cards < args.ddp_cards:
-            print(f"chip_smoke: --ddp-cards {args.ddp_cards} on a host of {cards} cards",
+        if cards < cards_wanted:
+            print(f"chip_smoke: {flag} {cards_wanted} on a host of {cards} cards",
                   file=sys.stderr)
             return 2
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60).stdout.strip().splitlines()
-        ddp_train(dev, args.seed, [], " | ".join(smi[:args.ddp_cards]), args.ddp_cards)
+        card_names = " | ".join(smi[:cards_wanted])
+        if flag == "--ddp-cards":
+            ddp_train(dev, args.seed, [], card_names, cards_wanted)
+        else:
+            from myriad_tpu_torch.ops import _cuda
+
+            _cuda.library()  # built once, before the ranks load it
+            tp_slice(dev, args.seed, [], card_names, cards_wanted)
         return 0
 
     from myriad_tpu_torch.ops import _cuda
@@ -4265,6 +4838,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     say(t_start, "phase 16: data parallelism: two ranks on card 0, a one-rank NCCL group")
     ddp_slice(dev, args.seed, checks, card)
+    torch.cuda.empty_cache()
+    say(t_start, "phase 17: tensor-parallel serving: the LLaMA sharded over two ranks on card 0")
+    tp_slice(dev, args.seed, checks, card)
     say(t_start, "all phases done")
     print(card)
     print(json.dumps({"kernels": [c.record() for c in checks]}))

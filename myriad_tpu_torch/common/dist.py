@@ -17,7 +17,9 @@ package takes them from ``jax.process_index()`` and ``jax.process_count()``.
 a ``file://`` path).  With
 ``model_shards: 1``, ``use_mesh`` is the JAX package's data axis: data
 parallel over the launched ranks, a world of one in a single process.
-``model_shards`` > 1 (tensor parallelism over the ``model`` axis) raises.
+``model_shards`` > 1 raises under the trainer: tensor parallelism over the
+``model`` axis serves (``parallel.mesh.make_mesh``, a ``mesh`` given to
+``Myriad.shard`` and the serving engine) and does not train yet.
 
 The transport is fixed before the group is built: gloo for CPU ranks; NCCL
 when every rank of the host has a card of its own; gloo on CUDA tensors when
@@ -29,6 +31,7 @@ transport after a failure.
 from __future__ import annotations
 
 import atexit
+import datetime
 import functools
 import logging
 import os
@@ -59,18 +62,31 @@ def transport(device_type: str, local_world: int, cards: int) -> str:
 def init_distributed_mode(run_cfg=None, device_type: str = "cuda") -> Optional[str]:
     """Join the launcher's process group when its ``WORLD_SIZE`` is above 1
     (``device_type`` the run's: ``cuda`` or ``cpu``); returns the backend
-    joined, None in a world of one.  ``model_shards`` > 1 raises."""
+    joined, None in a world of one.  ``model_shards`` > 1 raises: the
+    trainer is data parallel only."""
     run_cfg = run_cfg or {}
     shards = int(run_cfg.get("model_shards", 1) or 1)
     if shards > 1:
         raise NotImplementedError(
-            f"model_shards={shards}: tensor parallelism over the model axis is not ported "
-            "(one H100 holds the model); the port is data parallel over its ranks")
+            f"model_shards={shards}: tensor parallelism over the model axis serves but does "
+            "not train: tensor-parallel training is the next slice of the port.  Serving takes "
+            "a mesh: parallel.mesh.make_mesh(n_model), then Myriad.shard(mesh) or "
+            "ServingEngine(..., mesh=mesh)")
     if is_dist_avail_and_initialized():
         return tdist.get_backend()
-    world = launched_world()
-    if world <= 1:
+    if launched_world() <= 1:
         return None
+    return join(device_type, str(run_cfg.get("dist_url") or "env://"))
+
+
+def join(device_type: str = "cuda", init_method: str = "env://",
+         timeout: Optional[datetime.timedelta] = None) -> str:
+    """Join the launcher's process group (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE`` and the rendezvous
+    ``init_method``) with ``transport``'s backend, this rank's card set
+    current; ``timeout`` bounds every collective of the group.  Returns the
+    backend."""
+    world = launched_world()
     rank = _env_int("RANK", 0)
     local_world = _env_int("LOCAL_WORLD_SIZE", world)
     cards = torch.cuda.device_count() if device_type == "cuda" else 0
@@ -79,8 +95,9 @@ def init_distributed_mode(run_cfg=None, device_type: str = "cuda") -> Optional[s
         torch.cuda.set_device(get_local_rank() % cards)
     logging.info("joining the process group: rank %d of %d, backend %s (%d ranks on this "
                  "host, %d cards)", rank, world, backend, local_world, cards)
-    tdist.init_process_group(backend, init_method=str(run_cfg.get("dist_url") or "env://"),
-                             world_size=world, rank=rank)
+    kw = {} if timeout is None else {"timeout": timeout}
+    tdist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
+                             **kw)
     atexit.register(destroy)
     return backend
 

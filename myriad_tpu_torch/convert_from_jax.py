@@ -21,6 +21,10 @@ An int4 layer's ``w_int4`` (in/2, out) and ``scale4`` (in/group, out) pass
 through as they are: neither is a ``kernel`` nor a ``scale``, and kernel B5
 reads the JAX package's layout.
 
+A rank of a tensor-parallel mesh takes its piece of a bridged state with
+``parallel.partition.shard_state_dict(state_dict_from_jax(tree), mesh,
+LLAMA_RULES)``: the JAX array's shard on the rank's model index.
+
 ``jax_leaves`` gives each leaf's '/'-joined path in the JAX tree beside its
 state-dict name (the weights loaders account by those paths, as the JAX
 package does); ``jax_path_of`` goes the other way for a module's state-dict
@@ -97,6 +101,20 @@ def jax_path_of(module: nn.Module, name: str) -> str:
             leaf = "kernel"
         elif isinstance(owner, LayerNorm):
             leaf = "scale"
+    return _jax_join(mods, leaf)
+
+
+def jax_path_of_name(name: str, ndim: int) -> str:
+    """The JAX path of a state-dict entry from its name and rank alone, as
+    ``jax_path_of`` gives it for a Dense or convolution: a 2-D or 4-D
+    ``weight`` -> ``kernel`` (every such port parameter is one; a 1-D
+    ``weight`` keeps its name)."""
+    *mods, leaf = name.split(".")
+    return _jax_join(mods, "kernel" if leaf == "weight" and ndim in (2, 4) else leaf)
+
+
+def _jax_join(mods: List[str], leaf: str) -> str:
+    """Module names and a leaf as a JAX path: ``blocks.3`` -> ``blocks_3``."""
     parts: List[str] = []
     for part in mods:
         if part.isdigit() and parts and _PORT_ENTRY.match(parts[-1]):

@@ -209,9 +209,13 @@ __device__ __forceinline__ void lookup_scales(const Args& a, int k, int n, uint3
 // the first kStages stages, and at each later stage first refills the slot
 // that every warp has just left.  No barrier spans the block before the
 // epilogue.
-template <int kNT, int kTiles, int kKG, int kSPW, int kStages, bool kUniform>
-__global__ void __launch_bounds__(kThreads, (8 / kTiles) * kKG == kWarps ? 3 : 1)
-int4_matmul_tc_kernel(const __grid_constant__ Maps maps, const Args a) {
+//
+// kF32: store the fp32 sum (the fp32-output mode: a row-parallel shard's
+// partial product, summed over the ranks in fp32 and rounded once by the
+// caller) instead of its bf16 rounding; the bf16 kernels are the same
+// instances of the body as before it had the mode.
+template <int kNT, int kTiles, int kKG, int kSPW, int kStages, bool kUniform, bool kF32>
+__device__ __forceinline__ void int4_matmul_tc_body(const Maps& maps, const Args& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
@@ -369,9 +373,26 @@ int4_matmul_tc_kernel(const __grid_constant__ Maps maps, const Args a) {
     float s = 0.f;
     for (int q = 0; q < a.splits; ++q)
       s += (a.splits > 1 ? cluster.map_shared_rank(part, q) : part)[r * kOutRow + c];
-    if (n0 + c < a.N) a.out[(size_t)r * a.N + n0 + c] = __float2bfloat16(s);
+    if constexpr (kF32) {
+      if (n0 + c < a.N) reinterpret_cast<float*>(a.out)[(size_t)r * a.N + n0 + c] = s;
+    } else {
+      if (n0 + c < a.N) a.out[(size_t)r * a.N + n0 + c] = __float2bfloat16(s);
+    }
   }
   if (a.splits > 1) cluster.sync();  // no rank leaves while another reads it
+}
+
+template <int kNT, int kTiles, int kKG, int kSPW, int kStages, bool kUniform>
+__global__ void __launch_bounds__(kThreads, (8 / kTiles) * kKG == kWarps ? 3 : 1)
+int4_matmul_tc_kernel(const __grid_constant__ Maps maps, const Args a) {
+  int4_matmul_tc_body<kNT, kTiles, kKG, kSPW, kStages, kUniform, false>(maps, a);
+}
+
+// The fp32-output mode: a.out holds fp32.
+template <int kNT, int kTiles, int kKG, int kSPW, int kStages, bool kUniform>
+__global__ void __launch_bounds__(kThreads, (8 / kTiles) * kKG == kWarps ? 3 : 1)
+int4_matmul_tc_f32_kernel(const __grid_constant__ Maps maps, const Args a) {
+  int4_matmul_tc_body<kNT, kTiles, kKG, kSPW, kStages, kUniform, true>(maps, a);
 }
 
 using Kernel = void (*)(Maps, Args);
@@ -384,16 +405,20 @@ struct Plan {
 };
 
 template <int kNT, int kTiles, int kKG, int kSPW, int kStages>
-void pick(bool uniform, int rows, Plan* p) {
-  p->kernel = uniform ? &int4_matmul_tc_kernel<kNT, kTiles, kKG, kSPW, kStages, true>
-                      : &int4_matmul_tc_kernel<kNT, kTiles, kKG, kSPW, kStages, false>;
+void pick(bool uniform, bool f32, int rows, Plan* p) {
+  if (f32)
+    p->kernel = uniform ? &int4_matmul_tc_f32_kernel<kNT, kTiles, kKG, kSPW, kStages, true>
+                        : &int4_matmul_tc_f32_kernel<kNT, kTiles, kKG, kSPW, kStages, false>;
+  else
+    p->kernel = uniform ? &int4_matmul_tc_kernel<kNT, kTiles, kKG, kSPW, kStages, true>
+                        : &int4_matmul_tc_kernel<kNT, kTiles, kKG, kSPW, kStages, false>;
   const int ring = kStages * stage_bytes(rows);
   const int parts = kKG * rows * kOutRow * 4;
   p->smem = (ring > parts ? ring : parts) + 1024;  // and the slack to align the ring
 }
 
 Plan plan(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
-          int group) {
+          int group, bool f32) {
   Plan p;
   const bool uniform = group % kStageK == 0 || group == K;
   const int slabs = (M + kSlab - 1) / kSlab;
@@ -401,19 +426,19 @@ Plan plan(const void* x, const void* w, const void* scale, void* out, int M, int
   if (M <= kSlab) {  // three blocks an SM, each under 76 KB of shared memory
     rows = M <= 8 ? 8 : M <= 16 ? 16 : 32;
     if (rows == 8)
-      pick<1, 4, 4, 1, 6>(uniform, rows, &p);
+      pick<1, 4, 4, 1, 6>(uniform, f32, rows, &p);
     else if (rows == 16)
-      pick<2, 4, 4, 1, 5>(uniform, rows, &p);
+      pick<2, 4, 4, 1, 5>(uniform, f32, rows, &p);
     else  // 32 columns a warp: half the accumulators
-      pick<4, 2, 2, 1, 4>(uniform, rows, &p);
+      pick<4, 2, 2, 1, 4>(uniform, f32, rows, &p);
   } else {
     rows = slabs * kSlab;
     if (slabs == 2)
-      pick<4, 4, 2, 1, 4>(uniform, rows, &p);
+      pick<4, 4, 2, 1, 4>(uniform, f32, rows, &p);
     else if (slabs <= 4)
-      pick<4, 4, 1, 1, 3>(uniform, rows, &p);
+      pick<4, 4, 1, 1, 3>(uniform, f32, rows, &p);
     else
-      pick<4, 4, 1, 2, 2>(uniform, rows, &p);
+      pick<4, 4, 1, 2, 2>(uniform, f32, rows, &p);
   }
   p.tiles = (N + kTileN - 1) / kTileN;
   const int stages = (K + kStageK - 1) / kStageK;
@@ -459,6 +484,20 @@ cudaError_t configure(Plan& p, cudaStream_t stream, cudaLaunchConfig_t* cfg,
   return cudaSuccess;
 }
 
+cudaError_t launch(const void* x, const void* w, const void* scale, void* out, int M, int K,
+                   int N, int group, void* stream, bool f32) {
+  if (M < 1 || M > 8 * kSlab) return cudaErrorInvalidValue;
+  Plan p = plan(x, w, scale, out, M, K, N, group, f32);
+  Maps maps{};
+  cudaError_t e = p.args.vec ? tensor_maps(w, scale, K, N, group, &maps) : cudaSuccess;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (e == cudaSuccess) e = configure(p, static_cast<cudaStream_t>(stream), &cfg, &attr);
+  if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, p.kernel, maps, p.args);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x (M, K) bf16, 4-byte aligned; w (K/2, N) uint8 and scale (K/group, N)
@@ -466,16 +505,14 @@ cudaError_t configure(Plan& p, cudaStream_t stream, cudaLaunchConfig_t* cfg,
 // and group even, group dividing K, N a multiple of 4.  One launch.
 extern "C" int myriad_int4_matmul(const void* x, const void* w, const void* scale, void* out,
                                   int M, int K, int N, int group, void* stream) {
-  if (M < 1 || M > 8 * kSlab) return static_cast<int>(cudaErrorInvalidValue);
-  Plan p = plan(x, w, scale, out, M, K, N, group);
-  Maps maps{};
-  cudaError_t e = p.args.vec ? tensor_maps(w, scale, K, N, group, &maps) : cudaSuccess;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  if (e == cudaSuccess) e = configure(p, static_cast<cudaStream_t>(stream), &cfg, &attr);
-  if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, p.kernel, maps, p.args);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch(x, w, scale, out, M, K, N, group, stream, false));
+}
+
+// The fp32-output mode: the same product, out (M, N) fp32 = the fp32 sum,
+// unrounded.  The same contract otherwise.  One launch.
+extern "C" int myriad_int4_matmul_f32(const void* x, const void* w, const void* scale,
+                                      void* out, int M, int K, int N, int group, void* stream) {
+  return static_cast<int>(launch(x, w, scale, out, M, K, N, group, stream, true));
 }
 
 // B5's launch at these widths: out[0] the splits of K (the cluster's
@@ -485,7 +522,7 @@ extern "C" int myriad_int4_matmul(const void* x, const void* w, const void* scal
 // a CUDA error.
 extern "C" int myriad_int4_matmul_launch_info(int M, int K, int N, int group, int* out) {
   if (M < 1 || M > 8 * kSlab) return static_cast<int>(cudaErrorInvalidValue);
-  Plan p = plan(nullptr, nullptr, nullptr, nullptr, M, K, N, group);
+  Plan p = plan(nullptr, nullptr, nullptr, nullptr, M, K, N, group, false);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = configure(p, nullptr, &cfg, &attr);

@@ -50,6 +50,11 @@
 //   sums its share of the tile over the ranks' shared memory in rank order,
 //   multiplies by the column's scale and rounds to bf16 once.  One launch,
 //   no scratch in device memory, and two runs give the same bits.
+// - The fp32-output mode (myriad_int8_matmul_f32, int8_matmul_tc_f32_kernel)
+//   runs the same body and stores the fp32 value instead of rounding it: a
+//   row-parallel shard's partial product, summed over the ranks in fp32 and
+//   rounded once by the caller.  The bf16 kernels are the same instances
+//   of the body as before it had the mode.
 // - Above 32 rows the warps split x's 32-row slabs (and fewer k-groups) over
 //   the stage's weight tile, which is loaded once: up to 256 rows, each warp
 //   keeps the accumulators of one or two slabs.
@@ -144,14 +149,15 @@ __device__ void issue_stage(const Args& a, const CUtensorMap& map, unsigned char
 // kNT: 8-row tiles of x a slab holds (1, 2 or 4); kTiles: 16-column A tiles
 // a warp owns (4 or 2); kKG: k-groups; kSPW: slabs a warp accumulates (1 or
 // 2); kStages: the ring's depth.  Up to 32 rows, three blocks share an SM.
+// kF32: store the fp32 sum x scale (the fp32-output mode) instead of its
+// bf16 rounding.
 //
 // The ring: a slot's `full` barrier completes when its copies have landed,
 // and its `empty` barrier when every warp is done with it.  Warp 0 issues
 // the first kStages stages, and at each later stage first refills the slot
 // that every warp has just left.
-template <int kNT, int kTiles, int kKG, int kSPW, int kStages>
-__global__ void __launch_bounds__(kThreads, (8 / kTiles) * kKG == kWarps ? 3 : 1)
-int8_matmul_tc_kernel(const __grid_constant__ CUtensorMap map, const Args a) {
+template <int kNT, int kTiles, int kKG, int kSPW, int kStages, bool kF32>
+__device__ __forceinline__ void int8_matmul_tc_body(const CUtensorMap& map, const Args& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
@@ -301,9 +307,25 @@ int8_matmul_tc_kernel(const __grid_constant__ CUtensorMap map, const Args a) {
     float s = 0.f;
     for (int q = 0; q < a.splits; ++q)
       s += (a.splits > 1 ? cluster.map_shared_rank(part, q) : part)[r * kOutRow + c];
-    a.out[(size_t)r * a.N + n0 + c] = __float2bfloat16(s * __ldg(a.scale + n0 + c));
+    if constexpr (kF32)
+      reinterpret_cast<float*>(a.out)[(size_t)r * a.N + n0 + c] = s * __ldg(a.scale + n0 + c);
+    else
+      a.out[(size_t)r * a.N + n0 + c] = __float2bfloat16(s * __ldg(a.scale + n0 + c));
   }
   if (a.splits > 1) cluster.sync();  // no rank leaves while another reads it
+}
+
+template <int kNT, int kTiles, int kKG, int kSPW, int kStages>
+__global__ void __launch_bounds__(kThreads, (8 / kTiles) * kKG == kWarps ? 3 : 1)
+int8_matmul_tc_kernel(const __grid_constant__ CUtensorMap map, const Args a) {
+  int8_matmul_tc_body<kNT, kTiles, kKG, kSPW, kStages, false>(map, a);
+}
+
+// The fp32-output mode: a.out holds fp32.
+template <int kNT, int kTiles, int kKG, int kSPW, int kStages>
+__global__ void __launch_bounds__(kThreads, (8 / kTiles) * kKG == kWarps ? 3 : 1)
+int8_matmul_tc_f32_kernel(const __grid_constant__ CUtensorMap map, const Args a) {
+  int8_matmul_tc_body<kNT, kTiles, kKG, kSPW, kStages, true>(map, a);
 }
 
 using Kernel = void (*)(CUtensorMap, Args);
@@ -316,33 +338,35 @@ struct Plan {
 };
 
 template <int kNT, int kTiles, int kKG, int kSPW, int kStages>
-void pick(int rows, Plan* p) {
-  p->kernel = &int8_matmul_tc_kernel<kNT, kTiles, kKG, kSPW, kStages>;
+void pick(bool f32, int rows, Plan* p) {
+  p->kernel = f32 ? &int8_matmul_tc_f32_kernel<kNT, kTiles, kKG, kSPW, kStages>
+                  : &int8_matmul_tc_kernel<kNT, kTiles, kKG, kSPW, kStages>;
   const int ring = kStages * (kWBytes + rows * kXRow * 2);
   const int parts = kKG * rows * kOutRow * 4;
   p->smem = (ring > parts ? ring : parts) + 1024;  // and the slack to align the ring
 }
 
-Plan plan(const void* x, const void* w, const void* scale, void* out, int M, int K, int N) {
+Plan plan(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
+          bool f32) {
   Plan p;
   const int slabs = (M + kSlab - 1) / kSlab;
   int rows;
   if (M <= kSlab) {  // three blocks an SM, each under 76 KB of shared memory
     rows = M <= 8 ? 8 : M <= 16 ? 16 : 32;
     if (rows == 8)
-      pick<1, 4, 4, 1, 4>(rows, &p);
+      pick<1, 4, 4, 1, 4>(f32, rows, &p);
     else if (rows == 16)
-      pick<2, 4, 4, 1, 3>(rows, &p);
+      pick<2, 4, 4, 1, 3>(f32, rows, &p);
     else  // 32 columns a warp: half the accumulators
-      pick<4, 2, 2, 1, 3>(rows, &p);
+      pick<4, 2, 2, 1, 3>(f32, rows, &p);
   } else {
     rows = slabs * kSlab;
     if (slabs == 2)
-      pick<4, 4, 2, 1, 4>(rows, &p);
+      pick<4, 4, 2, 1, 4>(f32, rows, &p);
     else if (slabs <= 4)
-      pick<4, 4, 1, 1, 3>(rows, &p);
+      pick<4, 4, 1, 1, 3>(f32, rows, &p);
     else
-      pick<4, 4, 1, 2, 2>(rows, &p);
+      pick<4, 4, 1, 2, 2>(f32, rows, &p);
   }
   p.tiles = (N + kTileN - 1) / kTileN;
   const int stages = (K + kStageK - 1) / kStageK;
@@ -377,15 +401,10 @@ cudaError_t configure(Plan& p, cudaStream_t stream, cudaLaunchConfig_t* cfg,
   return cudaSuccess;
 }
 
-}  // namespace
-
-// x (M, K) bf16, 2-byte aligned; w (K, N) int8, 16-byte aligned; scale (N,)
-// fp32; out (M, N) bf16; all contiguous, 1 <= M <= 256, K >= 1, N a
-// multiple of 4.  One launch.
-extern "C" int myriad_int8_matmul(const void* x, const void* w, const void* scale, void* out,
-                                  int M, int K, int N, void* stream) {
-  if (M < 1 || M > 8 * kSlab || K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Plan p = plan(x, w, scale, out, M, K, N);
+cudaError_t launch(const void* x, const void* w, const void* scale, void* out, int M, int K,
+                   int N, void* stream, bool f32) {
+  if (M < 1 || M > 8 * kSlab || K < 1) return cudaErrorInvalidValue;
+  Plan p = plan(x, w, scale, out, M, K, N, f32);
   CUtensorMap map{};
   // the weight in boxes of 128 rows x 128 bytes, 128-byte swizzle
   cudaError_t e = p.args.vec ? myriad::tensor_map_2d(&map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N,
@@ -397,8 +416,25 @@ extern "C" int myriad_int8_matmul(const void* x, const void* w, const void* scal
   cudaLaunchAttribute attr;
   if (e == cudaSuccess) e = configure(p, static_cast<cudaStream_t>(stream), &cfg, &attr);
   if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, p.kernel, map, p.args);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x (M, K) bf16, 2-byte aligned; w (K, N) int8, 16-byte aligned; scale (N,)
+// fp32; out (M, N) bf16; all contiguous, 1 <= M <= 256, K >= 1, N a
+// multiple of 4.  One launch.
+extern "C" int myriad_int8_matmul(const void* x, const void* w, const void* scale, void* out,
+                                  int M, int K, int N, void* stream) {
+  return static_cast<int>(launch(x, w, scale, out, M, K, N, stream, false));
+}
+
+// The fp32-output mode: the same product, out (M, N) fp32 = the fp32 sum x
+// scale, unrounded.  The same contract otherwise.  One launch.
+extern "C" int myriad_int8_matmul_f32(const void* x, const void* w, const void* scale,
+                                      void* out, int M, int K, int N, void* stream) {
+  return static_cast<int>(launch(x, w, scale, out, M, K, N, stream, true));
 }
 
 // B1's launch at these widths: out[0] the splits of K (the cluster's
@@ -408,7 +444,7 @@ extern "C" int myriad_int8_matmul(const void* x, const void* w, const void* scal
 // how many of its blocks an SM holds at once.  Returns a CUDA error.
 extern "C" int myriad_int8_matmul_launch_info(int M, int K, int N, int* out) {
   if (M < 1 || M > 8 * kSlab || K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Plan p = plan(nullptr, nullptr, nullptr, nullptr, M, K, N);
+  Plan p = plan(nullptr, nullptr, nullptr, nullptr, M, K, N, false);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = configure(p, nullptr, &cfg, &attr);

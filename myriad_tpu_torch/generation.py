@@ -16,6 +16,12 @@ prefix (the resident-cache chat), and ``speculative_generate`` verifies
 K drafted tokens per weight pass with per-row cache frontiers.  Only the
 unstaged speculative loop is ported: the JAX package's staged spec spans
 (``MYRIAD_SPEC_STAGED=1``) are a measurement knob, off by default.
+
+Under a tensor-parallel model (``LlamaForCausalLM(mesh=)``) every rank of
+the model group runs these loops in lock step: every host decision (the
+loop's ``done.all()``, the stop rules, the drafts, the staged spans) is
+taken from the gathered logits' argmax, the same bits on every rank, so no
+rank leaves a loop while another waits in a collective.
 """
 
 from __future__ import annotations

@@ -9,6 +9,12 @@ Dense weights are stored (out, in) as torch's; int8 weights stay (in, out)
 with a per-column scale (and an optional bias), the layout kernel B1 reads;
 int4 weights stay packed (in/2, out) with (in/group, out) scales, the layout
 kernel B5 reads.
+
+A projection built with a ``mesh`` (``parallel.mesh.Mesh``) is a
+row-parallel shard: it holds this rank's input features, and its output is
+summed over the model group in fp32 and rounded once (``ops.quant``'s row
+rule; a float Dense sums fp32 products).  A column-parallel shard needs no
+mesh: it is a narrower projection.
 """
 
 from __future__ import annotations
@@ -51,28 +57,43 @@ def new_param(shape, dtype, device) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """Dense layer: y = x @ W^T (+ b) in the compute dtype."""
+    """Dense layer: y = x @ W^T (+ b) in the compute dtype.  With ``mesh``, a
+    row-parallel shard: the fp32 product of this rank's input features,
+    summed over the model group, then rounded to the compute dtype."""
 
     def __init__(self, in_features: int, features: int, *, use_bias: bool = True,
-                 policy: Policy, device, compute_dtype: Optional[torch.dtype] = None):
+                 policy: Policy, device, compute_dtype: Optional[torch.dtype] = None,
+                 mesh=None):
         super().__init__()
         self.dtype = compute_dtype or policy.compute_dtype
+        self.mesh = mesh
         self.weight = new_param((features, in_features), policy.param_dtype, device)
         self.bias = new_param((features,), policy.param_dtype, device) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if self.mesh is not None:
+            if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad):
+                raise NotImplementedError("a row-parallel Dense under autograd: "
+                                          "tensor-parallel training is not ported")
+            y = self.mesh.all_reduce_(F.linear(x.to(self.dtype).float(),
+                                               self.weight.to(self.dtype).float()))
+            y = y.to(self.dtype)
+        else:
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class QuantDense(nn.Module):
     """Int8 weight-only Dense: w_int8 (in, out), scale (out,) and, with
-    ``use_bias``, a bias added after the product in the output dtype."""
+    ``use_bias``, a bias added after the product in the output dtype.  With
+    ``mesh``, a row-parallel shard (``in_features`` this rank's, ``scale``
+    whole)."""
 
     def __init__(self, in_features: int, features: int, *, use_bias: bool = False,
-                 policy: Policy, device):
+                 policy: Policy, device, mesh=None):
         super().__init__()
         self.dtype = policy.compute_dtype
+        self.mesh = mesh
         self.register_buffer("w_int8", torch.empty((in_features, features), dtype=torch.int8,
                                                    device=device))
         self.register_buffer("scale", torch.empty((features,), dtype=torch.float32,
@@ -80,39 +101,53 @@ class QuantDense(nn.Module):
         self.bias = new_param((features,), policy.param_dtype, device) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = int8_matmul(x.to(self.dtype), self.w_int8, self.scale, out_dtype=self.dtype)
+        y = int8_matmul(x.to(self.dtype), self.w_int8, self.scale, out_dtype=self.dtype,
+                        mesh=self.mesh)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 class Quant4Dense(nn.Module):
     """Int4 group-wise weight-only Dense with no bias: w_int4 (in/2, out)
-    uint8 and scale4 (in/group, out) fp32, named as the JAX package's."""
+    uint8 and scale4 (in/group, out) fp32, named as the JAX package's.  With
+    ``mesh``, a row-parallel shard: ``in_features`` (this rank's) must hold
+    whole groups of the whole weight's, and ``scale4`` stays the whole
+    weight's (the rules replicate it)."""
 
-    def __init__(self, in_features: int, features: int, *, policy: Policy, device):
+    def __init__(self, in_features: int, features: int, *, policy: Policy, device, mesh=None):
         super().__init__()
         self.dtype = policy.compute_dtype
+        self.mesh = mesh
+        whole = in_features * (mesh.n_model if mesh is not None else 1)
+        group = int4_group(whole)
+        if in_features % group:
+            raise NotImplementedError(
+                f"int4 row shard: {in_features} of the weight's {whole} input rows over "
+                f"{mesh.n_model} ranks split a group of {group} ({whole} -> {features}); int4 "
+                "row shards that split a group are not ported")
         self.register_buffer("w_int4", torch.empty((in_features // 2, features),
                                                    dtype=torch.uint8, device=device))
-        self.register_buffer("scale4", torch.empty((in_features // int4_group(in_features),
-                                                    features), dtype=torch.float32,
-                                                   device=device))
+        self.register_buffer("scale4", torch.empty((whole // group, features),
+                                                   dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return int4_matmul(x.to(self.dtype), self.w_int4, self.scale4, out_dtype=self.dtype)
+        return int4_matmul(x.to(self.dtype), self.w_int4, self.scale4, out_dtype=self.dtype,
+                           mesh=self.mesh)
 
 
 def maybe_quant_dense(weight_dtype: str, in_features: int, features: int, *,
-                      use_bias: bool = False, policy: Policy, device) -> nn.Module:
+                      use_bias: bool = False, policy: Policy, device, mesh=None) -> nn.Module:
     """A Dense, or its int8 or int4 serving twin, switched by ``weight_dtype``
-    (the int4 twin, the LLaMA's, has no bias)."""
+    (the int4 twin, the LLaMA's, has no bias); ``mesh``: a row-parallel
+    shard."""
     if weight_dtype == "int8":
         return QuantDense(in_features, features, use_bias=use_bias, policy=policy,
-                          device=device)
+                          device=device, mesh=mesh)
     if weight_dtype == "int4":
-        return Quant4Dense(in_features, features, policy=policy, device=device)
+        return Quant4Dense(in_features, features, policy=policy, device=device, mesh=mesh)
     if weight_dtype != "bf16":
         raise NotImplementedError(f"weight_dtype {weight_dtype!r} is not ported")
-    return Dense(in_features, features, use_bias=use_bias, policy=policy, device=device)
+    return Dense(in_features, features, use_bias=use_bias, policy=policy, device=device,
+                 mesh=mesh)
 
 
 def tower_dense(weight_dtype: str, in_features: int, features: int, *, use_bias: bool = True,

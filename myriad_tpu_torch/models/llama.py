@@ -22,6 +22,23 @@ at one frontier) or a (B,) int32 tensor of per-row frontiers (speculative
 decoding's ragged acceptance); every write goes through kernel B4
 (``ops/kv_write.py``), which clamps a start to [0, T - t] as the JAX
 package's cache writes do.
+
+Built with a ``mesh`` (``parallel.mesh.Mesh`` of ``n_model`` > 1; or
+``LlamaForCausalLM.sharded(mesh)`` from a whole model), the model is this
+rank's shard, Megatron-style as ``parallel.partition.LLAMA_RULES`` cuts the
+state: the rank holds ``num_heads / n`` heads (and ``kv_heads / n``); q, k,
+v, gate and up are column-parallel (the rank's output columns, their int8
+scales; under LoRA the rank's ``lora_b`` columns, ``lora_a`` whole); o and
+down row-parallel (the rank's input rows, the whole scale), each partial
+product summed over the model group in fp32 and rounded once;
+``embed_tokens`` is split over hidden and the looked-up rows are gathered;
+``lm_head`` is split over the vocabulary and the logits are gathered whole
+on every rank, so every rank takes each decision (argmax, stop rules) from
+the same bits.  Its ``config`` is the rank's (``shard_config``: its heads,
+``head_dim`` explicit, its MLP width), which sizes its KV cache;
+``full_config`` is the model's.  Norms, the residual stream and the cache's
+frontiers are whole on every rank.  A sharded model serves; it does not
+train (the next slice).
 """
 
 from __future__ import annotations
@@ -75,6 +92,20 @@ class LlamaConfig:
         base = LlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=128,
                            num_layers=2, num_heads=4)
         return dataclasses.replace(base, **overrides)
+
+
+def shard_config(cfg: LlamaConfig, n: int) -> LlamaConfig:
+    """One rank's config on a model axis of ``n``: its heads and KV heads,
+    ``head_dim`` explicit, its share of the MLP width; hidden and vocabulary
+    whole.  Raises where ``n`` does not divide them."""
+    widths = {"num_heads": cfg.num_heads, "kv_heads": cfg.kv_heads,
+              "intermediate_size": cfg.intermediate_size, "hidden_size": cfg.hidden_size}
+    bad = {k: v for k, v in widths.items() if v % n}
+    if bad:
+        raise ValueError(f"a model axis of {n} does not divide {bad}")
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // n,
+                               num_kv_heads=cfg.kv_heads // n, head_dim=cfg.dims_per_head,
+                               intermediate_size=cfg.intermediate_size // n)
 
 
 class RMSNorm(nn.Module):
@@ -162,7 +193,10 @@ def init_cache(config: LlamaConfig, batch: int, max_len: int, dtype, device) -> 
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, *, policy: Policy, device):
+    """``cfg`` is the rank's under a ``mesh`` (its heads); o_proj is then
+    row-parallel over the mesh's model group."""
+
+    def __init__(self, cfg: LlamaConfig, *, policy: Policy, device, mesh=None):
         super().__init__()
         self.cfg = cfg
         h, hk, d = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
@@ -170,7 +204,8 @@ class LlamaAttention(nn.Module):
         self.q_proj = LoraDense(cfg, cfg.hidden_size, h * d, **kw)
         self.k_proj = maybe_quant_dense(cfg.weight_dtype, cfg.hidden_size, hk * d, **kw)
         self.v_proj = LoraDense(cfg, cfg.hidden_size, hk * d, **kw)
-        self.o_proj = maybe_quant_dense(cfg.weight_dtype, h * d, cfg.hidden_size, **kw)
+        self.o_proj = maybe_quant_dense(cfg.weight_dtype, h * d, cfg.hidden_size, mesh=mesh,
+                                        **kw)
 
     def forward(self, hidden: torch.Tensor, positions: torch.Tensor, cache: Optional[Cache],
                 mask: Optional[torch.Tensor], kv_len: int) -> torch.Tensor:
@@ -223,26 +258,26 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMlp(nn.Module):
-    def __init__(self, cfg: LlamaConfig, *, policy: Policy, device):
+    def __init__(self, cfg: LlamaConfig, *, policy: Policy, device, mesh=None):
         super().__init__()
         d, f, kw = cfg.hidden_size, cfg.intermediate_size, dict(policy=policy, device=device)
         self.gate_proj = maybe_quant_dense(cfg.weight_dtype, d, f, **kw)
         self.up_proj = maybe_quant_dense(cfg.weight_dtype, d, f, **kw)
-        self.down_proj = maybe_quant_dense(cfg.weight_dtype, f, d, **kw)
+        self.down_proj = maybe_quant_dense(cfg.weight_dtype, f, d, mesh=mesh, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(torch.nn.functional.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, *, policy: Policy, device):
+    def __init__(self, cfg: LlamaConfig, *, policy: Policy, device, mesh=None):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, policy=policy,
                                        device=device)
-        self.self_attn = LlamaAttention(cfg, policy=policy, device=device)
+        self.self_attn = LlamaAttention(cfg, policy=policy, device=device, mesh=mesh)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                                 policy=policy, device=device)
-        self.mlp = LlamaMlp(cfg, policy=policy, device=device)
+        self.mlp = LlamaMlp(cfg, policy=policy, device=device, mesh=mesh)
 
     def forward(self, hidden, positions, cache, mask, kv_len):
         hidden = hidden + self.self_attn(self.input_layernorm(hidden), positions, cache,
@@ -251,24 +286,32 @@ class LlamaLayer(nn.Module):
 
 
 class Embed(nn.Module):
-    """Embedding table: gather, then cast to the compute dtype."""
+    """Embedding table: gather, then cast to the compute dtype.  With
+    ``mesh``, the rank's ``dim / n`` columns of every row; the looked-up
+    rows are gathered whole over the model group."""
 
-    def __init__(self, num: int, dim: int, *, policy: Policy, device):
+    def __init__(self, num: int, dim: int, *, policy: Policy, device, mesh=None):
         super().__init__()
         self.dtype = policy.compute_dtype
-        self.embedding = new_param((num, dim), policy.param_dtype, device)
+        self.mesh = mesh
+        n = mesh.n_model if mesh is not None else 1
+        self.embedding = new_param((num, dim // n), policy.param_dtype, device)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids].to(self.dtype)
+        rows = self.embedding[ids]
+        if self.mesh is not None:
+            rows = self.mesh.all_gather(rows)
+        return rows.to(self.dtype)
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, cfg: LlamaConfig, *, policy: Policy, device):
+    def __init__(self, cfg: LlamaConfig, *, policy: Policy, device, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = policy.compute_dtype
-        self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, policy=policy, device=device)
-        self.layers = nn.ModuleList(LlamaLayer(cfg, policy=policy, device=device)
+        self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, policy=policy, device=device,
+                                  mesh=mesh)
+        self.layers = nn.ModuleList(LlamaLayer(cfg, policy=policy, device=device, mesh=mesh)
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, policy=policy, device=device)
 
@@ -324,11 +367,37 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    def __init__(self, cfg: LlamaConfig, *, policy: Policy, device):
+    """The LLaMA with its head; ``mesh`` (n_model > 1) builds this rank's
+    shard (the module docstring), which a state dict cut by
+    ``parallel.partition.shard_state_dict(..., LLAMA_RULES)`` fills."""
+
+    def __init__(self, cfg: LlamaConfig, *, policy: Policy, device, mesh=None):
         super().__init__()
-        self.config = cfg
-        self.model = LlamaModel(cfg, policy=policy, device=device)
-        self.lm_head = new_param((cfg.hidden_size, cfg.vocab_size), policy.param_dtype, device)
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
+        self.policy = policy
+        self.full_config = cfg
+        n = self.mesh.n_model if self.mesh is not None else 1
+        self.config = shard_config(cfg, n) if self.mesh is not None else cfg
+        self.model = LlamaModel(self.config, policy=policy, device=device, mesh=self.mesh)
+        # the vocabulary is split when the axis divides it (else whole: the
+        # rules' replication fallback)
+        self.vocab_split = self.mesh is not None and cfg.vocab_size % n == 0
+        self.lm_head = new_param((cfg.hidden_size, cfg.vocab_size // (n if self.vocab_split
+                                                                      else 1)),
+                                 policy.param_dtype, device)
+
+    @torch.no_grad()
+    def sharded(self, mesh) -> "LlamaForCausalLM":
+        """This rank's shard on ``mesh`` of this whole model (on its device):
+        its state cut by ``shard_state_dict`` with ``LLAMA_RULES``."""
+        from myriad_tpu_torch.parallel.partition import LLAMA_RULES, shard_state_dict
+
+        if self.mesh is not None:
+            raise ValueError("the model is already a shard")
+        out = LlamaForCausalLM(self.full_config, policy=self.policy, device=self.lm_head.device,
+                               mesh=mesh)
+        out.load_state_dict(shard_state_dict(self.state_dict(), mesh, LLAMA_RULES), strict=True)
+        return out
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         return self.model.embed_tokens(ids)
@@ -336,7 +405,8 @@ class LlamaForCausalLM(nn.Module):
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         # fp32 sum and output at the sampling point, as JAX's
         # preferred_element_type=float32 (the greedy-parity island)
-        return torch.matmul(hidden.float(), self.lm_head.to(hidden.dtype).float())
+        out = torch.matmul(hidden.float(), self.lm_head.to(hidden.dtype).float())
+        return self.mesh.all_gather(out) if self.vocab_split else out
 
     def prefill(self, inputs_embeds: torch.Tensor, cache: List[Cache],
                 last_index=None) -> torch.Tensor:

@@ -21,6 +21,13 @@ default) the frozen float parameters are stored in bf16 and the trainables
 and LayerNorm scales in fp32, as its ``_cast_frozen`` leaves them.  A model
 built with ``training=True`` gives its trainables ``requires_grad``.
 ``Myriad`` builds on the card unless the caller passes another device.
+
+Across ranks, ``Myriad.shard(mesh)`` (a ``parallel.mesh.Mesh``, after the
+weights are loaded) makes the LLaMA this rank's tensor-parallel shard; the
+towers and the vision expert stay whole, and only the model group's first
+rank runs them: its maps and prefix embeddings are broadcast, so every rank
+decodes from the same bits.  ``generate`` (greedy and speculative) and
+``serving.MyriadServing`` then run on every rank of the group in lock step.
 """
 
 from __future__ import annotations
@@ -155,18 +162,26 @@ class MyriadModule(nn.Module):
 
     def prefill_embeds(self, image: torch.Tensor, maps: torch.Tensor, before_ids: torch.Tensor,
                        after_ids: torch.Tensor, stage: int, bos_id: int = 1,
-                       add_bos: bool = True) -> torch.Tensor:
+                       add_bos: bool = True, mesh=None) -> torch.Tensor:
         """[bos?][before][image tokens][after] embeddings; serving passes
-        add_bos=False (the reference generates with no bos embedding)."""
+        add_bos=False (the reference generates with no bos embedding).  With
+        a sharded ``mesh`` every rank embeds the ids (the table is split),
+        the model group's first rank alone runs the towers, and its result
+        is broadcast."""
         b = image.shape[0]
-        img = self.encode_img(image, maps, stage)
         before = self.embed_tokens(before_ids[None].expand(b, -1))
         after = self.embed_tokens(after_ids[None].expand(b, -1))
-        pieces = [before, img.to(before.dtype), after]
+        if mesh is None or mesh.model_rank == 0:
+            img = self.encode_img(image, maps, stage).to(before.dtype)
+        else:
+            img = torch.empty((b, self.image_tokens(stage), before.shape[-1]),
+                              dtype=before.dtype, device=before.device)
+        pieces = [before, img, after]
         if add_bos:
             bos = torch.full((b, 1), bos_id, dtype=torch.int64, device=before.device)
             pieces.insert(0, self.embed_tokens(bos))
-        return torch.cat(pieces, dim=1)
+        out = torch.cat(pieces, dim=1)
+        return out if mesh is None else mesh.broadcast_(out)
 
     def train_logits(self, image: torch.Tensor, maps: torch.Tensor, before_ids: torch.Tensor,
                      after_ids: torch.Tensor, text_ids: torch.Tensor, text_mask: torch.Tensor,
@@ -311,6 +326,22 @@ class Myriad(TrainableModel):
         self.ckpt_path = ""
         self.trainable_names: List[str] = self._split_trainable()
         self._prompt_cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # the tensor-parallel mesh the LLaMA is sharded over (``shard``)
+        self.mesh = None
+
+    def shard(self, mesh) -> "Myriad":
+        """Serve across ``mesh``'s model group (``parallel.mesh.make_mesh``):
+        the LLaMA becomes this rank's shard, cut from the whole model's state
+        by ``LLAMA_RULES`` (``LlamaForCausalLM.sharded``), after the weights
+        are loaded; the towers and the vision expert stay whole.  A mesh of
+        one changes nothing.  Returns the model."""
+        if self.training:
+            raise NotImplementedError("tensor-parallel training is not ported (the next "
+                                      "slice): a sharded Myriad serves")
+        if mesh.sharded:
+            self.module.llama = self.module.llama.sharded(mesh)
+            self.mesh = mesh
+        return self
 
     # -- the trainable / frozen split ------------------------------------------
     def trainable_predicate(self) -> Callable[[str], bool]:
@@ -644,7 +675,20 @@ class Myriad(TrainableModel):
         bank is built, as the JAX generate takes ``one_maps``), computed
         once."""
         image, question, scenes, paths = self._image_question(samples, stage, False)
-        return image, question, self._expert_maps(image, scenes, paths, self.k_shot > 0)
+        if self.mesh is None:
+            return image, question, self._expert_maps(image, scenes, paths, self.k_shot > 0)
+        # sharded: the model group's first rank runs the expert, every rank
+        # serves its maps
+        shape = (image.shape[0], self.arch.map_size, self.arch.map_size, 1)
+        if self.mesh.model_rank == 0:
+            maps = self._expert_maps(image, scenes, paths, self.k_shot > 0)
+            if tuple(maps.shape) != shape or maps.dtype != torch.float32:
+                raise ValueError(f"the expert's maps are {maps.dtype} {tuple(maps.shape)}, "
+                                 f"not float32 {shape}")
+            maps = maps.contiguous()
+        else:
+            maps = torch.empty(shape, dtype=torch.float32, device=self.device)
+        return image, question, self.mesh.broadcast_(maps)
 
     # -- training ---------------------------------------------------------------
     def prepare_train_arrays(self, samples: Dict, rng: np.random.Generator):
@@ -747,7 +791,7 @@ class Myriad(TrainableModel):
         # served with no bos embedding, as the reference generates, unless
         # bos_at_generate
         embeds = self.module.prefill_embeds(image, maps, before, after, stage,
-                                            add_bos=self.bos_at_generate)
+                                            add_bos=self.bos_at_generate, mesh=self.mesh)
         cache_dtype = serving_cache_dtype(self.arch.llama, self.policy.compute_dtype)
         lookup = self._spec_lookup_ids(after) if self.spec_k > 0 else None
         tokens, stats = self._decode_fn(gen_cfg, cache_dtype, lookup, generator)(embeds)

@@ -18,6 +18,13 @@ rule with kernel B5 (``csrc/int4_matmul.cu``) for the small row counts; the
 other route requantizes the int4 groups to per-column int8 at each call, as
 the JAX package does off the TPU, and runs W8A8.
 
+Row-parallel shards (a ``mesh`` given to ``int8_matmul`` or ``int4_matmul``:
+x holds this rank's slice of the input features) sum over the model group
+before any rounding: the kernels' fp32-output mode gives fp32 partials,
+summed over the ranks and rounded once; the W8A8 route takes the row's
+amax over the ranks (a MAX all-reduce, so every rank quantizes x as the
+unsharded product would) and sums the int32 accumulators, exactly.
+
 ``quantize_tree`` turns a float parameter tree in the JAX package's layout
 (nested dicts of numpy arrays) into its serving layout, as that package's
 ``quantize_tree`` does, byte for byte: the weights loaders quantize each
@@ -52,9 +59,14 @@ def quantize_per_channel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return w8, scale
 
 
-def w8a8_matmul(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """(m, d) fp32 @ int8 (d, f) with dynamic per-row activation quant -> fp32."""
+def w8a8_matmul(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
+                mesh=None) -> torch.Tensor:
+    """(m, d) fp32 @ int8 (d, f) with dynamic per-row activation quant -> fp32.
+    With ``mesh``, a row-parallel shard: the amax and the int32 sums are
+    reduced over the model group, and the result is the unsharded one."""
     x_amax = torch.clamp_min(x2.abs().amax(dim=-1, keepdim=True), 1e-8)
+    if mesh is not None:
+        mesh.all_reduce_(x_amax, op="max")
     x8 = torch.clamp(torch.round(x2 * (127.0 / x_amax)), -127, 127).to(torch.int8)
     if x2.is_cuda:
         m, d = x8.shape
@@ -65,24 +77,29 @@ def w8a8_matmul(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torc
         int_mm_counter.count += 1
     else:
         acc = torch.matmul(x8.to(torch.int32), w8.to(torch.int32))
+    if mesh is not None:
+        mesh.all_reduce_(acc)
     return acc.float() * (x_amax / 127.0) * scale.float()
 
 
-def int8_weight_only_matmul_plain(x2: torch.Tensor, w8: torch.Tensor,
-                                  scale: torch.Tensor) -> torch.Tensor:
-    """Plain version of B1: (x @ float(W)) * scale, fp32 sum, in x's dtype."""
-    return (torch.matmul(x2.float(), w8.float()) * scale.float()).to(x2.dtype)
+def int8_weight_only_matmul_plain(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
+                                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version of B1: (x @ float(W)) * scale, fp32 sum, in ``out_dtype``
+    (x's dtype by default; fp32: the fp32-output mode, unrounded)."""
+    return (torch.matmul(x2.float(), w8.float()) * scale.float()).to(out_dtype or x2.dtype)
 
 
-def int8_weight_only_matmul(x2: torch.Tensor, w8: torch.Tensor,
-                            scale: torch.Tensor) -> torch.Tensor:
-    """x2 (M, K) @ int8 W (K, N) * scale (N,) -> (M, N) in x2's dtype.
+def int8_weight_only_matmul(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
+                            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x2 (M, K) @ int8 W (K, N) * scale (N,) -> (M, N) in ``out_dtype`` (x2's
+    dtype by default; ``torch.float32`` is the fp32-output mode, the sum x
+    scale unrounded).
 
     A CPU tensor takes the plain version; a CUDA tensor launches kernel B1
     (bf16 x, M <= SMALL_M) or raises.  One launch and one allocation (the
     output) a call."""
     if not x2.is_cuda:
-        return int8_weight_only_matmul_plain(x2, w8, scale)
+        return int8_weight_only_matmul_plain(x2, w8, scale, out_dtype)
     # every check runs at every projection of every decode step: each is a
     # comparison, and its message is built only when it fails
     m, k = x2.shape
@@ -104,10 +121,14 @@ def int8_weight_only_matmul(x2: torch.Tensor, w8: torch.Tensor,
         raise ValueError("int8_matmul kernel takes contiguous tensors")
     if w8.data_ptr() % 16:
         raise ValueError("weight must be 16-byte aligned")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    err = _cuda.library().myriad_int8_matmul(x2.data_ptr(), w8.data_ptr(), scale.data_ptr(),
-                                             out.data_ptr(), m, k, n,
-                                             _cuda.stream_ptr(x2.device))
+    f32 = out_dtype == torch.float32
+    if not f32 and out_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"int8_matmul kernel writes bf16 or fp32, not {out_dtype}")
+    lib = _cuda.library()
+    out = torch.empty((m, n), dtype=torch.float32 if f32 else torch.bfloat16, device=x2.device)
+    err = (lib.myriad_int8_matmul_f32 if f32 else lib.myriad_int8_matmul)(
+        x2.data_ptr(), w8.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n,
+        _cuda.stream_ptr(x2.device))
     _cuda.check(err, "int8_matmul")
     counter.count += 1
     return out
@@ -140,6 +161,12 @@ def _int8_forward(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
     return w8a8_matmul(x2.float(), w8, scale)
 
 
+def _no_gradient(x: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("a row-parallel product under autograd: tensor-parallel "
+                                  "training is not ported (the next slice)")
+
+
 class StraightThroughInt8(torch.autograd.Function):
     """An int8 product with the JAX package's straight-through derivative
     (``_w8a8_matmul`` and ``_int8_pallas_matmul``'s custom JVPs): the forward
@@ -164,13 +191,24 @@ class StraightThroughInt8(torch.autograd.Function):
 
 
 def int8_matmul(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, *,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None, mesh=None) -> torch.Tensor:
     """x (..., in) @ int8 w (in, out) * scale (out,) -> (..., out);
-    differentiable in x by the straight-through rule."""
+    differentiable in x by the straight-through rule.  With ``mesh``, a
+    row-parallel shard: x and w hold this rank's input features, and the
+    result is summed over the model group (B1's fp32 partials, or W8A8's
+    amax and int32 sums) before its one rounding to ``out_dtype``."""
     out_dtype = out_dtype or x.dtype
     lead, d = x.shape[:-1], x.shape[-1]
     f = w8.shape[1]
     x2 = x.reshape(-1, d)
+    if mesh is not None:
+        _no_gradient(x2)
+        if takes_kernel(x2):
+            y = mesh.all_reduce_(int8_weight_only_matmul(x2.contiguous(), w8, scale,
+                                                         out_dtype=torch.float32))
+        else:
+            y = w8a8_matmul(x2.float(), w8, scale, mesh=mesh)
+        return y.to(out_dtype).reshape(*lead, f)
     if torch.is_grad_enabled() and x2.requires_grad:
         y = StraightThroughInt8.apply(x2, w8, scale, takes_kernel(x2))
     else:
@@ -220,29 +258,30 @@ def dequant_int4(packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (q.reshape(-1, g, f) * scale[:, None, :].float()).reshape(d, f)
 
 
-def int4_weight_only_matmul_plain(x2: torch.Tensor, w4: torch.Tensor,
-                                  scale4: torch.Tensor) -> torch.Tensor:
+def int4_weight_only_matmul_plain(x2: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor,
+                                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version of B5, the TPU kernel's arithmetic: each nibble and its
     group scale go to bf16, their product is rounded to bf16 (the scale
     applies before the dot), and x @ that weight sums in fp32; the result
-    is in x's dtype."""
+    is in ``out_dtype`` (x's dtype by default; fp32: unrounded)."""
     q = unpack_int4(w4).to(torch.bfloat16)
     d, f = q.shape
     groups = scale4.shape[0]
     w = (q.reshape(groups, d // groups, f) * scale4.to(torch.bfloat16)[:, None, :])
-    return torch.matmul(x2.float(), w.reshape(d, f).float()).to(x2.dtype)
+    return torch.matmul(x2.float(), w.reshape(d, f).float()).to(out_dtype or x2.dtype)
 
 
-def int4_weight_only_matmul(x2: torch.Tensor, w4: torch.Tensor,
-                            scale4: torch.Tensor) -> torch.Tensor:
+def int4_weight_only_matmul(x2: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor,
+                            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x2 (M, K) @ int4 W (K/2, N) with group scales (K/g, N) -> (M, N) in
-    x2's dtype.
+    ``out_dtype`` (x2's dtype by default; ``torch.float32`` is the
+    fp32-output mode, the sum unrounded).
 
     A CPU tensor takes the plain version; a CUDA tensor launches kernel B5
     (bf16 x, M <= SMALL_M) or raises.  One launch and one allocation (the
     output) a call."""
     if not x2.is_cuda:
-        return int4_weight_only_matmul_plain(x2, w4, scale4)
+        return int4_weight_only_matmul_plain(x2, w4, scale4, out_dtype)
     # every check runs at every projection of every decode step: each is a
     # comparison, and its message is built only when it fails
     m, k = x2.shape
@@ -267,10 +306,14 @@ def int4_weight_only_matmul(x2: torch.Tensor, w4: torch.Tensor,
         raise ValueError("int4_matmul kernel takes contiguous tensors")
     if (w4.data_ptr() | scale4.data_ptr()) % 16 or x2.data_ptr() % 4:
         raise ValueError("weight and scale4 must be 16-byte aligned, x 4-byte aligned")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    err = _cuda.library().myriad_int4_matmul(x2.data_ptr(), w4.data_ptr(), scale4.data_ptr(),
-                                             out.data_ptr(), m, k, n, k // groups,
-                                             _cuda.stream_ptr(x2.device))
+    f32 = out_dtype == torch.float32
+    if not f32 and out_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"int4_matmul kernel writes bf16 or fp32, not {out_dtype}")
+    lib = _cuda.library()
+    out = torch.empty((m, n), dtype=torch.float32 if f32 else torch.bfloat16, device=x2.device)
+    err = (lib.myriad_int4_matmul_f32 if f32 else lib.myriad_int4_matmul)(
+        x2.data_ptr(), w4.data_ptr(), scale4.data_ptr(), out.data_ptr(), m, k, n, k // groups,
+        _cuda.stream_ptr(x2.device))
     _cuda.check(err, "int4_matmul")
     counter4.count += 1
     return out
@@ -288,17 +331,21 @@ def int4_launch(m: int, k: int, n: int, group: int) -> dict:
     return {"splits": out[0], "tiles": out[1], "smem": out[2], "clusters": out[3]}
 
 
-def requantize_int4_to_int8(w4: torch.Tensor,
-                            scale4: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def requantize_int4_to_int8(w4: torch.Tensor, scale4: torch.Tensor,
+                            s_col: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The int4 groups as per-column int8 (error <= the plain int8 path's):
     (w8 (in, out) int8, s_col (out,) fp32), as the JAX package computes them
     for its W8A8 route.  Its ``(max(scale) * 8) / 127`` is taken in the
     form its compiler gives it inside the jitted model, one multiply by
-    fp32(8 / 127), which can differ from the two steps in the last bit."""
+    fp32(8 / 127), which can differ from the two steps in the last bit.
+    ``s_col`` given (a row shard's: the whole weight's column scales) is
+    used as it is."""
     q = unpack_int4(w4)
     d, f = q.shape
     groups = scale4.shape[0]
-    s_col = torch.clamp_min(scale4.amax(dim=0) * (8.0 / 127.0), 1e-8)
+    if s_col is None:
+        s_col = torch.clamp_min(scale4.amax(dim=0) * (8.0 / 127.0), 1e-8)
     ratio = scale4 / s_col[None, :]
     w8 = torch.clamp(torch.round(q.reshape(groups, d // groups, f).float() * ratio[:, None, :]),
                      -127, 127).to(torch.int8).reshape(d, f)
@@ -306,12 +353,18 @@ def requantize_int4_to_int8(w4: torch.Tensor,
 
 
 def int4_matmul(x: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor, *,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None, mesh=None) -> torch.Tensor:
     """x (..., in) @ int4-packed w (in/2, out) with group scales (in/g, out)
     -> (..., out).  Rows <= SMALL_M on the card take kernel B5; more rows,
     and every row count on the CPU, requantize to per-column int8 (at each
     call: no int8 copy is kept) and take W8A8.  No gradient: an x that
-    requires one raises."""
+    requires one raises.
+
+    With ``mesh``, a row-parallel shard: x and w4 hold this rank's input
+    features (whole groups), ``scale4`` is the whole weight's (the rules
+    replicate it), and the result is summed over the model group before its
+    one rounding (B5's fp32 partials; W8A8 over the whole weight's column
+    scales, the amax and int32 sums reduced)."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise NotImplementedError("llm_weight_dtype=int4 under training: a gradient through "
                                   "int4 weights is not ported (B5 has no derivative in the "
@@ -320,11 +373,31 @@ def int4_matmul(x: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor, *,
     lead, d = x.shape[:-1], x.shape[-1]
     f = w4.shape[1]
     x2 = x.reshape(-1, d)
-    if takes_kernel(x2):
+    if mesh is not None:
+        local = int4_row_groups(scale4, mesh)
+        if takes_kernel(x2):
+            y = mesh.all_reduce_(int4_weight_only_matmul(x2.contiguous(), w4, local,
+                                                         out_dtype=torch.float32))
+        else:
+            s_col = torch.clamp_min(scale4.amax(dim=0) * (8.0 / 127.0), 1e-8)
+            y = w8a8_matmul(x2.float(), *requantize_int4_to_int8(w4, local, s_col), mesh=mesh)
+    elif takes_kernel(x2):
         y = int4_weight_only_matmul(x2.contiguous(), w4, scale4)
     else:
         y = w8a8_matmul(x2.float(), *requantize_int4_to_int8(w4, scale4))
     return y.to(out_dtype).reshape(*lead, f)
+
+
+def int4_row_groups(scale4: torch.Tensor, mesh) -> torch.Tensor:
+    """The rows of a whole weight's ``scale4`` (groups, out) that this rank's
+    row shard covers (a contiguous view); raises where the shard would split
+    a group."""
+    groups, n = scale4.shape[0], mesh.n_model
+    if groups % n:
+        raise NotImplementedError(
+            f"int4 row shard: {groups} groups of the weight's scale4 {tuple(scale4.shape)} "
+            f"over {n} ranks split a group; int4 row shards that split a group are not ported")
+    return scale4.narrow(0, mesh.model_rank * (groups // n), groups // n)
 
 
 # ---------------------------------------------------------------------------

@@ -37,10 +37,18 @@ JAX engine's, decision for decision (``stats`` included), for the same
 schedule (tests/test_torch_serving.py).  The engine is greedy-only, as the
 JAX one is.
 
-Not ported: the JAX engine's block KV layout (``block_size > 0``), the
-device mesh and donation.  The block layout exists because XLA rewrites the
-whole pool on a per-row write; kernel B4 writes per row in place.  One card
-holds the model, so the cache is not sharded.
+Across ranks (``mesh=``, a ``parallel.mesh.Mesh`` of n_model > 1, as the
+JAX engine's ``mesh`` shards its pool over heads): the model is this rank's
+shard (a whole model given with the mesh is sharded here), the KV pool and
+its int8 per-position scales hold the rank's heads, and kernel B4 writes
+each row in place on them.  Slot and state vectors are whole on every rank,
+and every scheduling decision is taken from bits that are equal on every
+rank (the gathered logits' argmax, the prompts' lengths, the queue), never
+from a clock: the ranks run one schedule in lock step.
+
+Not ported: the JAX engine's block KV layout (``block_size > 0``) and
+donation.  The block layout exists because XLA rewrites the whole pool on a
+per-row write; kernel B4 writes per row in place.
 """
 
 from __future__ import annotations
@@ -135,6 +143,8 @@ class ServingEngine:
       max_queued_device_bytes: cap on the prompt bytes the queue holds on
         the device (see ``submit_group``).
       block_size: must be 0: the JAX engine's block KV layout is not ported.
+      mesh: serve across the mesh's model group: ``model`` is a shard built
+        with this mesh, or a whole model, which is sharded here.
     """
 
     def __init__(
@@ -152,6 +162,7 @@ class ServingEngine:
         lookup_ids=None,
         max_queued_device_bytes: int = 512 << 20,
         block_size: int = 0,
+        mesh=None,
     ):
         if block_size:
             raise NotImplementedError(
@@ -159,7 +170,13 @@ class ServingEngine:
                 "because XLA rewrites the whole pool on a per-row cache write; kernel B4 "
                 "writes per row in place, so the port serves per-row frontiers "
                 "(block_size=0)")
+        if mesh is not None and mesh.sharded:
+            if getattr(model, "mesh", None) is None:
+                model = model.sharded(mesh)
+            elif model.mesh is not mesh:
+                raise ValueError("the model is a shard of another mesh")
         self.model = model
+        self.mesh = getattr(model, "mesh", None)
         self.device = model.lm_head.device
         self.slots = int(slots)
         self.bucket = int(bucket)

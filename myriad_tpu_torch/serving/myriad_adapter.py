@@ -7,7 +7,8 @@ and the prompt wrap: the chain ``Myriad.generate`` runs) and streams them throug
 the model's Vicuna decoder.  Where ``Myriad.generate`` serves one fixed
 batch a call, this front end serves an endpoint: requests arrive at any
 time, admit into free KV slots and finish independently.  It runs on the
-model's device.
+model's device; on a sharded model (``Myriad.shard``) every rank of the
+model group runs it in lock step over the same requests.
 """
 
 from __future__ import annotations
@@ -77,7 +78,7 @@ class MyriadServing:
             raise ValueError(f"prompt of {t} tokens exceeds the largest admission width "
                              f"{ladder[-1]}")
         emb = m.module.prefill_embeds(image, maps, before, after, self.stage,
-                                      add_bos=m.bos_at_generate)
+                                      add_bos=m.bos_at_generate, mesh=m.mesh)
         if emb.shape[1] != t:
             raise RuntimeError(f"prefill_embeds gave {emb.shape[1]} positions, not {t}")
         return torch.nn.functional.pad(emb, (0, 0, 0, width - t)), t

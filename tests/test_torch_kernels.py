@@ -841,3 +841,85 @@ def test_serving_engine_on_the_card(dev, spec_k):
     again = run()
     assert all(torch.equal(torch.from_numpy(first[i]), torch.from_numpy(again[i]))
                for i in first)
+
+
+# -- the fp32-output mode of B1 and B5 (row-parallel shards) ------------------------
+# Vicuna-7B's projections cut over 2 and 4 ranks: the row-parallel shapes
+# (o: 2048 / 1024 -> 4096, down: 5504 / 2752 -> 4096) write fp32 partials;
+# the column-parallel ones (q/k/v 4096 -> 2048 / 1024, gate/up 4096 -> 5504 /
+# 2752) keep the bf16 mode.
+ROW_SHAPES = [(2048, 4096), (1024, 4096), (5504, 4096), (2752, 4096)]
+COLUMN_SHAPES = [(4096, 2048), (4096, 1024), (4096, 5504), (4096, 2752)]
+
+
+def _abs_sum(x, w, scale=None):
+    """|x| @ |W| (x |scale|): the scale of an fp32 sum's rounding error."""
+    out = x.abs().float() @ w.abs().float()
+    return out if scale is None else out * scale.abs()
+
+
+@pytest.mark.parametrize("k,n", ROW_SHAPES + COLUMN_SHAPES)
+@pytest.mark.parametrize("m", [8, 32])
+def test_int8_matmul_fp32_out_matches_plain(dev, m, k, n):
+    """The fp32-output mode against the plain version's fp32 (x @ W) x scale:
+    the same products, fp32 sums in another order (2^-14 of the sum of
+    |terms|); its bf16 rounding is the bf16 mode's output bit for bit (one
+    body, one value, one rounding)."""
+    w8, scale = _int8_weight(k, n)
+    x = torch.randn(m, k, generator=torch.Generator(device=dev).manual_seed(m), device=dev)
+    x = x.to(torch.bfloat16)
+    before = quant.counter.count
+    out = quant.int8_weight_only_matmul(x, w8, scale, out_dtype=torch.float32)
+    assert quant.counter.count == before + 1
+    ref = quant.int8_weight_only_matmul_plain(x, w8, scale, out_dtype=torch.float32)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    tol = 2.0 ** -14 * _abs_sum(x, w8, scale).max().item()
+    assert (out - ref).abs().max().item() <= tol
+    assert torch.equal(out.to(torch.bfloat16), quant.int8_weight_only_matmul(x, w8, scale))
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("k", [4096, 11008])
+def test_int8_matmul_fp32_partials_sum_to_the_whole(dev, k, ranks):
+    """A row-parallel projection's shards: the fp32 partials of every
+    rank's rows, summed, give the unsharded fp32 product up to the sums'
+    order, and one rounding of that sum is the unsharded bf16 output but
+    where the order moves a value across a rounding boundary."""
+    w8, scale = _int8_weight(k, 4096)
+    x = torch.randn(8, k, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    x = x.to(torch.bfloat16)
+    w = k // ranks
+    parts = [quant.int8_weight_only_matmul(x[:, r * w:(r + 1) * w].contiguous(),
+                                           w8[r * w:(r + 1) * w].contiguous(), scale,
+                                           out_dtype=torch.float32) for r in range(ranks)]
+    whole = quant.int8_weight_only_matmul(x, w8, scale, out_dtype=torch.float32)
+    total = functools.reduce(torch.add, parts)
+    assert (total - whole).abs().max().item() <= 2.0 ** -14 * _abs_sum(x, w8, scale).max().item()
+    same = (total.to(torch.bfloat16) == whole.to(torch.bfloat16)).float().mean().item()
+    assert same >= 0.99
+
+
+@pytest.mark.parametrize("k,n", [(2048, 4096), (5504, 4096), (4096, 2048), (4096, 5504)])
+@pytest.mark.parametrize("m", [8, 32])
+def test_int4_matmul_fp32_out_matches_plain(dev, m, k, n):
+    """B5's fp32-output mode at the two-rank shapes (5504 = 43 groups of
+    128): against the plain version's fp32 sum, and its bf16 rounding equal
+    to the bf16 mode's output bit for bit."""
+    w4, s4 = _int4_weight(k, n)
+    x = torch.randn(m, k, generator=torch.Generator(device=dev).manual_seed(m), device=dev)
+    x = x.to(torch.bfloat16)
+    before = quant.counter4.count
+    out = quant.int4_weight_only_matmul(x, w4, s4, out_dtype=torch.float32)
+    assert quant.counter4.count == before + 1
+    ref = quant.int4_weight_only_matmul_plain(x, w4, s4, out_dtype=torch.float32)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    tol = 2.0 ** -14 * _abs_sum(x, quant.dequant_int4(w4, s4)).max().item()
+    assert (out - ref).abs().max().item() <= tol
+    assert torch.equal(out.to(torch.bfloat16), quant.int4_weight_only_matmul(x, w4, s4))
+
+
+def test_fp32_out_refuses_other_dtypes(dev):
+    w8, scale = _int8_weight(4096, 4096)
+    x = torch.zeros(8, 4096, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        quant.int8_weight_only_matmul(x, w8, scale, out_dtype=torch.float16)

@@ -607,6 +607,8 @@ def test_port_sources_reach_nothing_of_the_jax_package():
     assert Path(REPO, "myriad_tpu_torch", "tools", "convert_weights.py") in files
     assert Path(REPO, "myriad_tpu_torch", "convert", "networks.py") in files
     assert Path(REPO, "myriad_tpu_torch", "orbax_format", "ocdbt.py") in files
+    assert Path(REPO, "myriad_tpu_torch", "parallel", "partition.py") in files
+    assert Path(REPO, "myriad_tpu_torch", "parallel", "mesh.py") in files
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
