@@ -230,6 +230,28 @@ Phases, each printing its own lines:
    N = 2 also the int4 LLaMA (B5, never B1).  Phase 2 holds B1-B5 at the
    shards' shapes (n = 2 and 4; B1's and B5's row-parallel shapes in the
    fp32-output mode).
+18. after phase 17: tensor-parallel training.  Two ranks on card 0 (this
+   script with ``--tptrain-rank``, ``torchrun``'s environment, gloo on CUDA
+   tensors, a 60-s timeout on every collective) first hold ``Mesh``'s
+   autograd collectives (``copy_to_model``, ``reduce_from_model``,
+   ``gather_from_model``, ``broadcast_from_lead``) on the card's tensors to
+   their definitions, forward and backward.  Then ``train.build`` with
+   ``run.model_shards=2`` (the LoRA config at full width over phase 10's
+   tree, random weights from --seed, the LLaMA at 4 of 32 layers and EVA at
+   4 of 39 blocks, 4 samples a step): 2 steps with bf16 LLM weights, then 1
+   with int8 weights.  Rank 0 builds the same model whole as the oracle (and
+   its fp32 twin): the global loss within ``TPT_LOSS_TOL`` of the one-rank
+   step's on the same arrays, the gradients within ``TPT_GRAD_TOL``
+   (relative L2, all trainables together and each; over it only where the
+   one-rank bf16 step is itself that far from its fp32 twin, and then
+   within twice that distance of the fp32 gradient); the prepared arrays, the replicated
+   trainables after every step and every frozen tensor bit-identical, every
+   shard the slice of the whole weights; the ring written whole once by
+   rank 0, resumed re-sharded by both ranks and whole by one process bit
+   for bit; no kernel B1-B7 launched.  It prints the collectives a step by
+   kind with their host time, seconds a step a rank beside the one-rank
+   step's, and peak memory a rank.  ``--tp-cards N`` runs it after phase 17
+   over N cards (NCCL) at the full 32 layers, data N / 2 x model 2.
 
 With ``--parent DIR`` (a checkout of another tree, such as the parent
 commit's), phase 1 also builds DIR's kernels, compares their SASS with this
@@ -4705,6 +4727,450 @@ def tp_slice(dev, seed, checks, card, world=TP_WORLD):
     return ranks
 
 
+# phase 18: tensor-parallel training: the LLaMA sharded over the ranks of a model group
+TPT_LLAMA_LAYERS = 4  # of Vicuna-7B's 32 (two ranks' models and the oracle on one card)
+TPT_VIT_BLOCKS = 4  # of EVA-ViT-g's 39: the towers are whole, on the group's first rank
+TPT_STEPS = 2  # bf16 LLM steps, then one step with int8 LLM weights
+TPT_MODEL = 2  # the model axis: data N / 2 x model 2 under --tp-cards N
+# the sharded step against the one-rank step on the same arrays: the global loss
+# (relative) and each trainable's gradient (relative L2, phase 16's bound).  The
+# row-parallel sums take fp32 partials where the one-rank model rounds a bf16
+# product, and the vocabulary-split head gathers fp32 logits
+TPT_LOSS_TOL = 2e-3
+TPT_GRAD_TOL = 1e-2
+TPT_RANK_WALL_S = 420
+TPT_RANK_COMMAND = [sys.executable, os.path.abspath(__file__)]
+TPT_OPTIONS = []  # --options appended to the ranks' builds (a rehearsal's)
+
+
+def tptrain_argv(seed, out_dir, weights, steps):
+    """``train.build``'s argv for phase 18: the LoRA config over phase 10's
+    tree with ``run.model_shards``, 2 images and their 2 NSA twins a step a
+    data group, in order, one epoch of ``steps``, ``weights`` LLM weights, a
+    ring of 1."""
+    root = os.path.join(REPO, "build", "train_data")
+    return ["--cfg-path", os.path.join(REPO, TRAIN_CONFIG), "--options",
+            f"datasets.anomaly_detection.build_info.storage={root}",
+            f"datasets.anomaly_detection.seed={seed}", f"model.seed={seed}",
+            "run.max_epoch=1", f"run.iters_per_epoch={steps}", "run.max_checkpoints=1",
+            "run.num_workers=2", "run.shuffle_train=False",
+            f"run.batch_size_train={TRAIN_SAMPLES_PER_STEP}", f"run.output_dir={out_dir}",
+            f"run.model_shards={TPT_MODEL}", f"model.llm_weight_dtype={weights}", *TPT_OPTIONS]
+
+
+def one_rank_model(runner, dev):
+    """The runner's model built whole on ``dev`` from its config and seed, the
+    vision expert left out (it draws its weights after the module's, so the
+    module's are the sharded model's whole weights)."""
+    from myriad_tpu_torch.models.layers import Policy
+    from myriad_tpu_torch.models.myriad import Myriad, policy_from_config
+
+    cfg = dict(runner.config.model_cfg, use_ve=False)
+    model = Myriad.from_config(cfg, device=dev, policy=policy_from_config(cfg) or Policy.bf16(),
+                               training=True)
+    model.init_random(cfg.get("seed", 0))
+    return model
+
+
+def autograd_collective_checks(mesh, dev):
+    """Each of ``Mesh``'s autograd collectives on ``dev``'s tensors, forward and
+    backward, against its definition (n ranks, this rank r)."""
+    import torch
+
+    n, r = mesh.n_model, mesh.model_rank
+    ok = {}
+    x = torch.full((4, 8), float(r + 1), device=dev, requires_grad=True)
+    (mesh.copy_to_model(x) * (r + 1)).sum().backward()
+    ok["copy_to_model"] = bool(torch.all(x.grad == n * (n + 1) / 2))
+    x = torch.full((4, 8), float(r + 1), device=dev, requires_grad=True)
+    y = mesh.reduce_from_model(x)
+    (y * 5.0).sum().backward()
+    ok["reduce_from_model"] = bool(torch.all(y == n * (n + 1) / 2) and torch.all(x.grad == 5.0))
+    x = torch.full((4, 8), float(r), device=dev, requires_grad=True)
+    y = mesh.gather_from_model(x)
+    v = torch.arange(4 * 8 * n, dtype=torch.float32, device=dev).reshape(4, 8 * n)
+    (y * v).sum().backward()
+    want = torch.arange(n, dtype=torch.float32, device=dev).repeat_interleave(8).expand(4, -1)
+    ok["gather_from_model"] = bool(torch.equal(y, want)
+                                   and torch.equal(x.grad, v[:, 8 * r:8 * r + 8]))
+    x = torch.full((4, 8), float(r + 7), device=dev, requires_grad=(r == 0))
+    y = mesh.broadcast_from_lead(x)
+    if r == 0:
+        (y * 3.0).sum().backward()
+    ok["broadcast_from_lead"] = bool(torch.all(y == 7.0) and (r != 0 or torch.all(x.grad == 3.0)))
+    return ok
+
+
+def one_rank_grads(model, parts, static, schedule):
+    """(loss, every trainable's gradient by name) of one unsharded step of
+    ``model`` over the rows of ``parts`` (each data group's arrays, one
+    forward and backward each: the global token mean, as the ranks take it);
+    with a ``schedule``, then one AdamW step (the one-rank step's optimizer,
+    for its time)."""
+    import torch
+
+    from myriad_tpu_torch.common.optim import AdamW
+
+    params = dict(model.trainable_parameters())
+    for p in params.values():
+        p.grad = None
+    count = sum(int(part["text_mask"].sum()) for part in parts)
+    loss = 0.0
+    for part in parts:
+        total, _ = model.train_nll(part, static)
+        (total / count).backward()
+        loss += float(total.detach()) / count
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone()
+             for n, p in params.items()}
+    if schedule is not None:
+        AdamW(list(params.items()), schedule).step()
+    model.module.zero_grad(set_to_none=True)
+    return loss, grads
+
+
+def fp32_twin(model, dev):
+    """``model``'s weights in a model that computes in fp32 (the float tensors
+    raised to fp32, exactly; the int8 ones as they are), each LLaMA layer
+    and EVA block recomputed in the backward (its memory)."""
+    import torch
+
+    from myriad_tpu_torch.models.layers import Policy
+    from myriad_tpu_torch.models.myriad import Myriad
+
+    twin = Myriad(model.arch, policy=Policy.fp32(), device=dev, use_lora=model.use_lora,
+                  use_ve=False, max_txt_len=model.max_txt_len, end_sym=model.end_sym,
+                  training=True, train_add_bos=model.train_add_bos, use_grad_checkpoint=True)
+    src = model.module.state_dict()
+    dst = twin.module.state_dict()
+    check(set(src) == set(dst), "the fp32 twin's state differs from the model's")
+    with torch.no_grad():
+        for k, t in dst.items():  # one tensor at a time: no second fp32 copy
+            t.copy_(src[k])
+    return twin
+
+
+def tptrain_rank(out_dir, seed) -> int:
+    """One rank of phase 18 (run as ``chip_smoke.py --tptrain-rank DIR``, the
+    launcher's environment set by ``tptrain_slice``): the autograd
+    collectives on the card's tensors, then ``train.build`` with
+    ``run.model_shards`` (the LoRA config at full width, the LLaMA cut to
+    ``TPT_LAYERS`` layers): ``TPT_STEPS`` steps with bf16 LLM weights, then
+    one with int8 weights, each held to the one-rank model on the group's
+    first rank; the ring resumed.  The results as ``DIR/rank{RANK}.json``."""
+    import datetime
+    import gc
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from myriad_tpu_torch import train
+    from myriad_tpu_torch.common import dist
+    from myriad_tpu_torch.parallel import partition
+    from myriad_tpu_torch.parallel.mesh import make_mesh
+
+    counters = _kernel_counters()
+    layers = int(os.environ.get("TPT_LAYERS", TPT_LLAMA_LAYERS))
+    world = dist.launched_world()
+    # the probes' own mesh (its counts apart from the runner's); joins the group
+    probe = make_mesh(TPT_MODEL, device=TP_DEVICE,
+                      timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    rank, dev = dist.get_rank(), probe.device
+    lead = probe.model_rank == 0
+    res = {"rank": rank, "world": world, "backend": probe.backend, "device": str(dev),
+           "model_rank": probe.model_rank, "data_rank": probe.data_rank,
+           "autograd": autograd_collective_checks(probe, dev), "layers": layers}
+
+    def gathered(values):
+        """Every rank's list of ints (the world's, in rank order)."""
+        t = torch.tensor(values, dtype=torch.float64, device=dev)
+        parts = [torch.zeros_like(t) for _ in range(world)]
+        if probe.backend == "nccl":
+            torch.distributed.all_gather(parts, t)
+        else:  # gloo gathers no CUDA tensor: a zero-padded sum
+            buf = torch.zeros((world,) + tuple(t.shape), dtype=t.dtype, device=dev)
+            buf[rank] = t
+            torch.distributed.all_reduce(buf)
+            parts = list(buf)
+        return [p.tolist() for p in parts]
+
+    def data_parts(arrays):
+        """Every data group's ``arrays``, in data rank order (``arrays`` alone
+        over one data group); the prompt pieces are the same everywhere."""
+        if probe.n_data == 1:
+            return [arrays]
+        parts = [dict(arrays) for _ in range(probe.n_data)]
+        for k, t in arrays.items():
+            t = t.contiguous()
+            if probe.backend == "nccl":
+                pieces = [torch.empty_like(t) for _ in range(probe.n_data)]
+                torch.distributed.all_gather(pieces, t, group=probe.data_group)
+            else:  # gloo gathers no CUDA tensor: a zero-padded sum
+                buf = torch.zeros((probe.n_data,) + tuple(t.shape), dtype=t.dtype,
+                                  device=t.device)
+                buf[probe.data_rank] = t
+                torch.distributed.all_reduce(buf, group=probe.data_group)
+                pieces = list(buf)
+            for part, piece in zip(parts, pieces):
+                part[k] = piece
+        check(all(torch.equal(p[k], arrays[k]) for p in parts for k in ("before", "after")),
+              "the data groups' prompt pieces differ")
+        return parts
+
+    for weights, steps in (("bf16", TPT_STEPS), ("int8", 1)):
+        t0 = time.time()
+        argv = tptrain_argv(seed, os.path.join(out_dir, weights), weights, steps)
+        with cut_depth(layers=layers, blocks=TPT_VIT_BLOCKS):
+            runner = train.build(argv)
+            whole = one_rank_model(runner, dev)
+        model, mesh = runner.model, runner.mesh
+        r = res.setdefault(weights, {"build_s": time.time() - t0})
+        check(mesh is model.mesh and mesh.n_model == TPT_MODEL, "the runner's mesh")
+        # each frozen and trainable shard is the slice of the whole weights
+        full, mine = whole.module.llama.state_dict(), model.module.llama.state_dict()
+        bad = [k for k, v in mine.items()
+               if not torch.equal(v, _megatron_slice(k, full[k], probe.model_rank, TPT_MODEL))]
+        check(not bad, f"rank {rank}: shards that are not the slice of the whole weights: "
+              f"{bad[:4]}")
+        trainable = dict(model.trainable_parameters())
+        frozen = [t for n, t in model.module.state_dict().items() if n not in trainable]
+        if model.vision_expert is not None:
+            frozen += list(model.vision_expert.module.state_dict().values())
+        frozen_before = _digest(frozen)
+        del full, mine
+        if not lead:
+            whole = None
+            torch.cuda.empty_cache()
+        names = list(trainable)
+        r.update(trainables=len(names), shards=sorted(model.split_dims),
+                 shard_numel=sum(trainable[n].numel() for n in model.split_dims),
+                 trainable_numel=sum(p.numel() for p in trainable.values()))
+
+        kept, per_step, extra = [], [], []
+        prepare, opt_step, iterate = runner._prepare, runner.optimizer.step, runner.train_iteration
+
+        def kept_prepare(samples, rng):
+            out = prepare(samples, rng)
+            kept.append(out)
+            return out
+
+        def probed_step():
+            t = time.perf_counter()
+            if len(per_step) == 0:  # before the first update: the one-rank step
+                arrays, static = kept[0]
+                dg = gathered(_digest([arrays[k] for k in sorted(arrays)]))
+                # the one-rank step takes every data group's rows
+                parts = data_parts(arrays)
+                grads = partition.gather_state(
+                    {n: p.grad for n, p in model.trainable_parameters()}, probe,
+                    model.split_dims)
+                if lead:
+                    # the one-rank model in fp32 (the same weights): the
+                    # gradients' own bf16 error, where the step is ill-conditioned
+                    f32 = fp32_twin(whole, dev)
+                    _, true = one_rank_grads(f32, parts, static, None)
+                    del f32
+                    torch.cuda.empty_cache()
+                    _sync(dev)
+                    t1 = time.perf_counter()
+                    loss, one = one_rank_grads(whole, parts, static, runner.schedule)
+                    _sync(dev)
+                    one_s = time.perf_counter() - t1
+                    rows = []
+                    for n in names:
+                        if float(one[n].norm()) == 0:
+                            check(float(grads[n].norm()) == 0, f"{n}: a gradient where the "
+                                  "one-rank step has none")
+                            continue
+                        rows.append((n, _rel_l2([grads[n]], [one[n]]),
+                                     _rel_l2([grads[n]], [true[n]]),
+                                     _rel_l2([one[n]], [true[n]])))
+                    rows.sort(key=lambda x: -x[1])
+                    kept_names = [x[0] for x in rows]
+                    every = [[grads[n] for n in kept_names], [one[n] for n in kept_names],
+                             [true[n] for n in kept_names]]
+                    r.update(oracle_loss=float(loss), grad_rows=rows[:6],
+                             grad_over=[x for x in rows if x[1] > TPT_GRAD_TOL],
+                             grad_all=("all trainables", _rel_l2(every[0], every[1]),
+                                       _rel_l2(every[0], every[2]),
+                                       _rel_l2(every[1], every[2])),
+                             grads_compared=len(rows), one_rank_step_s=one_s,
+                             arrays_identical=all(d == dg[i // TPT_MODEL * TPT_MODEL]
+                                                  for i, d in enumerate(dg)))
+                    del one, true
+            extra.append(time.perf_counter() - t)
+            ok = opt_step()
+            t = time.perf_counter()
+            rep = [p.detach() for n, p in model.trainable_parameters()
+                   if n not in model.split_dims]
+            dg = gathered(_digest(rep))
+            r.setdefault("replicated_identical", []).append(all(d == dg[0] for d in dg))
+            extra[-1] += time.perf_counter() - t
+            return ok
+
+        def counted_iteration(samples, rng):
+            mesh.reset()
+            _sync(dev)
+            t = time.perf_counter()
+            out = iterate(samples, rng)
+            _sync(dev)
+            per_step.append((time.perf_counter() - t - extra[-1], dict(mesh.calls),
+                             dict(mesh.times)))
+            return out
+
+        runner._prepare, runner.optimizer.step = kept_prepare, probed_step
+        runner.train_iteration = counted_iteration
+        for c in counters.values():
+            c.count = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        runner.train()
+        r["launches"] = {name: c.count for name, c in counters.items()}
+        r["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        runner._prepare, runner.optimizer.step = prepare, opt_step
+        del runner.train_iteration
+        r.update(losses=runner.losses, steps=per_step,
+                 frozen_identical=_digest(frozen) == frozen_before,
+                 loss_finite=bool(np.all(np.isfinite(runner.losses))))
+
+        # the ring: written whole by rank 0; resumed re-sharded on every rank
+        ring = os.path.join(runner.output_dir, "checkpoint_0")
+        saved = {n: p.detach().clone() for n, p in trainable.items()}
+        moments = {key: [t.clone() for t in getattr(runner.optimizer, key)]
+                   for key in ("mu", "nu")}
+        gathered_whole = runner._whole(saved)
+        with torch.no_grad():
+            for p in trainable.values():
+                p.zero_()
+        runner.run_cfg.resume_ckpt_path = ring
+        back = type(runner)(cfg=runner.config, task=runner.task, model=model,
+                            datasets=runner.datasets, job_id="resumed")
+        r.update(ring=sorted(os.listdir(runner.output_dir)), ckpt=ring,
+                 restored=all(torch.equal(p.detach(), saved[n]) for n, p in trainable.items()),
+                 moments=all(torch.equal(a, b) for key in ("mu", "nu")
+                             for a, b in zip(moments[key], getattr(back.optimizer, key))),
+                 resumed=[back.start_epoch, back.global_step, back.optimizer.count])
+        if lead and rank == 0:  # one process resumes it whole
+            runner.run_cfg.model_shards = 1
+            one = type(runner)(cfg=runner.config, task=runner.task, model=whole,
+                               datasets={}, job_id="resumed_whole")
+            runner.run_cfg.model_shards = TPT_MODEL
+            r["whole_restored"] = all(torch.equal(p.detach(), gathered_whole[n])
+                                      for n, p in whole.trainable_parameters())
+            del one
+        runner.run_cfg.resume_ckpt_path = None
+        del runner, back, model, whole, trainable, saved, moments, gathered_whole, frozen
+        del kept, kept_prepare, probed_step, counted_iteration, prepare, opt_step, iterate
+        gc.collect()  # the runner, its task and loaders hold each other
+        torch.cuda.empty_cache()
+    gathered([0])  # every rank done
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def tptrain_slice(dev, seed, checks, card, world=TPT_MODEL, layers=TPT_LLAMA_LAYERS):
+    """Phase 18: ``world`` ranks training the LoRA config with the LLaMA sharded
+    over model groups of ``TPT_MODEL`` (``python3 chip_smoke.py --tptrain-rank
+    DIR`` each; on card 0 over gloo by default, one rank a card over NCCL
+    under ``--tp-cards``), held to the one-rank step on the group's first
+    rank."""
+    import shutil
+
+    import torch
+
+    from myriad_tpu_torch.common import dist
+
+    out_dir = os.path.join(REPO, "build", "tptrain")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    if not os.path.exists(os.path.join(REPO, "build", "train_data",
+                                       "DC_MVTEC_train_normal.jsonl")):
+        write_train_tree(os.path.join(REPO, "build", "train_data"), seed)
+    cards = torch.cuda.device_count() if TP_DEVICE == "cuda" else 0
+    backend = dist.transport(TP_DEVICE, world, cards)
+    t0 = time.time()
+    ranks = ddp_ranks(out_dir, seed, world, command=TPT_RANK_COMMAND, flag="--tptrain-rank",
+                      wall=TPT_RANK_WALL_S, env={"TPT_LAYERS": str(layers)})
+    t_ranks = time.time() - t0
+    want = [f"cuda:{r % cards}" if cards else "cpu" for r in range(world)]
+    check([(r["rank"], r["backend"], r["device"]) for r in ranks]
+          == [(i, backend, d) for i, d in enumerate(want)],
+          f"ranks / transport / device: {[(r['rank'], r['backend'], r['device']) for r in ranks]}")
+    for r in ranks:
+        check(all(r["autograd"].values()), f"rank {r['rank']}: autograd collectives "
+              f"{r['autograd']}")
+    n_data = world // TPT_MODEL
+    on = " on CUDA tensors" if backend == "gloo" and cards else ""
+    print(f"{world} ranks ({', '.join(want)}; {backend}{on}; data {n_data} x model "
+          f"{TPT_MODEL}) in {t_ranks:.1f} s; the autograd collectives on the card's tensors "
+          f"(copy_to_model, reduce_from_model, gather_from_model, broadcast_from_lead) equal "
+          f"their definitions forward and backward on every rank; card: {card}", flush=True)
+    for weights, steps in (("bf16", TPT_STEPS), ("int8", 1)):
+        r0 = ranks[0][weights]
+        for r in ranks:
+            q = r[weights]
+            check(q["losses"] == r0["losses"] and len(q["losses"]) == steps and q["loss_finite"],
+                  f"{weights}: the ranks' global losses {[x[weights]['losses'] for x in ranks]}")
+            check(q["replicated_identical"] == [True] * steps,
+                  f"{weights}: replicated trainables not bit-identical after every step")
+            check(q["frozen_identical"], f"{weights}: rank {r['rank']}'s frozen tensors moved")
+            check(not any(q["launches"].values()), f"{weights}: rank {r['rank']} launched "
+                  f"{q['launches']}")
+            check(q["ring"] == ["checkpoint_0", "log.txt"], f"{weights}: the ring holds "
+                  f"{q['ring']}")
+            check(q["ckpt"] == r0["ckpt"] and q["restored"] and q["moments"]
+                  and q["resumed"] == [1, steps, steps],
+                  f"{weights}: rank {r['rank']} did not resume the ring bit for bit")
+            for c in checks:
+                c.by_path[f"tptrain_{weights}_rank{r['rank']}"] = q["launches"].get(c.name, 0)
+        check(r0["arrays_identical"], f"{weights}: the prepared arrays differ across ranks")
+        check(r0["whole_restored"], f"{weights}: one process did not resume the ring whole")
+        loss_rel = abs(r0["losses"][0] - r0["oracle_loss"]) / abs(r0["oracle_loss"])
+        check(loss_rel <= TPT_LOSS_TOL, f"{weights}: the global loss {r0['losses'][0]} against "
+              f"the one-rank step's {r0['oracle_loss']}: rel {loss_rel:.3e}")
+        name, worst = r0["grad_rows"][0][:2]
+        s_steps = [x[0] for x in r0["steps"]]
+        samples = TRAIN_SAMPLES_PER_STEP * n_data
+        print(f"{weights} LLM weights, the LLaMA {ranks[0]['layers']} of 32 layers, EVA "
+              f"{TPT_VIT_BLOCKS} of 39 blocks, {steps} steps of {samples} samples: global losses {', '.join(f'{x:.6f}' for x in r0['losses'])} "
+              f"on every rank; the one-rank step's {r0['oracle_loss']:.6f} (rel {loss_rel:.3e}, "
+              f"tol {TPT_LOSS_TOL:.0e}); gradients of {r0['grads_compared']} trainables: all "
+              f"together rel L2 {r0['grad_all'][1]:.3e} (tol {TPT_GRAD_TOL:.0e}), worst {name} "
+              f"{worst:.3e}, {len(r0['grad_over'])} over {TPT_GRAD_TOL:.0e} (held to the fp32 "
+              f"twin below); prepared arrays, "
+              f"replicated trainables after every step and frozen tensors bit-identical; shards the slice of the whole weights; ring "
+              f"written whole once, resumed re-sharded by every rank and whole by one process "
+              f"bit for bit; B1-B7 launched 0 times; card: {card}", flush=True)
+        print(f"  s a step a rank (the probes' own seconds out): "
+              f"{', '.join(f'{x:.3f}' for x in s_steps)} ({samples / min(s_steps):.3f} samples/s "
+              f"at the fastest); the one-rank step (forward, backward, AdamW) on rank 0 "
+              f"{r0['one_rank_step_s']:.3f} s ({samples / r0['one_rank_step_s']:.3f} "
+              f"samples/s); {r0['trainables']} trainables, {r0['trainable_numel']} parameters, "
+              f"{len(r0['shards'])} of them shards ({r0['shard_numel']} parameters a rank)",
+              flush=True)
+        print("  gradients (rel L2 from the one-rank bf16 step; from the fp32 step; the "
+              "one-rank bf16 step's from the fp32 step), all together and the worst: "
+              + "; ".join(f"{n} {a:.3e}, {b:.3e}, {c:.3e}"
+                          for n, a, b, c in [r0["grad_all"]] + r0["grad_rows"]), flush=True)
+        for i, (secs, calls, times) in enumerate(r0["steps"]):
+            print(f"  step {i + 1} collectives (rank 0): " + ", ".join(
+                f"{k} {v} ({times.get(k, 0.0) * 1e3:.1f} ms)" for k, v in sorted(calls.items()))
+                + f"; in all {sum(times.values()) * 1e3:.1f} ms of host time", flush=True)
+        print("  peak device memory a rank: " + ", ".join(
+            f"{r[weights]['peak_bytes'] / 2**30:.2f} GiB" for r in ranks)
+            + " (rank 0 holds the one-rank model too)", flush=True)
+        # the gradients within TPT_GRAD_TOL of the one-rank step's, all together
+        # and each; one over it passes only where the one-rank bf16 step is
+        # itself that far from the fp32 step, the sharded one at most twice as
+        # far (bf16's rounding, not the sharding, sets the distance there)
+        for n, rel, to_true, one_to_true in [r0["grad_all"]] + r0["grad_over"]:
+            check(rel <= TPT_GRAD_TOL or to_true <= 2 * one_to_true,
+                  f"{weights}: {n}: gradient rel L2 {rel:.3e} from the one-rank step's, "
+                  f"{to_true:.3e} from the fp32 step's, against the one-rank step's own "
+                  f"{one_to_true:.3e}")
+    return ranks
+
+
 def say(t_start, title) -> None:
     """A phase's header, with the seconds since the build started."""
     print(f"{title} [{time.time() - t_start:.0f} s]", flush=True)
@@ -4724,14 +5190,18 @@ def main(argv=None) -> int:
                         "exit: a host of N cards")
     parser.add_argument("--ddp-rank", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--tp-cards", type=int, metavar="N",
-                        help="run phase 17 alone over N ranks, one a card (NCCL; with N = 2 "
-                        "also the int4 LLaMA), and exit: a host of N cards")
+                        help="run phases 17 and 18 alone over N ranks, one a card (NCCL; "
+                        "phase 17 with N = 2 also the int4 LLaMA; phase 18 at 32 layers, data "
+                        "N / 2 x model 2), and exit: a host of N cards")
     parser.add_argument("--tp-rank", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--tptrain-rank", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.ddp_rank:  # one rank of phase 16, started by ddp_ranks
         return ddp_rank(args.ddp_rank, args.seed)
     if args.tp_rank:  # one rank of phase 17, started by tp_slice
         return tp_rank(args.tp_rank, args.seed)
+    if args.tptrain_rank:  # one rank of phase 18, started by tptrain_slice
+        return tptrain_rank(args.tptrain_rank, args.seed)
     kernels = args.parent_kernels.split(",")
     if any(k not in dict(PHASE2) for k in kernels):
         parser.error(f"--parent-kernels takes names from {[n for n, _ in PHASE2]}")
@@ -4773,6 +5243,7 @@ def main(argv=None) -> int:
 
             _cuda.library()  # built once, before the ranks load it
             tp_slice(dev, args.seed, [], card_names, cards_wanted)
+            tptrain_slice(dev, args.seed, [], card_names, cards_wanted, layers=32)
         return 0
 
     from myriad_tpu_torch.ops import _cuda
@@ -4841,6 +5312,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     say(t_start, "phase 17: tensor-parallel serving: the LLaMA sharded over two ranks on card 0")
     tp_slice(dev, args.seed, checks, card)
+    say(t_start, "phase 18: tensor-parallel training: the LLaMA sharded over two ranks on card 0")
+    tptrain_slice(dev, args.seed, checks, card)
     say(t_start, "all phases done")
     print(card)
     print(json.dumps({"kernels": [c.record() for c in checks]}))

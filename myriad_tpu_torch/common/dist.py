@@ -17,9 +17,13 @@ package takes them from ``jax.process_index()`` and ``jax.process_count()``.
 a ``file://`` path).  With
 ``model_shards: 1``, ``use_mesh`` is the JAX package's data axis: data
 parallel over the launched ranks, a world of one in a single process.
-``model_shards`` > 1 raises under the trainer: tensor parallelism over the
-``model`` axis serves (``parallel.mesh.make_mesh``, a ``mesh`` given to
-``Myriad.shard`` and the serving engine) and does not train yet.
+With ``model_shards: n`` > 1 the world must be a multiple of n: model groups
+of n consecutive ranks hold the LLaMA's shards (``parallel.mesh.make_mesh``)
+and the data groups across them split the batch.  ``make_mesh`` then sets
+the data axis here (``set_data_axis``): the sums of ``all_sum_`` and
+``all_sum_scalars``, the sampler's rank and the host seeds follow the data
+rank (``get_data_rank``, ``get_data_world_size``), so that every rank of a
+model group sees the same batch and each model group is counted once.
 
 The transport is fixed before the group is built: gloo for CPU ranks; NCCL
 when every rank of the host has a card of its own; gloo on CUDA tensors when
@@ -40,6 +44,14 @@ from typing import Iterable, List, Optional, Tuple
 import torch
 import torch.distributed as tdist
 
+# the data axis under a model axis (``parallel.mesh.make_mesh`` sets it):
+# (data rank, data size, the data group or None, model rank); None: every
+# rank is a data rank of its own.  It belongs to the process, as the process
+# group it describes does: the metric sums, the sampler and ``save_result``
+# read it without a mesh at hand
+_data_axis: Optional[Tuple[int, int, object, int]] = None
+
+
 def _env_int(name: str, default: int) -> int:
     value = os.environ.get(name)
     return int(value) if value not in (None, "") else default
@@ -59,19 +71,27 @@ def transport(device_type: str, local_world: int, cards: int) -> str:
     return "nccl" if cards >= local_world else "gloo"
 
 
+def model_shards(run_cfg) -> int:
+    """The model axis a run config asks for: ``model_shards`` when
+    ``use_mesh`` (true by default above 1), else 1, as the JAX runner
+    reads them."""
+    run_cfg = run_cfg or {}
+    shards = int(run_cfg.get("model_shards", 1) or 1)
+    return shards if bool(run_cfg.get("use_mesh", shards > 1)) else 1
+
+
 def init_distributed_mode(run_cfg=None, device_type: str = "cuda") -> Optional[str]:
     """Join the launcher's process group when its ``WORLD_SIZE`` is above 1
     (``device_type`` the run's: ``cuda`` or ``cpu``); returns the backend
-    joined, None in a world of one.  ``model_shards`` > 1 raises: the
-    trainer is data parallel only."""
+    joined, None in a world of one.  ``model_shards`` n > 1 needs a world
+    that is a multiple of n and raises otherwise, a world of one included
+    (the JAX ``make_mesh``'s error): nothing falls back to fewer shards."""
     run_cfg = run_cfg or {}
-    shards = int(run_cfg.get("model_shards", 1) or 1)
-    if shards > 1:
-        raise NotImplementedError(
-            f"model_shards={shards}: tensor parallelism over the model axis serves but does "
-            "not train: tensor-parallel training is the next slice of the port.  Serving takes "
-            "a mesh: parallel.mesh.make_mesh(n_model), then Myriad.shard(mesh) or "
-            "ServingEngine(..., mesh=mesh)")
+    shards = model_shards(run_cfg)
+    world = get_world_size() if is_dist_avail_and_initialized() else launched_world()
+    if shards < 1 or world % shards:
+        raise ValueError(f"{world} ranks not divisible by model axis {shards} "
+                         f"(run.model_shards={shards})")
     if is_dist_avail_and_initialized():
         return tdist.get_backend()
     if launched_world() <= 1:
@@ -104,6 +124,7 @@ def join(device_type: str = "cuda", init_method: str = "env://",
 
 def destroy() -> None:
     """Leave the process group (at exit)."""
+    clear_data_axis()
     if is_dist_avail_and_initialized():
         tdist.destroy_process_group()
 
@@ -156,30 +177,69 @@ def _collective_device() -> torch.device:
     return torch.device("cpu")
 
 
+def set_data_axis(rank: int, size: int, group, model_rank: int) -> None:
+    """This rank's place on the data axis of a (data, model) mesh: its data
+    rank of ``size``, the ``group`` of its data peers (None for a data axis
+    of one) and its ``model_rank``; the data sums and ranks below follow it."""
+    global _data_axis
+    _data_axis = (int(rank), int(size), group, int(model_rank))
+
+
+def clear_data_axis() -> None:
+    global _data_axis
+    _data_axis = None
+
+
+def get_data_rank() -> int:
+    """The rank's index on the data axis (its rank without a model axis)."""
+    return _data_axis[0] if _data_axis is not None else get_rank()
+
+
+def get_data_world_size() -> int:
+    """The number of data-parallel ranks (the world without a model axis)."""
+    return _data_axis[1] if _data_axis is not None else get_world_size()
+
+
+def is_data_writer() -> bool:
+    """Whether this rank writes its data rank's results: every rank without a
+    model axis, a model group's first rank under one."""
+    return _data_axis is None or _data_axis[3] == 0
+
+
+def _data_group():
+    return _data_axis[2] if _data_axis is not None else None
+
+
 def all_sum_scalars(*values: float) -> Tuple[float, ...]:
-    """Python scalars summed over the ranks, in fp64."""
-    if get_world_size() <= 1:
+    """Python scalars summed over the data-parallel ranks, in fp64."""
+    if get_data_world_size() <= 1:
         return values
     t = torch.tensor(values, dtype=torch.float64, device=_collective_device())
-    tdist.all_reduce(t)
+    tdist.all_reduce(t, group=_data_group())
     return tuple(t.cpu().tolist())
 
 
-def all_sum_(tensors: Iterable[torch.Tensor]) -> List[torch.Tensor]:
-    """Sum ``tensors`` over the ranks in place, one collective a dtype and
-    device (the tensors flattened into one buffer and copied back); a no-op
-    outside a process group.  Every rank receives the same bits."""
+def all_sum_(tensors: Iterable[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """Sum ``tensors`` in place over the data-parallel ranks (the world
+    without a model axis; ``group`` another group), one collective a dtype
+    and device (the tensors flattened into one buffer and copied back); a
+    no-op outside a process group and over a data axis of one.  Every rank
+    receives the same bits."""
     tensors = list(tensors)
     if not is_dist_avail_and_initialized():
         return tensors
+    if group is None:
+        if _data_axis is not None and _data_axis[1] <= 1:
+            return tensors
+        group = _data_group()
     groups = {}
     for t in tensors:
         groups.setdefault((t.dtype, t.device), []).append(t)
-    for group in groups.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        tdist.all_reduce(flat)
+    for group_tensors in groups.values():
+        flat = torch.cat([t.reshape(-1) for t in group_tensors])
+        tdist.all_reduce(flat, group=group)
         offset = 0
-        for t in group:
+        for t in group_tensors:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
     return tensors

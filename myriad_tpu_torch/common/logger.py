@@ -34,8 +34,9 @@ class SmoothedValue:
         self.total += value * n
 
     def synchronize_between_processes(self) -> None:
-        """Sum the count and total over the ranks (the window stays local)."""
-        if dist.get_world_size() <= 1:
+        """Sum the count and total over the data-parallel ranks (the window
+        stays local)."""
+        if dist.get_data_world_size() <= 1:
             return
         count, total = dist.all_sum_scalars(float(self.count), self.total)
         self.count = int(count)

@@ -9,7 +9,10 @@ decay added to the update of tensors with ndim >= 2 only, and the update
 scaled by ``-schedule(count)``; ``mu_dtype`` stores the first moment in
 another dtype.  ``accum_grad_iters`` > 1 is ``optax.MultiSteps``: each
 call folds the gradient into a running mean, and every k-th call updates
-with that mean and clears it.
+with that mean and clears it.  Over a tensor-parallel ``mesh`` the global
+norm of ``clip_by_global_norm`` is the whole model's: the squares of the
+tensors that are shards (``sharded``) are summed over the model group, the
+replicated ones counted once.
 
 ``optax_tree`` and ``load_optax_tree`` carry the state to and from the optax
 tree that ``make_optimizer``'s chain holds, in the form an Orbax checkpoint
@@ -92,7 +95,8 @@ class AdamW:
     def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]], schedule: Schedule, *,
                  weight_decay: float = 0.05, beta1: float = 0.9, beta2: float = 0.999,
                  eps: float = 1e-8, max_grad_norm: Optional[float] = None,
-                 accum_grad_iters: int = 1, mu_dtype=None):
+                 accum_grad_iters: int = 1, mu_dtype=None, mesh=None,
+                 sharded: Optional[Sequence[bool]] = None):
         if mu_dtype not in _DTYPES:
             raise ValueError(f"optimizer_mu_dtype {mu_dtype!r}: one of {sorted(map(str, _DTYPES))}")
         self.names = [n for n, _ in named_params]
@@ -102,6 +106,9 @@ class AdamW:
         self.max_grad_norm = None if max_grad_norm is None else float(max_grad_norm)
         self.k = max(int(accum_grad_iters), 1)
         self.mu_dtype = _DTYPES[mu_dtype]
+        # a tensor-parallel mesh, and which tensors are its shards
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
+        self.sharded = list(sharded) if sharded is not None else [False] * len(self.params)
         self.count = 0  # optimizer updates made (optax's inner count)
         self.mini_step = 0  # gradients folded into ``acc`` since the last update
         self.mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for p in self.params]
@@ -133,7 +140,7 @@ class AdamW:
 
     def _update(self, grads: List[torch.Tensor]) -> None:
         if self.max_grad_norm is not None:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            g_norm = self._global_norm(grads)
             if not bool(g_norm < self.max_grad_norm):
                 grads = [(g / g_norm.to(g.dtype)) * self.max_grad_norm for g in grads]
         count_inc = self.count + 1
@@ -151,6 +158,23 @@ class AdamW:
             self.mu[i] = mu.to(self.mu[i].dtype)
             self.nu[i] = nu
         self.count = count_inc
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The L2 norm over every gradient; over a mesh the whole model's, the
+        shards' squares summed over the model group (the same bits on every
+        rank of a group)."""
+        if self.mesh is None:
+            return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        squares = [torch.sum(g * g) for g in grads]
+        whole = torch.zeros((), dtype=squares[0].dtype, device=squares[0].device)
+        parts = torch.zeros((1,), dtype=squares[0].dtype, device=squares[0].device)
+        for sq, shard in zip(squares, self.sharded):
+            if shard:
+                parts[0] += sq
+            else:
+                whole = whole + sq
+        self.mesh.model_sum_([parts])
+        return torch.sqrt(whole + parts[0])
 
     def state_dict(self) -> Dict:
         return {"count": self.count, "mini_step": self.mini_step,

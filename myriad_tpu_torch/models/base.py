@@ -11,6 +11,15 @@ A subclass sets ``module`` (the ``nn.Module`` of weights), ``policy``,
 parameters and bf16 compute (``Policy.bf16``) the modules are built in the
 compute dtype, and the trainables and the LayerNorm scales are raised to the
 parameter dtype, as the JAX package's ``_cast_frozen`` leaves them.
+
+``shard(mesh)`` makes the LLaMA (``module.llama``) this rank's
+tensor-parallel shard, after the weights are loaded, for serving and for
+training alike: the trainables keep their names (the JAX split's), a
+sharded trainable (``lora_b``, ``lm_head`` under ``train_llm_head``) becomes
+the rank's piece in its own dtype, and ``split_dims`` records the dim each
+trainable is cut along (absent: whole).  The towers stay whole; under a mesh
+only the model group's first rank runs them and broadcasts their output
+(``parallel.mesh.Mesh.broadcast_from_lead``).
 """
 
 from __future__ import annotations
@@ -30,6 +39,10 @@ from myriad_tpu_torch.models.layers import LayerNorm
 class TrainableModel:
     module: nn.Module
     trainable_names: List[str]
+    # the tensor-parallel mesh the LLaMA is sharded over (``shard``), and the
+    # dim each sharded state entry is cut along, by name
+    mesh = None
+    split_dims: Dict[str, int] = {}
 
     def trainable_predicate(self) -> Callable[[str], bool]:  # pragma: no cover - overridden
         raise NotImplementedError
@@ -57,6 +70,22 @@ class TrainableModel:
                 if train:
                     names.append(name)
         return names
+
+    def shard(self, mesh) -> "TrainableModel":
+        """Make the LLaMA ``mesh``'s model-group shard of this rank
+        (``LlamaForCausalLM.sharded``, ``LLAMA_RULES``) once its weights are
+        loaded; the trainable split is applied again to the new modules.  A
+        mesh of one changes nothing.  Returns the model."""
+        if mesh.sharded:
+            if self.mesh is not None:
+                raise ValueError("the model is already sharded")
+            llama = self.module.llama.sharded(mesh)
+            self.module.llama = llama
+            self.mesh = mesh
+            self.trainable_names = self._split_trainable()
+            self.split_dims = {f"llama.{n}": d for n, d in llama.split_dims.items()
+                               if d is not None and f"llama.{n}" in self.trainable_names}
+        return self
 
     def train_nll(self, arrays: Dict[str, torch.Tensor], static=()):  # pragma: no cover
         raise NotImplementedError

@@ -13,8 +13,10 @@ kernel B5 reads.
 A projection built with a ``mesh`` (``parallel.mesh.Mesh``) is a
 row-parallel shard: it holds this rank's input features, and its output is
 summed over the model group in fp32 and rounded once (``ops.quant``'s row
-rule; a float Dense sums fp32 products).  A column-parallel shard needs no
-mesh: it is a narrower projection.
+rule; a float Dense sums fp32 products).  Under autograd the sum is
+``Mesh.reduce_from_model``, whose backward passes the whole gradient on: a
+row shard's dx is its own input rows' and needs no collective.  A
+column-parallel shard needs no mesh: it is a narrower projection.
 """
 
 from __future__ import annotations
@@ -72,11 +74,8 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mesh is not None:
-            if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad):
-                raise NotImplementedError("a row-parallel Dense under autograd: "
-                                          "tensor-parallel training is not ported")
-            y = self.mesh.all_reduce_(F.linear(x.to(self.dtype).float(),
-                                               self.weight.to(self.dtype).float()))
+            y = self.mesh.reduce_from_model(F.linear(x.to(self.dtype).float(),
+                                                     self.weight.to(self.dtype).float()))
             y = y.to(self.dtype)
         else:
             y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))

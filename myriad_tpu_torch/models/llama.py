@@ -37,8 +37,19 @@ on every rank, so every rank takes each decision (argmax, stop rules) from
 the same bits.  Its ``config`` is the rank's (``shard_config``: its heads,
 ``head_dim`` explicit, its MLP width), which sizes its KV cache;
 ``full_config`` is the model's.  Norms, the residual stream and the cache's
-frontiers are whole on every rank.  A sharded model serves; it does not
-train (the next slice).
+frontiers are whole on every rank.
+
+A sharded model trains too (``forward_full`` under autograd, through
+``Mesh``'s autograd collectives): the normed input of attention and of the
+MLP goes through ``copy_to_model``, so that one all-reduce of its gradient
+a block covers q, k and v (or gate and up) and the LoRA branch beside them;
+o and down sum their outputs with ``reduce_from_model`` (no collective
+backward); the embedding and the vocabulary-split logits gather with
+``gather_from_model`` (the rank's slice of the gradient backward), the
+head's input going through ``copy_to_model`` first.  Every rank of a group
+then computes the same logits and loss; a shard's gradient is its slice of
+the whole model's, and ``lora_a``'s (whole on every rank, inside the
+column-parallel region) is a part that the runner sums over the group.
 """
 
 from __future__ import annotations
@@ -139,7 +150,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 class LoraDense(nn.Module):
-    """Frozen projection ``base`` + optional low-rank update (alpha/r) x A B."""
+    """Frozen projection ``base`` + optional low-rank update (alpha/r) x A B.
+    In a column-parallel shard (``d_out`` the rank's) ``lora_b`` holds the
+    rank's output columns and ``lora_a`` is whole."""
 
     def __init__(self, cfg: LlamaConfig, d_in: int, d_out: int, *, policy: Policy, device):
         super().__init__()
@@ -272,6 +285,7 @@ class LlamaMlp(nn.Module):
 class LlamaLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, policy: Policy, device, mesh=None):
         super().__init__()
+        self.mesh = mesh
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, policy=policy,
                                        device=device)
         self.self_attn = LlamaAttention(cfg, policy=policy, device=device, mesh=mesh)
@@ -279,10 +293,13 @@ class LlamaLayer(nn.Module):
                                                 policy=policy, device=device)
         self.mlp = LlamaMlp(cfg, policy=policy, device=device, mesh=mesh)
 
+    def _column_input(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.mesh is None else self.mesh.copy_to_model(x)
+
     def forward(self, hidden, positions, cache, mask, kv_len):
-        hidden = hidden + self.self_attn(self.input_layernorm(hidden), positions, cache,
-                                         mask, kv_len)
-        return hidden + self.mlp(self.post_attention_layernorm(hidden))
+        hidden = hidden + self.self_attn(self._column_input(self.input_layernorm(hidden)),
+                                         positions, cache, mask, kv_len)
+        return hidden + self.mlp(self._column_input(self.post_attention_layernorm(hidden)))
 
 
 class Embed(nn.Module):
@@ -300,7 +317,7 @@ class Embed(nn.Module):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         rows = self.embedding[ids]
         if self.mesh is not None:
-            rows = self.mesh.all_gather(rows)
+            rows = self.mesh.gather_from_model(rows)
         return rows.to(self.dtype)
 
 
@@ -309,6 +326,7 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = policy.compute_dtype
+        self.mesh = mesh
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, policy=policy, device=device,
                                   mesh=mesh)
         self.layers = nn.ModuleList(LlamaLayer(cfg, policy=policy, device=device, mesh=mesh)
@@ -327,6 +345,11 @@ class LlamaModel(nn.Module):
             allowed = allowed & attention_mask[:, None, None, :].bool()
         mask = torch.where(allowed, 0.0, -1e9).to(torch.float32)
         hidden = inputs_embeds.to(self.dtype)
+        if self.mesh is not None and torch.is_grad_enabled() and not hidden.requires_grad:
+            # every rank of a group runs the same collectives backward: the
+            # stream needs a gradient on each (the image tokens that the
+            # group's first rank computed require one there alone)
+            hidden = hidden.detach().requires_grad_()
         for layer in self.layers:
             if self.cfg.remat and torch.is_grad_enabled():
                 hidden = torch.utils.checkpoint.checkpoint(layer, hidden, positions, None, mask,
@@ -389,14 +412,20 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def sharded(self, mesh) -> "LlamaForCausalLM":
         """This rank's shard on ``mesh`` of this whole model (on its device):
-        its state cut by ``shard_state_dict`` with ``LLAMA_RULES``."""
-        from myriad_tpu_torch.parallel.partition import LLAMA_RULES, shard_state_dict
+        its state cut by ``shard_state_dict`` with ``LLAMA_RULES``, each
+        piece taken in its own dtype (a trainable raised to fp32 stays
+        fp32); ``split_dims`` records the dim each state entry is cut along
+        (None: whole)."""
+        from myriad_tpu_torch.parallel.partition import (LLAMA_RULES, shard_state_dict,
+                                                         split_dims)
 
         if self.mesh is not None:
             raise ValueError("the model is already a shard")
         out = LlamaForCausalLM(self.full_config, policy=self.policy, device=self.lm_head.device,
                                mesh=mesh)
-        out.load_state_dict(shard_state_dict(self.state_dict(), mesh, LLAMA_RULES), strict=True)
+        state = self.state_dict()
+        out.load_state_dict(shard_state_dict(state, mesh, LLAMA_RULES), strict=True, assign=True)
+        out.split_dims = split_dims(state, mesh.n_model, LLAMA_RULES)
         return out
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
@@ -405,8 +434,10 @@ class LlamaForCausalLM(nn.Module):
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         # fp32 sum and output at the sampling point, as JAX's
         # preferred_element_type=float32 (the greedy-parity island)
+        if self.vocab_split:
+            hidden = self.mesh.copy_to_model(hidden)
         out = torch.matmul(hidden.float(), self.lm_head.to(hidden.dtype).float())
-        return self.mesh.all_gather(out) if self.vocab_split else out
+        return self.mesh.gather_from_model(out) if self.vocab_split else out
 
     def prefill(self, inputs_embeds: torch.Tensor, cache: List[Cache],
                 last_index=None) -> torch.Tensor:

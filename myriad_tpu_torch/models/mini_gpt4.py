@@ -12,7 +12,8 @@ knobs release), the prompt list of ``prompt_path`` formatted by
 ``prompt_template`` (one drawn per batch from the step's generator), the
 target tokenisation (``end_sym``, ``max_txt_len``), ``prepare_train_arrays``
 and ``train_loss`` for the runner, the pretrained towers
-(``load_pretrained_weights``) and ``load_checkpoint``.  It builds on the
+(``load_pretrained_weights``), ``load_checkpoint`` and ``shard`` (the LLaMA
+over a mesh's model group, as Myriad's).  It builds on the
 card unless the caller passes another device.
 """
 
@@ -74,14 +75,22 @@ class MiniGPT4Module(nn.Module):
 
     def forward_train(self, image: torch.Tensor, before_ids: torch.Tensor,
                       after_ids: torch.Tensor, text_ids: torch.Tensor, text_mask: torch.Tensor,
-                      bos_id: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                      bos_id: int = 1, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """[bos][before][image][after][text] through the LLaMA without a cache;
         the parts of the fp32 cross entropy of the text (``lm_nll``: the nll
         sum and the token count), the prefix and the padding masked out
-        (-100)."""
-        img = self.encode_img(image)
+        (-100).  With a sharded ``mesh`` the group's first rank runs the
+        towers and broadcasts the image tokens; every rank computes the same
+        loss."""
         b = image.shape[0]
         embed = self.llama.embed
+        if mesh is None or mesh.model_rank == 0:
+            img = self.encode_img(image)
+        else:
+            img = torch.empty((b, self.arch.num_query_token, self.arch.llama.hidden_size),
+                              dtype=self.llama_proj.dtype, device=image.device)
+        if mesh is not None:
+            img = mesh.broadcast_from_lead(img)
         bos = embed(torch.full((b, 1), bos_id, dtype=torch.int64, device=img.device))
         before = embed(before_ids[None].expand(b, -1))
         after = embed(after_ids[None].expand(b, -1))
@@ -268,4 +277,4 @@ class MiniGPT4(TrainableModel):
     def train_nll(self, arrays: Dict[str, torch.Tensor], static=()):
         """(nll sum, token count) of one batch; ``train_loss`` is their quotient."""
         return self.module.forward_train(arrays["image"], arrays["before"], arrays["after"],
-                                         arrays["text_ids"], arrays["text_mask"])
+                                         arrays["text_ids"], arrays["text_mask"], mesh=self.mesh)

@@ -25,9 +25,12 @@ built with ``training=True`` gives its trainables ``requires_grad``.
 Across ranks, ``Myriad.shard(mesh)`` (a ``parallel.mesh.Mesh``, after the
 weights are loaded) makes the LLaMA this rank's tensor-parallel shard; the
 towers and the vision expert stay whole, and only the model group's first
-rank runs them: its maps and prefix embeddings are broadcast, so every rank
+rank runs them: its maps and image tokens are broadcast, so every rank
 decodes from the same bits.  ``generate`` (greedy and speculative) and
 ``serving.MyriadServing`` then run on every rank of the group in lock step.
+A sharded model built with ``training=True`` trains: the group's first rank
+runs the towers forward and backward (the gradient of the image tokens is
+whole on every rank), every rank runs its LLaMA shard.
 """
 
 from __future__ import annotations
@@ -166,8 +169,9 @@ class MyriadModule(nn.Module):
         """[bos?][before][image tokens][after] embeddings; serving passes
         add_bos=False (the reference generates with no bos embedding).  With
         a sharded ``mesh`` every rank embeds the ids (the table is split),
-        the model group's first rank alone runs the towers, and its result
-        is broadcast."""
+        the model group's first rank alone runs the towers, and its image
+        tokens are broadcast (under autograd their gradient stays on that
+        rank, where the towers' trainables take it)."""
         b = image.shape[0]
         before = self.embed_tokens(before_ids[None].expand(b, -1))
         after = self.embed_tokens(after_ids[None].expand(b, -1))
@@ -176,23 +180,25 @@ class MyriadModule(nn.Module):
         else:
             img = torch.empty((b, self.image_tokens(stage), before.shape[-1]),
                               dtype=before.dtype, device=before.device)
+        if mesh is not None:
+            img = mesh.broadcast_from_lead(img)
         pieces = [before, img, after]
         if add_bos:
             bos = torch.full((b, 1), bos_id, dtype=torch.int64, device=before.device)
             pieces.insert(0, self.embed_tokens(bos))
-        out = torch.cat(pieces, dim=1)
-        return out if mesh is None else mesh.broadcast_(out)
+        return torch.cat(pieces, dim=1)
 
     def train_logits(self, image: torch.Tensor, maps: torch.Tensor, before_ids: torch.Tensor,
                      after_ids: torch.Tensor, text_ids: torch.Tensor, text_mask: torch.Tensor,
-                     stage: int, bos_id: int = 1,
-                     add_bos: bool = True) -> Tuple[torch.Tensor, int]:
+                     stage: int, bos_id: int = 1, add_bos: bool = True,
+                     mesh=None) -> Tuple[torch.Tensor, int]:
         """(fp32 logits (B, P + L, V), prefix length P) of the training
         forward: the prefix (a bos embedding when ``add_bos``), then the
         right-padded target text, through the LLaMA without a cache under the
-        causal mask and the text's key-padding mask."""
+        causal mask and the text's key-padding mask; ``mesh``: the sharded
+        LLaMA's (the towers run on its first rank)."""
         prefix = self.prefill_embeds(image, maps, before_ids, after_ids, stage, bos_id,
-                                     add_bos=add_bos)
+                                     add_bos=add_bos, mesh=mesh)
         b, p, _ = prefix.shape
         text = self.embed_tokens(text_ids)
         inputs = torch.cat([prefix, text.to(prefix.dtype)], dim=1)
@@ -203,13 +209,13 @@ class MyriadModule(nn.Module):
 
     def forward_train(self, image: torch.Tensor, maps: torch.Tensor, before_ids: torch.Tensor,
                       after_ids: torch.Tensor, text_ids: torch.Tensor, text_mask: torch.Tensor,
-                      stage: int, bos_id: int = 1,
-                      add_bos: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                      stage: int, bos_id: int = 1, add_bos: bool = True,
+                      mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The training loss's parts (``lm_nll``: the fp32 nll summed over the
         target text's tokens, and their count), the prefix and the padding
-        masked out (-100)."""
+        masked out (-100); every rank of a ``mesh`` computes the same."""
         logits, p = self.train_logits(image, maps, before_ids, after_ids, text_ids, text_mask,
-                                      stage, bos_id, add_bos=add_bos)
+                                      stage, bos_id, add_bos=add_bos, mesh=mesh)
         b = image.shape[0]
         ignore = torch.full((b, p), -100, dtype=torch.int64, device=logits.device)
         text_targets = torch.where(text_mask.bool(), text_ids.long(),
@@ -326,22 +332,6 @@ class Myriad(TrainableModel):
         self.ckpt_path = ""
         self.trainable_names: List[str] = self._split_trainable()
         self._prompt_cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
-        # the tensor-parallel mesh the LLaMA is sharded over (``shard``)
-        self.mesh = None
-
-    def shard(self, mesh) -> "Myriad":
-        """Serve across ``mesh``'s model group (``parallel.mesh.make_mesh``):
-        the LLaMA becomes this rank's shard, cut from the whole model's state
-        by ``LLAMA_RULES`` (``LlamaForCausalLM.sharded``), after the weights
-        are loaded; the towers and the vision expert stay whole.  A mesh of
-        one changes nothing.  Returns the model."""
-        if self.training:
-            raise NotImplementedError("tensor-parallel training is not ported (the next "
-                                      "slice): a sharded Myriad serves")
-        if mesh.sharded:
-            self.module.llama = self.module.llama.sharded(mesh)
-            self.mesh = mesh
-        return self
 
     # -- the trainable / frozen split ------------------------------------------
     def trainable_predicate(self) -> Callable[[str], bool]:
@@ -714,7 +704,8 @@ class Myriad(TrainableModel):
         (stage,) = static
         return self.module.forward_train(arrays["image"], arrays["maps"], arrays["before"],
                                          arrays["after"], arrays["text_ids"],
-                                         arrays["text_mask"], stage, add_bos=self.train_add_bos)
+                                         arrays["text_mask"], stage, add_bos=self.train_add_bos,
+                                         mesh=self.mesh)
 
     def forward(self, samples: Dict, rng: Optional[np.random.Generator] = None) -> Dict:
         """One training loss with a random prompt and task stage."""

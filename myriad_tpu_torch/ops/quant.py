@@ -13,7 +13,8 @@ activation quant and an int32 sum), which the JAX package leaves to XLA and
 the port to ``torch._int_mm`` on the card.  Under autograd both routes take
 the JAX package's straight-through derivative (``StraightThroughInt8``):
 the backward treats the layer as x @ dequant(W), and W and its scale get no
-gradient.  ``int4_matmul`` has the same
+gradient; a row-parallel shard's backward is its own rows' (no collective).
+``int4_matmul`` has the same
 rule with kernel B5 (``csrc/int4_matmul.cu``) for the small row counts; the
 other route requantizes the int4 groups to per-column int8 at each call, as
 the JAX package does off the TPU, and runs W8A8.
@@ -155,39 +156,42 @@ def takes_kernel(x2: torch.Tensor) -> bool:
 
 
 def _int8_forward(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
-                  kernel: bool) -> torch.Tensor:
+                  kernel: bool, mesh=None) -> torch.Tensor:
+    """Either route of the row rule; with ``mesh`` a row-parallel shard's,
+    summed over the model group before any rounding (fp32 out)."""
+    if mesh is None:
+        if kernel:
+            return int8_weight_only_matmul(x2.contiguous(), w8, scale)
+        return w8a8_matmul(x2.float(), w8, scale)
     if kernel:
-        return int8_weight_only_matmul(x2.contiguous(), w8, scale)
-    return w8a8_matmul(x2.float(), w8, scale)
-
-
-def _no_gradient(x: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("a row-parallel product under autograd: tensor-parallel "
-                                  "training is not ported (the next slice)")
+        return mesh.all_reduce_(int8_weight_only_matmul(x2.contiguous(), w8, scale,
+                                                        out_dtype=torch.float32))
+    return w8a8_matmul(x2.float(), w8, scale, mesh=mesh)
 
 
 class StraightThroughInt8(torch.autograd.Function):
     """An int8 product with the JAX package's straight-through derivative
     (``_w8a8_matmul`` and ``_int8_pallas_matmul``'s custom JVPs): the forward
-    is either route of the row rule, unchanged (B1 counts its launches); the
-    backward is dx = (dy * scale) @ w8^T, in fp32 on the CPU and in x's
-    dtype (the compute dtype) on the card, and w8 and scale get no gradient.
-    Without it the W8A8 route's rounding would give every upstream
-    trainable a zero gradient."""
+    is either route of the row rule, unchanged (B1 counts its launches), a
+    row-parallel shard's with ``mesh``; the backward is dx = (dy * scale) @
+    w8^T, in fp32 on the CPU and in x's dtype (the compute dtype) on the
+    card, and w8 and scale get no gradient.  A row shard's backward is the
+    same product over its own rows of w8: dy is whole on every rank, so it
+    needs no collective.  Without it the W8A8 route's rounding would give
+    every upstream trainable a zero gradient."""
 
     @staticmethod
-    def forward(ctx, x2, w8, scale, kernel):
+    def forward(ctx, x2, w8, scale, kernel, mesh=None):
         ctx.save_for_backward(w8, scale)
         ctx.x_dtype = x2.dtype
-        return _int8_forward(x2, w8, scale, kernel)
+        return _int8_forward(x2, w8, scale, kernel, mesh)
 
     @staticmethod
     def backward(ctx, dy):
         w8, scale = ctx.saved_tensors
         dt = ctx.x_dtype if dy.is_cuda else torch.float32
         dx = torch.matmul(dy.to(dt) * scale.to(dt), w8.to(dt).t())
-        return dx.to(ctx.x_dtype), None, None, None
+        return dx.to(ctx.x_dtype), None, None, None, None
 
 
 def int8_matmul(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, *,
@@ -201,18 +205,10 @@ def int8_matmul(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, *,
     lead, d = x.shape[:-1], x.shape[-1]
     f = w8.shape[1]
     x2 = x.reshape(-1, d)
-    if mesh is not None:
-        _no_gradient(x2)
-        if takes_kernel(x2):
-            y = mesh.all_reduce_(int8_weight_only_matmul(x2.contiguous(), w8, scale,
-                                                         out_dtype=torch.float32))
-        else:
-            y = w8a8_matmul(x2.float(), w8, scale, mesh=mesh)
-        return y.to(out_dtype).reshape(*lead, f)
     if torch.is_grad_enabled() and x2.requires_grad:
-        y = StraightThroughInt8.apply(x2, w8, scale, takes_kernel(x2))
+        y = StraightThroughInt8.apply(x2, w8, scale, takes_kernel(x2), mesh)
     else:
-        y = _int8_forward(x2, w8, scale, takes_kernel(x2))
+        y = _int8_forward(x2, w8, scale, takes_kernel(x2), mesh)
     return y.to(out_dtype).reshape(*lead, f)
 
 

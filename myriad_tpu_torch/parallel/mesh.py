@@ -20,6 +20,30 @@ device), gloo on the CPU.  Every collective runs under the group's timeout
 (``timeout``, given to ``init_process_group`` when ``make_mesh`` joins and
 to every group it makes): a rank that stops answering fails the others'
 next collective instead of hanging them.
+
+Training goes through the collectives under autograd, Megatron's pair of
+conjugate functions and the gather:
+
+* ``copy_to_model``: the identity forward, the sum of the gradient over the
+  model group backward; at the input of a column-parallel region, whose
+  ranks each see a part of the input's gradient;
+* ``reduce_from_model``: the sum over the model group forward, the identity
+  backward; at the output of a row-parallel product;
+* ``gather_from_model``: the pieces concatenated forward, this rank's slice
+  of the gradient backward; the embedding's hidden columns and the
+  vocabulary-split logits;
+* ``broadcast_from_lead``: the group's first rank's tensor forward, its
+  gradient kept on that rank backward (every rank holds the same, whole
+  gradient there).
+
+They count their collectives, forward and backward, in ``calls`` and
+``times``.  ``torch.distributed.nn.functional.all_reduce`` is not one of
+them: its backward sums the gradient again, which makes a gradient that
+every rank of a group computes alike n times too large.  Without autograd
+(serving, ``torch.inference_mode``) each is the plain collective.
+``model_sum_``, ``data_sum_`` and ``world_sum_`` sum flat buffers over the
+model group, the data group and every rank (the gradients of a training
+step).
 """
 
 from __future__ import annotations
@@ -57,6 +81,7 @@ class Mesh:
     backend: Optional[str] = None
     device: Optional[torch.device] = None
     calls: dict = dataclasses.field(default_factory=dict)
+    times: dict = dataclasses.field(default_factory=dict)
     seconds: float = 0.0
 
     @property
@@ -64,8 +89,10 @@ class Mesh:
         return self.n_model > 1
 
     def _count(self, kind: str, t0: float) -> None:
+        dt = time.perf_counter() - t0
         self.calls[kind] = self.calls.get(kind, 0) + 1
-        self.seconds += time.perf_counter() - t0
+        self.times[kind] = self.times.get(kind, 0.0) + dt
+        self.seconds += dt
 
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Reduce ``t`` in place over the model group (``op`` "sum" or
@@ -76,11 +103,15 @@ class Mesh:
         self._count(f"all_reduce_{op}", t0)
         return t
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """The model group's ``t`` (equal shapes) concatenated along the last
-        dim in rank order.  Over gloo, which gathers no CUDA tensor, each rank
-        writes its piece into a zero buffer and the buffers are summed: one
-        piece and zeros a position, so the sum is exact."""
+    def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The model group's ``t`` (equal shapes) concatenated along ``dim``
+        (the last by default) in rank order.  Over gloo, which gathers no
+        CUDA tensor, each rank writes its piece into a zero buffer and the
+        buffers are summed: one piece and zeros a position, so the sum is
+        exact."""
+        dim = dim % t.dim()
+        if dim != t.dim() - 1:
+            return self.all_gather(t.movedim(dim, -1)).movedim(-1, dim).contiguous()
         t0 = time.perf_counter()
         n, w = self.n_model, t.shape[-1]
         if self.backend == "nccl":
@@ -101,8 +132,108 @@ class Mesh:
         self._count("broadcast", t0)
         return t
 
+    def broadcast_object(self, obj):
+        """The model group's first rank's picklable ``obj`` on every rank."""
+        t0 = time.perf_counter()
+        box = [obj]
+        tdist.broadcast_object_list(box, src=self.lead, group=self.model_group)
+        self._count("broadcast_object", t0)
+        return box[0]
+
+    # -- under autograd (training) ---------------------------------------------
+    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself; backward, its gradient summed over the model group."""
+        return _CopyToModel.apply(x, self) if _tracked(x) else x
+
+    def reduce_from_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model group; backward, the gradient as it is."""
+        return _ReduceFromModel.apply(x, self) if _tracked(x) else self.all_reduce_(x)
+
+    def gather_from_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``all_gather`` along the last dim; backward, this rank's slice."""
+        return _GatherFromModel.apply(x, self) if _tracked(x) else self.all_gather(x)
+
+    def broadcast_from_lead(self, x: torch.Tensor) -> torch.Tensor:
+        """The first rank's ``x`` (a copy); backward, the gradient on that rank
+        only."""
+        return _BroadcastFromLead.apply(x, self) if _tracked(x) else self.broadcast_(x.contiguous())
+
+    def _sum_flat(self, tensors, group, kind: str) -> None:
+        if group is None or not tensors:
+            return
+        t0 = time.perf_counter()
+        dist.all_sum_(tensors, group=group)
+        self._count(kind, t0)
+
+    def model_sum_(self, tensors) -> None:
+        """Sum ``tensors`` in place over the model group (flat buffers)."""
+        self._sum_flat(list(tensors), self.model_group if self.sharded else None, "model_sum")
+
+    def world_sum_(self, tensors) -> None:
+        """Sum ``tensors`` in place over every rank of the mesh (flat buffers)."""
+        self._sum_flat(list(tensors), tdist.group.WORLD if self.sharded else None, "world_sum")
+
+    def data_sum_(self, tensors) -> None:
+        """Sum ``tensors`` in place over the data group (flat buffers); a
+        no-op over a data axis of one."""
+        self._sum_flat(list(tensors), self.data_group if self.n_data > 1 else None,
+                       "data_sum")
+
     def reset(self) -> None:
-        self.calls, self.seconds = {}, 0.0
+        self.calls, self.times, self.seconds = {}, {}, 0.0
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # a copy: autograd may hand the same gradient tensor to other branches
+        t0 = time.perf_counter()
+        dx = dy.contiguous().clone()
+        tdist.all_reduce(dx, group=ctx.mesh.model_group)
+        ctx.mesh._count("all_reduce_sum_grad", t0)
+        return dx, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.width = mesh, x.shape[-1]
+        return mesh.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        r, w = ctx.mesh.model_rank, ctx.width
+        return dy[..., r * w:(r + 1) * w].contiguous(), None
+
+
+class _BroadcastFromLead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.lead = mesh.model_rank == 0
+        return mesh.broadcast_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (dy if ctx.lead else None), None
 
 
 def make_mesh(n_model: Optional[int] = None, *, device: str = "cuda",
@@ -115,7 +246,8 @@ def make_mesh(n_model: Optional[int] = None, *, device: str = "cuda",
     its environment, the rendezvous ``init_method``, ``device``'s
     transport, ``timeout``); the world must be a multiple of ``n_model``.
     Every rank calls this in the same order: each group is made by every
-    rank of the world."""
+    rank of the world.  Above 1 it also sets ``common.dist``'s data axis
+    (the data-parallel sums, sampler and seeds follow the data rank)."""
     n_model = int(n_model or 1)
     if n_model < 1:
         raise ValueError(f"model axis {n_model}")
@@ -141,6 +273,7 @@ def make_mesh(n_model: Optional[int] = None, *, device: str = "cuda",
                 data_group = g
     else:
         data_group = None
+    dist.set_data_axis(rank // n_model, n_data, data_group, rank % n_model)
     return Mesh(n_model=n_model, model_rank=rank % n_model, n_data=n_data,
                 data_rank=rank // n_model, lead=(rank // n_model) * n_model,
                 model_group=model_group, data_group=data_group,

@@ -20,7 +20,15 @@ the output features (split for column parallel, whole for row parallel);
 is split over hidden and ``lm_head`` over the vocabulary.  Norms and
 everything unmatched stay whole.  The towers' tables (``VIT_RULES``,
 ``IMAGEBIND_RULES``, ``QFORMER_RULES`` and ``myriad_rules``) are kept for
-the slice that shards them; the port serves them whole.
+the slice that shards them; the port serves and trains them whole.
+
+Training cuts and gathers by the dims ``split_dims`` records when a model is
+sharded: ``cut_state`` takes a whole trainable or optimizer tree (a ring's)
+to this rank's pieces, ``gather_state`` the pieces back to whole tensors
+over the model group (the ring is written whole, as the JAX runner's
+``np.asarray`` gathers it).  ``partial_grad`` names the replicated leaves
+whose gradient each rank of a group holds a part of (``lora_a``, inside the
+column-parallel region), which the runner sums over the group.
 """
 
 from __future__ import annotations
@@ -171,6 +179,46 @@ def leaf_spec(path: str, t: torch.Tensor, n_model: int, rules: Sequence[Rule],
     return spec
 
 
+def split_dims(state: Mapping[str, torch.Tensor], n_model: int, rules: Sequence[Rule],
+               fallbacks: Optional[List[str]] = None) -> Dict[str, Optional[int]]:
+    """The port's dim along which each leaf of ``state`` (whole, the port's
+    layout) is cut on a model axis of ``n_model``, None where it stays whole
+    (its rule replicates it, or falls back: appended to ``fallbacks``)."""
+    out: Dict[str, Optional[int]] = {}
+    for name, t in state.items():
+        path = jax_path_of_name(name, t.dim())
+        spec = leaf_spec(path, t, n_model, rules, fallbacks)
+        dims = [_torch_dim(path, t.dim(), d) for d, axis in enumerate(spec) if axis is not None]
+        out[name] = dims[0] if dims else None
+    return out
+
+
+def cut_state(state: Mapping[str, torch.Tensor], mesh,
+              dims: Mapping[str, Optional[int]]) -> Dict[str, torch.Tensor]:
+    """This rank's piece of each whole leaf of ``state`` along its ``dims``
+    entry (a contiguous copy; a leaf with no dim, or none in ``dims``, is
+    the same tensor)."""
+    n, r = int(mesh.n_model), int(mesh.model_rank)
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in state.items():
+        d = dims.get(name)
+        if d is None:
+            out[name] = t
+            continue
+        w = t.shape[d] // n
+        out[name] = t.narrow(d, r * w, w).clone(memory_format=torch.contiguous_format)
+    return out
+
+
+def gather_state(pieces: Mapping[str, torch.Tensor], mesh,
+                 dims: Mapping[str, Optional[int]]) -> Dict[str, torch.Tensor]:
+    """The inverse of ``cut_state``: each piece with a dim gathered whole over
+    ``mesh``'s model group (one collective a piece; every rank of the group
+    calls it, in the same order, and receives the same bits)."""
+    return {name: (t if dims.get(name) is None else mesh.all_gather(t, dim=dims[name]))
+            for name, t in pieces.items()}
+
+
 def shard_state_dict(state: Mapping[str, torch.Tensor], mesh,
                      rules: Sequence[Rule]) -> Dict[str, torch.Tensor]:
     """This rank's piece of ``state`` (a full state dict in the port's
@@ -180,19 +228,8 @@ def shard_state_dict(state: Mapping[str, torch.Tensor], mesh,
     (a warning each; the list in ``shard_state_dict.last_fallbacks``).  A
     cut piece is a copy (the full leaf can be freed); a whole leaf is the
     same tensor."""
-    n, r = int(mesh.n_model), int(mesh.model_rank)
     fallbacks: List[str] = []
-    out: Dict[str, torch.Tensor] = {}
-    for name, t in state.items():
-        path = jax_path_of_name(name, t.dim())
-        spec = leaf_spec(path, t, n, rules, fallbacks)
-        piece = t
-        for dim, axis in enumerate(spec):
-            if axis is not None:
-                d = _torch_dim(path, t.dim(), dim)
-                w = t.shape[d] // n
-                piece = piece.narrow(d, r * w, w)
-        out[name] = piece.clone() if piece is not t else t
+    out = cut_state(state, mesh, split_dims(state, int(mesh.n_model), rules, fallbacks))
     for msg in fallbacks:
         logging.warning("shard_state_dict replication fallback: %s", msg)
     shard_state_dict.last_fallbacks = fallbacks
@@ -200,3 +237,14 @@ def shard_state_dict(state: Mapping[str, torch.Tensor], mesh,
 
 
 shard_state_dict.last_fallbacks = []
+
+# replicated leaves used inside a column-parallel region: each rank's
+# gradient is the part of its own output columns
+PARTIAL_GRAD_RULES = [r"lora_a/kernel$"]
+
+
+def partial_grad(name: str, ndim: int) -> bool:
+    """Whether the state entry ``name`` (replicated) gets a partial gradient
+    on each rank of a model group, to be summed over the group."""
+    path = jax_path_of_name(name, ndim)
+    return any(re.search(p, path) for p in PARTIAL_GRAD_RULES)

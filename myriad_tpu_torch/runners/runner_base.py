@@ -47,6 +47,29 @@ optimizer's state is matched by name (``AdamW.load_optax_tree``).  Rank 0
 alone makes ``output_dir``, writes ``log.txt`` and writes the ring (every
 rank calls the save, which barriers around rank 0's write); every rank
 reads ``resume_ckpt_path``.
+
+With ``model_shards: n`` > 1 (and ``use_mesh``, true by default then) the
+runner trains over a (data, model) mesh, as the JAX runner's ``_place_model``
+shards its trees over ``make_mesh(n_model=n)``: model groups of n
+consecutive ranks each hold the LLaMA's shards (``parallel.mesh.make_mesh``,
+``Myriad.shard``; ``train.py`` builds both before the runner, which does it
+itself for a model given whole), and the data groups across them split the
+batch.  The sampler, the host seeds and every sum above follow the data
+rank and the data group (``common.dist``'s data axis), so each model group
+is counted once.  The ranks of a group feed bit-identical arrays: the
+group's first rank prepares them (the stage draws, the vision expert's
+maps, the NSA twins its loader made) and broadcasts them.  It alone runs
+the towers, so after the backward the towers' trainables have a gradient
+there only: the replicated trainables' gradients are summed over the world
+in one buffer, the group's first rank adding its gradient and the others
+zeros, except where each rank holds a part (``partition.partial_grad``:
+``lora_a``), which every rank adds; the shards' gradients are summed over
+the data group.  ``clip_by_global_norm`` counts each shard's squares over
+the group (``AdamW``).  The ring is written whole:
+the shards of the trainables and of Adam's ``mu``/``nu`` are gathered over
+the model group and rank 0 writes the JAX runner's layout, so a ring
+written under a mesh resumes on one process and a one-process ring on a
+mesh (``_resume`` cuts each whole tensor to the rank's piece).
 """
 
 from __future__ import annotations
@@ -68,6 +91,8 @@ from myriad_tpu_torch.convert_from_jax import jax_leaves, tree_of
 from myriad_tpu_torch.datasets.loaders import (DataLoader, DistributedSampler,
                                                IterableBatcher, IterLoader, MultiIterLoader,
                                                PrefetchLoader)
+from myriad_tpu_torch.parallel import partition
+from myriad_tpu_torch.parallel.mesh import make_mesh
 
 
 class RunnerBase:
@@ -80,7 +105,8 @@ class RunnerBase:
         self.job_id = job_id
         self.device = model.device
         self.base_seed = int(self.run_cfg.get("seed", 42))
-        self.seed = self.base_seed + dist.get_rank()
+        self.mesh = self._model_mesh(model)
+        self.seed = self.base_seed + dist.get_data_rank()
         self.max_epoch = int(self.run_cfg.get("max_epoch", 1))
         self.iters_per_epoch = int(self.run_cfg.get("iters_per_epoch", 100))
         self.accum_grad_iters = int(self.run_cfg.get("accum_grad_iters", 1))
@@ -104,7 +130,8 @@ class RunnerBase:
             beta2=float(self.run_cfg.get("beta2", 0.999)),
             max_grad_norm=self.run_cfg.get("max_grad_norm"),
             accum_grad_iters=self.accum_grad_iters,
-            mu_dtype=self.run_cfg.get("optimizer_mu_dtype"))
+            mu_dtype=self.run_cfg.get("optimizer_mu_dtype"), mesh=self.mesh,
+            sharded=[n in self._split_dims for n, _ in model.trainable_parameters()])
         self._train_loaders = None
         self._train_ratios = []
         self.global_step = 0
@@ -115,6 +142,25 @@ class RunnerBase:
         resume = self.run_cfg.get("resume_ckpt_path")
         if resume:
             self._resume(resume)
+
+    def _model_mesh(self, model):
+        """The tensor-parallel mesh of ``run.model_shards`` (None for one
+        shard): the model's own when ``train.py`` sharded it, else made here
+        and the model sharded over it."""
+        n_model = dist.model_shards(self.run_cfg)
+        mesh = getattr(model, "mesh", None)
+        if n_model > 1 and mesh is None:
+            mesh = make_mesh(n_model, device=self.device.type)
+            model.shard(mesh)
+        if (mesh.n_model if mesh is not None else 1) != n_model:
+            raise ValueError(f"the model is sharded over {mesh.n_model if mesh else 1} ranks, "
+                             f"run.model_shards asks for {n_model}")
+        return mesh
+
+    @property
+    def _split_dims(self) -> Dict[str, int]:
+        """The dim each sharded trainable is cut along, by name."""
+        return getattr(self.model, "split_dims", {})
 
     # -- data ------------------------------------------------------------------
     def _build_train_loaders(self):
@@ -145,12 +191,13 @@ class RunnerBase:
         return loaders, ratios
 
     def _sampler(self, dataset, shuffle: bool):
-        """Under a world above 1, this rank's ``DistributedSampler`` over a
-        map-style split, seeded without the rank offset, so that every rank
-        draws one permutation; None in a world of one."""
-        if dist.get_world_size() <= 1:
+        """Over more than one data rank, this data rank's ``DistributedSampler``
+        over a map-style split, seeded without the rank offset, so that every
+        rank draws one permutation (the ranks of a model group the same
+        share); None over one."""
+        if dist.get_data_world_size() <= 1:
             return None
-        return DistributedSampler(dataset, dist.get_world_size(), dist.get_rank(),
+        return DistributedSampler(dataset, dist.get_data_world_size(), dist.get_data_rank(),
                                   shuffle=shuffle, seed=self.base_seed)
 
     @property
@@ -170,7 +217,7 @@ class RunnerBase:
         """One batch: forward, backward (the global token mean's gradient
         across ranks), optimizer.  Returns (loss, the rate of this global
         step) as host floats."""
-        arrays, static = self.model.prepare_train_arrays(samples, rng)
+        arrays, static = self._prepare(samples, rng)
         self.optimizer.zero_grad()
         loss = self._global_mean_backward(*self.model.train_nll(arrays, static))
         self.optimizer.step()
@@ -180,14 +227,38 @@ class RunnerBase:
         self.losses.append(loss)
         return loss, lr
 
+    def _prepare(self, samples, rng: np.random.Generator):
+        """The batch's arrays and static stage: the model's own, or under a
+        mesh the model group's first rank's, broadcast to the group (shapes
+        and stage as one object, then each tensor)."""
+        mesh = self.mesh
+        if mesh is None:
+            return self.model.prepare_train_arrays(samples, rng)
+        meta = None
+        if mesh.model_rank == 0:
+            arrays, static = self.model.prepare_train_arrays(samples, rng)
+            arrays = {k: v.contiguous().clone() for k, v in arrays.items()}
+            meta = (static, [(k, tuple(v.shape), v.dtype) for k, v in arrays.items()])
+        static, shapes = mesh.broadcast_object(meta)
+        if mesh.model_rank != 0:
+            arrays = {k: torch.empty(shape, dtype=dtype, device=self.device)
+                      for k, shape, dtype in shapes}
+        for k, _, _ in shapes:
+            mesh.broadcast_(arrays[k])
+        return arrays, static
+
     def _global_mean_backward(self, total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
         """Backpropagate this rank's share of the global token mean, then sum
-        the trainables' gradients over the ranks; returns the global loss.
-        Outside a process group the sums are this process's own: the batch's
-        mean, ``train_loss``'s arithmetic, and its gradient (a tensor the
-        stage leaves unused gets zeros, as AdamW reads a missing one)."""
+        the trainables' gradients over the data ranks (under a mesh,
+        ``_mesh_grad_sums``); returns the global loss.  Outside a process
+        group the sums are this process's own: the batch's mean,
+        ``train_loss``'s arithmetic, and its gradient (a tensor the stage
+        leaves unused gets zeros, as AdamW reads a missing one)."""
         sums = torch.stack([total.detach().double(), count.double()])
-        dist.all_sum_([sums])
+        if self.mesh is None:
+            dist.all_sum_([sums])
+        else:
+            self.mesh.data_sum_([sums])
         n = sums[1].clamp_min(1)
         (total / n.to(total.dtype)).backward()
         grads = []
@@ -195,8 +266,30 @@ class RunnerBase:
             if p.grad is None:  # a stage's unused tensor: zero on every rank
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
-        dist.all_sum_(grads)
+        if self.mesh is None:
+            dist.all_sum_(grads)
+        else:
+            self._mesh_grad_sums()
         return sums[0].to(total.dtype) / n.to(total.dtype)
+
+    def _mesh_grad_sums(self) -> None:
+        """Under a mesh: the replicated trainables' gradients summed over the
+        world in one flat buffer, each rank adding its part of a partial one
+        (``partition.partial_grad``) and, of any other, the group's first
+        rank its value and the others zeros (the model group's sum and the
+        data groups' in one collective, the same bits on every rank); a
+        shard's gradient is its own, summed over the data group."""
+        lead = self.mesh.model_rank == 0
+        replicated, shards = [], []
+        for name, p in self.model.trainable_parameters():
+            if name in self._split_dims:
+                shards.append(p.grad)
+                continue
+            if not (lead or partition.partial_grad(name, p.dim())):
+                p.grad.zero_()
+            replicated.append(p.grad)
+        self.mesh.world_sum_(replicated)
+        self.mesh.data_sum_(shards)
 
     # -- checkpoints -------------------------------------------------------------
     def _to_tree(self, tensors: Dict[str, torch.Tensor]) -> Dict:
@@ -206,14 +299,26 @@ class RunnerBase:
     def _from_tree(tree) -> Dict[str, torch.Tensor]:
         return {name: t for _, name, t in jax_leaves(tree)}
 
+    def _whole(self, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Trainable-shaped tensors by name, the shards gathered whole over the
+        model group (every rank of the group calls it)."""
+        if self.mesh is None:
+            return named
+        return partition.gather_state(named, self.mesh, self._split_dims)
+
     def _save_checkpoint(self, epoch, is_best: bool = False) -> str:
         """Every rank calls it; rank 0 builds the state and writes it (the
-        trainables and the optimizer's state are the same on every rank)."""
+        trainables and the optimizer's state are the same on every rank of a
+        model group; under a mesh every rank gathers the shards whole
+        first)."""
         state = None
-        if dist.is_main_process():
-            state = {"model": self._to_tree(self.model.trainable_state_dict()),
-                     "optimizer": self.optimizer.optax_tree(self._to_tree),
+        if dist.is_main_process() or self.mesh is not None:
+            to_tree = lambda named: self._to_tree(self._whole(named))  # noqa: E731
+            state = {"model": to_tree(self.model.trainable_state_dict()),
+                     "optimizer": self.optimizer.optax_tree(to_tree),
                      "epoch": np.asarray(epoch), "global_step": np.asarray(self.global_step)}
+            if not dist.is_main_process():
+                state = None
         path = self.ckpt_manager.save("best" if is_best else epoch, state)
         if dist.is_main_process():
             logging.info("Saved checkpoint at epoch %d to %s", epoch, path)
@@ -222,24 +327,43 @@ class RunnerBase:
     def _resume(self, path: str) -> None:
         """Restore a ring checkpoint: an Orbax directory (the JAX runner's
         state), one of the port's earlier ``.pth`` files, or, as the JAX
-        runner reads any other file, a parameter tree alone."""
+        runner reads any other file, a parameter tree alone.  The ring holds
+        whole tensors; under a mesh each is cut to the rank's piece."""
         trainables = self.model.trainable_state_dict()
+        target = trainables
+        if self.mesh is not None:  # whole tensors, this rank's pieces taken after
+            target = {n: t.detach().clone() for n, t in self._whole(trainables).items()}
         if os.path.isdir(path) or not ckpt_lib.is_port_checkpoint(path):
             state = (ckpt_lib.load_params(path) if os.path.isdir(path)
                      else {"model": ckpt_lib.load_params(path)})
-            loaded, _ = ckpt_lib.merge_with_paths(trainables, state["model"])
+            loaded, _ = ckpt_lib.merge_with_paths(target, state["model"])
             if "optimizer" in state:
-                self.optimizer.load_optax_tree(state["optimizer"], self._from_tree)
+                self.optimizer.load_optax_tree(state["optimizer"],
+                                               lambda tree: self._cut(self._from_tree(tree)))
         else:
             state = ckpt_lib.load_checkpoint(path)
-            loaded, _ = ckpt_lib.merge_into(trainables, state["model"])
-            self.optimizer.load_state_dict(state["optimizer"])
+            loaded, _ = ckpt_lib.merge_into(target, state["model"])
+            opt = dict(state["optimizer"])
+            for key in ("mu", "nu", "acc"):
+                if opt.get(key) is not None:
+                    opt[key] = self._cut(opt[key])
+            self.optimizer.load_state_dict(opt)
+        if self.mesh is not None:
+            with torch.no_grad():
+                for n, piece in self._cut(target).items():
+                    trainables[n].copy_(piece)
         if "epoch" in state:
             self.start_epoch = int(state["epoch"]) + 1
         if "global_step" in state:
             self.global_step = int(state["global_step"])
         logging.info("Resumed from %s (epoch %d, %d tensors)", path, self.start_epoch,
                      len(loaded))
+
+    def _cut(self, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole trainable-shaped tensors cut to this rank's pieces."""
+        if self.mesh is None:
+            return named
+        return partition.cut_state(named, self.mesh, self._split_dims)
 
     @dist.main_process
     def log_stats(self, stats: Dict, split_name: str = "train") -> None:

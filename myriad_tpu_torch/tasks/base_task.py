@@ -101,19 +101,22 @@ class BaseTask:
 
     @staticmethod
     def save_result(result, result_dir: str, filename: str, remove_duplicate: str = "") -> str:
-        """Each rank writes ``{filename}_rank{r}.json``; rank 0 merges them in
-        rank order into ``{filename}.json``, keeping the first item of each
-        ``remove_duplicate`` key when one is named (the padded eval shares
-        repeat rows); every rank returns the merged file's path once it is
-        written."""
+        """Each data rank writes ``{filename}_rank{r}.json`` (under a model
+        axis the model group's first rank: the group's ranks hold the same
+        rows); rank 0 merges them in rank order into ``{filename}.json``,
+        keeping the first item of each ``remove_duplicate`` key when one is
+        named (the padded eval shares repeat rows); every rank returns the
+        merged file's path once it is written."""
         os.makedirs(result_dir, exist_ok=True)
-        with open(os.path.join(result_dir, f"{filename}_rank{dist.get_rank()}.json"), "w") as f:
-            json.dump(result, f)
+        if dist.is_data_writer():
+            with open(os.path.join(result_dir, f"{filename}_rank{dist.get_data_rank()}.json"),
+                      "w") as f:
+                json.dump(result, f)
         dist.barrier("save_result")
         final_file = os.path.join(result_dir, f"{filename}.json")
         if dist.is_main_process():
             merged = []
-            for rank in range(dist.get_world_size()):
+            for rank in range(dist.get_data_world_size()):
                 with open(os.path.join(result_dir, f"{filename}_rank{rank}.json")) as f:
                     merged += json.load(f)
             if remove_duplicate:

@@ -9,6 +9,10 @@ Data parallel over N cards of a host, one rank a card:
 
     torchrun --nproc_per_node N -m myriad_tpu_torch.train --cfg-path ...
 
+With ``run.model_shards: n`` (n dividing N) the LLaMA is sharded over model
+groups of n consecutive ranks (tensor parallelism, the JAX runner's
+``model`` mesh axis) and the N / n data groups split the batch.
+
 Builds ``common.config.Config`` from the YAML (with the port's copies of the
 default YAMLs) and ``--options``, then the task, the datasets, the model and
 ``RunnerBase``, and trains.  The model is ``model.arch``'s (``myriad`` or
@@ -21,7 +25,10 @@ which the first log line says.  Without a card ``cuda`` raises; nothing
 falls back to the CPU.  Under a launcher (``WORLD_SIZE`` above 1) the
 process joins the group before anything touches the card
 (``common.dist.init_distributed_mode``) and runs on ``cuda:LOCAL_RANK``
-(modulo the host's cards); ``batch_size_train`` is each rank's batch.
+(modulo the host's cards); ``batch_size_train`` is each data group's
+batch.  Under ``model_shards`` > 1 the mesh is built
+(``parallel.mesh.make_mesh``) before the seeds, which follow the data rank,
+and the model is sharded over it (``shard``) before the runner.
 ``build`` returns the runner before it trains; ``main`` trains it and
 returns it.
 """
@@ -40,6 +47,7 @@ from myriad_tpu_torch import tasks
 from myriad_tpu_torch.common import dist
 from myriad_tpu_torch.common.config import Config
 from myriad_tpu_torch.common.logger import setup_logger
+from myriad_tpu_torch.parallel.mesh import make_mesh
 from myriad_tpu_torch.runners import RUNNERS
 
 
@@ -74,7 +82,7 @@ def resolve_device(run_cfg):
 
 
 def setup_seeds(config) -> None:
-    seed = int(config.run_cfg.get("seed", 42)) + dist.get_rank()
+    seed = int(config.run_cfg.get("seed", 42)) + dist.get_data_rank()
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
@@ -90,15 +98,22 @@ def build(argv=None):
     device = dist.device_of(device.type)
     setup_logger()
     logging.info(note)
+    n_model = dist.model_shards(cfg.run_cfg)
+    mesh = make_mesh(n_model, device=device.type) if n_model > 1 else None
     if backend:
         logging.info("data parallel: rank %d of %d on %s over %s", dist.get_rank(),
                      dist.get_world_size(), device, backend)
+    if mesh is not None:
+        logging.info("tensor parallel: model rank %d of %d, data rank %d of %d",
+                     mesh.model_rank, mesh.n_model, mesh.data_rank, mesh.n_data)
     setup_seeds(cfg)
     # one output directory for the job: rank 0's clock names it on every rank
     job_id = dist.broadcast_object(datetime.now().strftime("%Y%m%d%H%M%S"))
     task = tasks.setup_task(cfg)
     datasets = task.build_datasets(cfg)
     model = task.build_model(cfg, device=device)
+    if mesh is not None:
+        model.shard(mesh)
     runner_name = cfg.run_cfg.get("runner", "runner_base")
     if runner_name not in RUNNERS:
         raise KeyError(f"Unknown runner '{runner_name}'. Registered: [{', '.join(RUNNERS)}]")

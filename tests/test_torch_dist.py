@@ -244,7 +244,10 @@ def test_join_is_the_launchers_and_never_falls_back(monkeypatch):
     assert (kwargs["world_size"], kwargs["rank"]) == (2, 1)
     assert dist.get_world_size() == 1 and dist.get_rank() == 0
     assert dist.device_of("cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="2 ranks not divisible by model axis 3"):
+        dist.init_distributed_mode({"model_shards": 3}, "cpu")
+    monkeypatch.delenv("WORLD_SIZE")
+    with pytest.raises(ValueError, match="1 ranks not divisible by model axis 2"):
         dist.init_distributed_mode({"model_shards": 2}, "cpu")
 
 

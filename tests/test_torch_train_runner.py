@@ -206,13 +206,13 @@ def test_train_runs_on_the_card_unless_asked_for_the_cpu(cfg_path, device, error
 def test_world_size_above_one_and_int4_training_raise(cfg_path, tmp_path, monkeypatch):
     """A run config's ``world_size`` without a launcher trains as one process,
     as the JAX package never reads it; ``model_shards`` > 1 (tensor
-    parallelism) raises; int4 LLM weights do not train."""
+    parallelism) in a world of one raises; int4 LLM weights do not train."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     one = train.build(["--cfg-path", cfg_path, "--options", f"run.output_dir={tmp_path}",
                        "run.world_size=2", "run.use_mesh=True"])
     assert dist.get_world_size() == 1 and not dist.is_dist_avail_and_initialized()
     assert one._sampler(one.datasets["anomaly_detection"]["train"], True) is None
-    with pytest.raises(NotImplementedError, match="model_shards=2: tensor parallelism"):
+    with pytest.raises(ValueError, match="1 ranks not divisible by model axis 2"):
         train.build(["--cfg-path", cfg_path, "--options", "run.model_shards=2"])
     runner = train.build(["--cfg-path", cfg_path, "--options", f"run.output_dir={tmp_path}",
                           "model.llm_weight_dtype=int4"])
