@@ -71,13 +71,14 @@ Phases, each printing its own lines:
    900x900 and 12 gray 1024x1024, half of each anomalous, two classes):
    ``eval_configs/myriad.yaml`` at full width with int8 LLM weights and an int8
    KV cache, random weights, ``--bs 8 --greedy --bench``, ``EVAL_TOKENS`` (48)
-   new tokens (as phases 9 (d), 11 and 12 (b, e): cut from 90); check
+   new tokens (as phases 9, 11 and 12 (b, e): cut from 90); check
    24 rows with the harness's schema, each row's tokens identical to a direct
    ``Myriad.generate`` on the same collated batch, and B1-B4 launched; print
    the ``--bench`` line, its phase means, the PNG decode and resize time per
    image on this host and the peak device memory;
 9. on phase 8's model, the continuous-batching engine
-   (``myriad_tpu_torch.serving``): (a) 24 requests over 8 slots, four
+   (``myriad_tpu_torch.serving``): (a) 24 requests of ``EVAL_TOKENS``
+   tokens over 8 slots, four
    arrivals a tick, segment 32, the eval's 297-position prefixes and the
    same cut to 120 and 50 (widths 320, 160 and 64 admit): every request
    finishes, a second run gives the same transcripts bit for bit, B1-B4's
@@ -146,7 +147,8 @@ Phases, each printing its own lines:
    4-token warm-up, peak memory); (d) a batch-1 chat: the upload's B1
    launches (the Q-Former) and ``torch._int_mm`` calls (EVA, ImageBind, the
    cross-attention's keys and values) equal to the counts the architecture
-   gives, ``encode_img`` gated against the plain path, one turn; (e) top-p
+   gives, B6 once (the image's normalisation), ``encode_img`` gated
+   against the plain path, one turn; (e) top-p
    0.9 sampling: a generate (one seed) and a chat turn, each twice,
    identical, and a one-token nucleus equal to the argmax;
 13. between phases 12 and 10: the reference's own checkpoint files, written
@@ -216,20 +218,33 @@ Phases, each printing its own lines:
    rank 0 keeps the whole LLaMA as the oracle.  Every rank's shard is the
    slice of the whole weights bit for bit (the Megatron layout written out
    here, apart from the rule tables) and the prefix the same bits on every
-   rank; greedy ``generate`` (batch 8, 90 tokens): the prefill logits
+   rank; greedy ``generate`` (batch 8, ``TP_TOKENS``): the prefill logits
    within ``TP_TOL`` of the one-rank run's, the argmax of every
    teacher-forced step on the one-rank transcript equal wherever its top-2
    margin exceeds ``TP_TOL``, rows identical counted; speculative generate
    (K = 3, lookup drafts, 2 tokens): the first verify round's logits within
-   ``TP_TOL``; the engine (phase 9's schedule, 4 tokens a request) under
-   the same margin rule against the one-rank engine; B1-B4 launched at the
-   one-rank counts on every rank, B5 never; the collectives and their host
-   time in a decode step, seconds a generate, peak memory a rank.  With
-   ``--tp-cards N`` (and nothing else): N ranks, one a card, over NCCL, the
-   same checks, images/s beside one card's and the all-reduce per step; at
-   N = 2 also the int4 LLaMA (B5, never B1).  Phase 2 holds B1-B5 at the
+   ``TP_TOL``; the engine (phase 9's schedule at 12 requests, 4 tokens a
+   request) under
+   the same margin rule against the one-rank engine; a ``Chat`` upload (the
+   first rank alone normalises the image (B6 once) and runs the expert and
+   the towers; the image tokens broadcast, bit-equal to the one-rank
+   upload's)
+   and two greedy turns of ``TP_CHAT_TOKENS`` on the resident cache, under
+   the margin rule against rank 0's whole-model ``Chat``; a top-p
+   ``generate`` and a sampled chat turn (each rank its own generator seeded
+   alike): ids equal on every rank; B1-B4 launched at the one-rank counts
+   on every rank, B5 never; the collectives and their host time in a decode
+   step, seconds a generate, peak memory a rank.  Then ``TP4_WORLD`` ranks
+   on card 0 serve the int4 LLaMA (``TP4_LAYERS`` layers; down's 2752 rows
+   a rank are 21.5 groups of 128, odd ranks from group offset 64): greedy
+   ``generate`` of ``TP4_TOKENS`` under the same prefill and teacher-forced
+   checks, B5 launched on every rank at the one-rank counts and B1 never.
+   With ``--tp-cards N`` (and nothing else): N ranks, one a card, over
+   NCCL, the int8 and the int4 LLaMA with the same checks, images/s beside
+   one card's and the all-reduce per step.  Phase 2 holds B1-B5 at the
    shards' shapes (n = 2 and 4; B1's and B5's row-parallel shapes in the
-   fp32-output mode).
+   fp32-output mode, B5's cut from the whole weight at their rank's group
+   offset).
 18. after phase 17: tensor-parallel training.  Two ranks on card 0 (this
    script with ``--tptrain-rank``, ``torchrun``'s environment, gloo on CUDA
    tensors, a 60-s timeout on every collective) first hold ``Mesh``'s
@@ -270,6 +285,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import inspect
 import json
 import os
 import statistics
@@ -286,9 +302,9 @@ AQA_QUESTION = ("<Img><ImageHere></Img>This image may be simulated by photo edit
 SCENES = ["bottle", "cable", "capsule", "hazelnut"]
 BATCH = 8
 NEW_TOKENS = 90
-# tokens of the eval entry point's runs and of the generates held to them (phases 8, 9 (d),
-# 11 and 12 (b, e)): cut from 90 for the script's seconds; phases 3-7, 9 (a-c), 12's
-# batch of 48, 13, 16 and 17 decode NEW_TOKENS
+# tokens of the eval entry point's runs and of the generates held to them (phases 8, 9,
+# 11 and 12 (b, e)): cut from 90 for the script's seconds; phases 3-7, 12's batch of 48,
+# 13, 16 and 17 decode NEW_TOKENS
 EVAL_TOKENS = 48
 # the serving profile of eval_configs/myriad.yaml that Myriad.from_config reads
 SERVING = {"arch_preset": "full", "llm_weight_dtype": "int8", "llm_kv_dtype": "int8",
@@ -444,16 +460,21 @@ def cluster_launch_report(lib_path) -> None:
               f"the card holds no cluster of B1 at M={m}, {k}x{n}")
         check(m > 32 or plan["blocks_per_sm"] == 3,
               f"B1 at M={m}, {k}x{n}: {plan['blocks_per_sm']} blocks an SM, not 3")
-    for m in (1, BATCH, VERIFY_ROWS, 240):
-        for k, n in llm:
-            plan = quant.int4_launch(m, k, n, quant.INT4_GROUP)
-            print(f"  B5 launch at M={m} {k}x{n} group {quant.INT4_GROUP}: grid "
-                  f"({plan['splits']}, {plan['tiles']}) = {plan['splits'] * plan['tiles']} blocks "
-                  f"of 256 threads, cluster ({plan['splits']}, 1, 1); dynamic shared memory "
-                  f"{plan['smem']} B a block; the card holds {plan['clusters']} such clusters "
-                  f"at once", flush=True)
-            check(plan["splits"] == 1 or plan["clusters"] > 0,
-                  f"the card holds no cluster of B5 at M={m}, {k}x{n}")
+    b5_plans = [(m, k, n, 0, "") for m in (1, BATCH, VERIFY_ROWS, 240) for k, n in llm]
+    b5_plans += [(BATCH, k, n, rank * k % quant.INT4_GROUP if f32 else 0,
+                  f" (n={ranks} rank {rank})") for k, n, f32, ranks, rank in TP_B5_SHAPES]
+    for m, k, n, goff, tag in b5_plans:
+        plan = quant.int4_launch(m, k, n, quant.INT4_GROUP, goff)
+        print(f"  B5 launch at M={m} {k}x{n}{tag} group {quant.INT4_GROUP} offset {goff}: "
+              f"grid ({plan['splits']}, {plan['tiles']}) = {plan['splits'] * plan['tiles']} "
+              f"blocks of 256 threads, cluster ({plan['splits']}, 1, 1); dynamic shared "
+              f"memory {plan['smem']} B a block; the card holds {plan['clusters']} such "
+              f"clusters at once; "
+              + ("uniform stages (a stage's scale row by tensor copy)" if plan["uniform"]
+                 else "scales looked up a register at a time"), flush=True)
+        check(plan["splits"] == 1 or plan["clusters"] > 0,
+              f"the card holds no cluster of B5 at M={m}, {k}x{n}")
+        check(plan["uniform"] == (goff % 128 == 0), f"B5's path at {k}x{n} offset {goff}")
     # and on a rank's heads at n = 2 and 4 (phase 17): the split follows B x H
     for rows, heads, kv_len in ((BATCH, 32, 320), (1, 32, CHAT_KV_LEN), (BATCH, 32, 8192),
                                 (1, 32, 8192), (BATCH, 32, 64),
@@ -736,8 +757,6 @@ def b1_checks(dev, g, b1, inputs):
 
 def _has_fp32_mode(wrapper) -> bool:
     """Whether a B1 or B5 wrapper takes ``out_dtype`` (the fp32-output mode)."""
-    import inspect
-
     return "out_dtype" in inspect.signature(wrapper).parameters
 
 
@@ -745,9 +764,13 @@ def _has_fp32_mode(wrapper) -> bool:
 TP_B1_SHAPES = tuple((k, n, f32, r) for r in (2, 4) for k, n, f32 in (
     (4096, 4096 // r, False), (4096 // r, 4096, True), (4096, 11008 // r, False),
     (11008 // r, 4096, True)))
-# int4 under n = 2: 5504 = 43 groups of 128, so the row shards hold whole groups
-TP_B5_SHAPES = ((4096, 2048, False), (2048, 4096, True), (4096, 5504, False),
-                (5504, 4096, True))
+# and of its int4 projections: (K, N, fp32-output mode, ranks, rank).  A row-parallel
+# shard is cut from the whole weight at its rank: under n = 2 down's 5504 rows are 43
+# groups of 128; under n = 4 its 2752 rows are 21.5, rank 0's from group offset 0 (a
+# partial last group) and rank 1's from 64 (a partial first group)
+TP_B5_SHAPES = tuple((k, n, f32, r, rank) for r in (2, 4) for k, n, f32, rank in (
+    (4096, 4096 // r, False, 0), (4096 // r, 4096, True, 0), (4096, 11008 // r, False, 0),
+    (11008 // r, 4096, True, 0))) + ((2752, 4096, True, 4, 1),)
 TP_HEADS = (16, 8)  # the heads a rank holds at n = 2 and 4
 
 
@@ -1032,20 +1055,40 @@ def b5_checks(dev, g, b5, inputs):
                        shape=(name, work) if m > 1 and not is_main else None,
                        deterministic=True)
         del w_bf16
-    print("B5 at the tensor-parallel shards (phase 17, n = 2): q/k/v and gate/up "
+    print("B5 at the tensor-parallel shards (phase 17, n = 2 and 4 ranks): q/k/v and gate/up "
           "column-parallel (bf16 out); o and down row-parallel in the fp32-output mode "
-          "(tolerance 2^-14 x max(|x| @ |W|): fp32 sums in another order, no rounding)")
-    for k, n, f32 in TP_B5_SHAPES:
+          "(tolerance 2^-14 x max(|x| @ |W|): fp32 sums in another order, no rounding), each "
+          "cut at its rank from the whole weight with the scale rows it touches and its group "
+          "offset; library: torch.matmul on the shard dequantized to bf16")
+    offsets = "goff" in inspect.signature(quant.int4_weight_only_matmul).parameters
+    for k, n, f32, ranks, rank in TP_B5_SHAPES:
         if f32 and not _has_fp32_mode(quant.int4_weight_only_matmul):
             continue  # another tree's package (--parent) without the mode
-        w4, s4 = quant.quantize_int4_grouped(_randn(g, dev, k, n) * 0.02)
-        w_deq = quant.dequant_int4(w4, s4)
+        group = quant.INT4_GROUP
+        if f32:  # rows [rank k, (rank + 1) k) of the whole weight
+            w4w, s4w = quant.quantize_int4_grouped(_randn(g, dev, k * ranks, n) * 0.02)
+            start = rank * k
+            w4 = w4w[start // 2:(start + k) // 2]
+            s4 = s4w[start // group:-(-(start + k) // group)]
+            goff = start % group
+            del w4w, s4w
+        else:
+            w4, s4 = quant.quantize_int4_grouped(_randn(g, dev, k, n) * 0.02)
+            goff = 0
+        split = goff or k % group
+        if split and not offsets:
+            continue  # a parent's wrapper: whole groups only
+        kw = dict(goff=goff, group=group) if split else {}
+        w_deq = quant.dequant_int4(w4, s4, **kw)
         w_bf16 = w_deq.to(bf16)
-        kw = {"out_dtype": torch.float32} if f32 else {}  # no keyword: a parent's wrapper
+        if f32:
+            kw["out_dtype"] = torch.float32  # no keyword otherwise: a parent's wrapper
         x = _randn(g, dev, BATCH, k, dtype=bf16)
         work = (BATCH * k * 2 + k * n // 2 + s4.numel() * 4 + BATCH * n * (4 if f32 else 2),
                 2 * BATCH * k * n)
-        name = f"M={BATCH} {k}x{n} (n=2 {'row-parallel, fp32 out' if f32 else 'column-parallel'})"
+        name = (f"M={BATCH} {k}x{n} (n={ranks} "
+                + (f"rank {rank} row-parallel, group offset {goff}, {k / group:g} groups, fp32 "
+                   "out)" if f32 else "column-parallel)"))
         tol = ((lambda ref, x=x, w=w_deq: 2.0 ** -14 * (x.abs().float() @ w.abs()).max().item())
                if f32 else (lambda ref: 2.0 ** -7 * ref.float().abs().max().item()))
         b5.compare(name, lambda: quant.int4_weight_only_matmul(x, w4, s4, **kw),
@@ -1937,11 +1980,12 @@ def eval_slice(dev, seed, checks, card):
 # and the prefix lengths that make widths 320, 160 and 64 admit
 ENGINE_REQUESTS, ENGINE_SEGMENT, ENGINE_ARRIVALS = 24, 32, 4
 ENGINE_WIDTHS, ENGINE_CUTS, ENGINE_ADMIT_CHUNK = (64, 160, 320), (None, 120, 50), 8
+ENGINE_TOKENS = EVAL_TOKENS  # a request's tokens (cut from NEW_TOKENS for the script's time)
 
 
 def _engine_bucket(spec_k):
-    """ServingEngine's bucket rule of MyriadServing: 416 greedy, 448 with K = 3."""
-    return -(-(max(ENGINE_WIDTHS) + NEW_TOKENS + 2 * spec_k + 1) // 32) * 32
+    """ServingEngine's bucket rule of MyriadServing: 384 greedy, 416 with K = 3."""
+    return -(-(max(ENGINE_WIDTHS) + ENGINE_TOKENS + 2 * spec_k + 1) // 32) * 32
 
 
 def _engine_prompts(model, seed, dev):
@@ -1961,7 +2005,8 @@ def _engine_prompts(model, seed, dev):
     return embeds, prompts, after
 
 
-def _engine_run(llama, prompts, spec_k=0, lookup=None, profile=False, new_tokens=NEW_TOKENS):
+def _engine_run(llama, prompts, spec_k=0, lookup=None, profile=False,
+                new_tokens=ENGINE_TOKENS):
     """One run of the engine's schedule: ENGINE_ARRIVALS submits a tick until
     every request is in, ticks until it drains (``new_tokens`` a request).
     Returns (engine, {request id: Finished}, [(width, rows) of each admission
@@ -2022,14 +2067,15 @@ def engine_slice(dev, seed, checks, card, model, eval_argv, eval_out):
 
     llama = model.module.llama
     vocab, layers = model.arch.llama.vocab_size, model.arch.llama.num_layers
-    cfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    cfg = GenerationConfig(max_new_tokens=ENGINE_TOKENS)
     needs = ["B1 int8_matmul", "B2 decode_attention", "B3 prefill_attention", "B4 kv_write"]
     embeds, prompts, after = _engine_prompts(model, seed, dev)
     p = embeds.shape[1]
     print(f"engine requests: {ENGINE_REQUESTS} over {BATCH} slots, prefixes of "
-          f"{sorted({x.shape[0] for x in prompts})} positions, {ENGINE_ARRIVALS} arrivals a "
-          f"tick, segment {ENGINE_SEGMENT}, widths {ENGINE_WIDTHS}, chunks of at most "
-          f"{ENGINE_ADMIT_CHUNK}, bucket {_engine_bucket(0)}", flush=True)
+          f"{sorted({x.shape[0] for x in prompts})} positions, {ENGINE_TOKENS} tokens a request, "
+          f"{ENGINE_ARRIVALS} arrivals a tick, segment {ENGINE_SEGMENT}, widths "
+          f"{ENGINE_WIDTHS}, chunks of at most {ENGINE_ADMIT_CHUNK}, bucket "
+          f"{_engine_bucket(0)}", flush=True)
 
     # (a) greedy: launches, determinism, the first step after a mixed admission
     (eng, done, chunks), wall, counts = drive(checks, "engine_greedy",
@@ -2038,7 +2084,7 @@ def engine_slice(dev, seed, checks, card, model, eval_argv, eval_out):
     st = eng.stats
     check(sorted(done) == list(range(ENGINE_REQUESTS)), f"finished {sorted(done)}")
     for f in done.values():
-        check(f.tokens.size <= NEW_TOKENS and f.raw_tokens.size <= NEW_TOKENS
+        check(f.tokens.size <= ENGINE_TOKENS and f.raw_tokens.size <= ENGINE_TOKENS
               and bool(((f.raw_tokens >= 0) & (f.raw_tokens < vocab)).all()),
               f"request {f.request_id}: bad tokens")
         check(list(f.tokens) == trim_stop_ids(f.raw_tokens, cfg), "trim disagrees")
@@ -2116,7 +2162,7 @@ def engine_slice(dev, seed, checks, card, model, eval_argv, eval_out):
 
     # (c) two held conversations through the adapter, a second turn each
     serving = MyriadServing(model, slots=BATCH, bucket=576, segment=ENGINE_SEGMENT,
-                            max_new_tokens=NEW_TOKENS, admit_widths=ENGINE_WIDTHS)
+                            max_new_tokens=ENGINE_TOKENS, admit_widths=ENGINE_WIDTHS)
     turn1 = _samples(seed + 4, model.arch.img_size)
     handles = [serving.submit_held({"image": turn1["image"][i:i + 1],
                                     "scene": [model.vision_expert.class_names[i % 2]],
@@ -2587,23 +2633,26 @@ def harness_slice(dev, seed, checks, card, eval_out, dataset):
           f"device memory {peak48 / 2**30:.2f} GiB; card: {card}", flush=True)
     del res, samples48
 
-    # (d) a batch-1 chat: the upload's B1 launches (Q-Former) and torch._int_mm calls
+    # (d) a batch-1 chat: the upload's B6 launch (its normalisation), B1 launches (Q-Former)
+    # and torch._int_mm calls
     rng = np.random.default_rng(seed + 12)
     image = rng.integers(0, 256, size=(a.img_size, a.img_size, 3), dtype=np.uint8)
     Chat(model, incremental=True, spec_k=0).upload_img(image, CONV_VISION.copy(), [])  # warm-up
     chat, conv, img_list = Chat(model, incremental=True, spec_k=0), CONV_VISION.copy(), []
     quant.int_mm_counter.count = 0
     _, wall_up, up = drive(checks, "harness_chat_upload",
-                           lambda: chat.upload_img(image, conv, img_list), ["B1 int8_matmul"])
+                           lambda: chat.upload_img(image, conv, img_list),
+                           ["B1 int8_matmul", "B6 u8_normalize"])
     up_mm = quant.int_mm_counter.count
     n_cross = len(range(0, a.qformer_layers, 2))
     want_b1 = 6 * a.qformer_layers + 2 * n_cross  # q,k,v,o + 2 FFN a layer; q, o a cross
     want_mm = 4 * a.vit_depth + 4 * a.imagebind.vision_num_blocks + 2 * n_cross
-    check(up["B1 int8_matmul"] == want_b1 and up_mm == want_mm
-          and sum(v for k, v in up.items() if k != "B1 int8_matmul") == 0,
-          f"chat upload: B1 {up['B1 int8_matmul']} (want {want_b1}), torch._int_mm {up_mm} "
-          f"(want {want_mm}), others {up}")
-    print(f"chat upload at batch 1 ({wall_up:.4f} s): B1 launched {want_b1} times (the "
+    check(up["B1 int8_matmul"] == want_b1 and up_mm == want_mm and up["B6 u8_normalize"] == 1
+          and sum(v for k, v in up.items() if k not in ("B1 int8_matmul", "B6 u8_normalize"))
+          == 0, f"chat upload: B1 {up['B1 int8_matmul']} (want {want_b1}), torch._int_mm "
+          f"{up_mm} (want {want_mm}), B6 {up['B6 u8_normalize']} (want 1), others {up}")
+    print(f"chat upload at batch 1 ({wall_up:.4f} s): B6 launched once (the image's "
+          f"normalisation), B1 {want_b1} times (the "
           f"Q-Former's {QFORMER_ROWS}-row query stream: {4 * a.qformer_layers + 2 * n_cross} at "
           f"768x768, {a.qformer_layers} at 768x3072, {a.qformer_layers} at 3072x768) and "
           f"torch._int_mm {want_mm} times (EVA {4 * a.vit_depth}, ImageBind "
@@ -4320,15 +4369,29 @@ TP_VIT_BLOCKS = 4  # of EVA-ViT-g's 39: the towers are whole on every rank, not 
 # logits.  The argmax is held wherever the one-rank top-2 margin exceeds it.
 TP_TOL = 0.5
 TP_SPEC_TOKENS = 2  # the speculative run's tokens: its first verify round is the check
-TP_ENGINE_TOKENS = 4  # the engine's tokens a request (phase 9's schedule, cut from 90)
+# the engine's requests (phase 9's schedule cut from 24: 8 slots and 4 more waiting, each
+# prefix cut 4 times) and tokens a request (cut from 48)
+TP_ENGINE_REQUESTS = 12
+TP_ENGINE_TOKENS = 4
 TP_TIMEOUT_S = 60  # every collective of the group: a rank that hangs fails the phase
+# the tokens of the two ranks' greedy generate on card 0 (gloo: a decode step takes
+# 0.26-0.32 s), cut from NEW_TOKENS to keep the script in its time; over NCCL NEW_TOKENS
+TP_TOKENS = 32
+TP_CHAT_TOKENS = 12  # a sharded chat turn's tokens (two greedy turns, one sampled)
+TP_SAMPLE_TOKENS = 8  # the sharded top-p generate's tokens
+# the int4 LLaMA over 4 ranks on card 0 (gloo), its down rows 21.5 groups of 128 a rank:
+# its depth (cut from 32: a 32-layer decode step takes 0.58-0.72 s over four processes;
+# --tp-cards 4 serves all 32) and its greedy generate's tokens
+TP4_WORLD = 4
+TP4_LAYERS = 16
+TP4_TOKENS = 16
 TP_RANK_WALL_S = 420  # the ranks' own limit (the phase's time, with room for a slow host)
 TP_FORCE_CHUNK = 10  # transcript tokens a teacher-forced forward feeds (rows <= 256: B1)
 TP_STEP_PROBE = 4  # decode steps whose collectives are counted and timed
 TP_RANK_COMMAND = [sys.executable, os.path.abspath(__file__)]
 TP_DEVICE = "cuda"  # the ranks' device type (a rehearsal's "cpu")
 TP_NAMES = ["B1 int8_matmul", "B2 decode_attention", "B3 prefill_attention", "B4 kv_write",
-            "B5 int4_matmul"]
+            "B5 int4_matmul", "B6 u8_normalize"]
 
 
 def _digest(tensors) -> list:
@@ -4436,15 +4499,19 @@ def _forced_logits(llama, embeds, tokens, chunk):
 def tp_rank(out_dir, seed) -> int:
     """One rank of phase 17 (run as ``chip_smoke.py --tp-rank DIR``, the
     launcher's environment set by ``tp_slice``): Myriad at full width with
-    the 32-layer int8 LLaMA, sharded over the world's one model group; rank
-    0 keeps the whole LLaMA as the oracle.  The results as
-    ``DIR/rank{RANK}.json``."""
+    the LLaMA of each of ``TP_WEIGHTS`` (int8, int4) at ``TP_LAYERS``
+    layers, sharded over the world's one model group; rank 0 keeps the
+    whole LLaMA as the oracle.  Greedy generate (``TP_TOKENS`` tokens), and
+    with int8 speculative generate, the engine, a chat and sampled decodes.
+    The results as ``DIR/rank{RANK}.json``."""
     import datetime
 
+    import numpy as np
     import torch
 
     sys.path.insert(0, REPO)
     from myriad_tpu_torch.common import dist
+    from myriad_tpu_torch.conversation import CONV_VISION, Chat
     from myriad_tpu_torch.models.myriad import Myriad
     from myriad_tpu_torch.parallel.mesh import make_mesh
     from myriad_tpu_torch.parallel.partition import shard_state_dict
@@ -4469,8 +4536,9 @@ def tp_rank(out_dir, seed) -> int:
         torch.cuda.synchronize(dev)
         return out, time.perf_counter() - t, {n: counters[n].count for n in TP_NAMES}
 
-    for weights in (("int8", "int4") if os.environ.get("TP_INT4") == "1" else ("int8",)):
-        with cut_depth(layers=32, blocks=TP_VIT_BLOCKS):
+    new_tokens = int(os.environ.get("TP_TOKENS", NEW_TOKENS))
+    for weights in os.environ.get("TP_WEIGHTS", "int8").split(","):
+        with cut_depth(layers=int(os.environ.get("TP_LAYERS", 32)), blocks=TP_VIT_BLOCKS):
             model = Myriad.from_config(dict(SERVING, llm_weight_dtype=weights), device=dev,
                                        class_names=SCENES)
         model.init_random(seed)
@@ -4518,20 +4586,20 @@ def tp_rank(out_dir, seed) -> int:
             with _Logits(shard, keep=1) as sh_log:
                 mesh.reset()
                 out, wall, launches = counted(
-                    lambda: model.generate(samples, max_new_tokens=NEW_TOKENS))
+                    lambda: model.generate(samples, max_new_tokens=new_tokens))
             coll = dict(mesh.calls)
             embeds = prefix[0]
             dg = gathered(_digest([embeds]))
             check(all(d == dg[0] for d in dg), "the prefix differs across ranks")
             tokens = out["token_ids"]
-            check_tokens(tokens, BATCH, NEW_TOKENS, model.arch.llama.vocab_size)
-            r.update(wall_s=wall, launches=launches, calls=sh_log.calls, collectives=coll,
-                     tokens_digest=_digest([tokens]))
+            check_tokens(tokens, BATCH, new_tokens, model.arch.llama.vocab_size)
+            r.update(tokens=new_tokens, wall_s=wall, launches=launches, calls=sh_log.calls,
+                     collectives=coll, tokens_digest=_digest([tokens]))
             if rank == 0:
                 with _Logits(full, keep=1) as wh_log:
                     ref, ref_wall, ref_launches = counted(
                         lambda: one_rank(lambda: model.generate(samples,
-                                                                max_new_tokens=NEW_TOKENS)))
+                                                                max_new_tokens=new_tokens)))
                 check(torch.equal(prefix[1], embeds), "the one-rank prefix differs")
                 d0 = (sh_log.whole[0] - wh_log.whole[0]).abs().max().item()
                 check(d0 <= TP_TOL, f"prefill logits differ by {d0} > {TP_TOL}")
@@ -4546,7 +4614,7 @@ def tp_rank(out_dir, seed) -> int:
 
             # (2) teacher-forced on the one-rank transcript, and a few decode steps'
             # collectives counted and timed
-            forced = ref_tokens[:, :NEW_TOKENS - 1].contiguous()
+            forced = ref_tokens[:, :new_tokens - 1].contiguous()
             sh, cache = _forced_logits(shard, embeds, forced, TP_FORCE_CHUNK)
             last = ref_tokens[:, -1:]
             mesh.reset()
@@ -4596,17 +4664,17 @@ def tp_rank(out_dir, seed) -> int:
 
                 # (4) the engine: 24 requests over 8 slots, phase 9's schedule
                 prompts = [embeds[i % BATCH, :ENGINE_CUTS[i % 3]]
-                           for i in range(ENGINE_REQUESTS)]
+                           for i in range(TP_ENGINE_REQUESTS)]
                 with _Logits(shard) as en_log:
                     (eng, done, chunks), eng_wall, eng_launches = counted(
                         lambda: _engine_run(shard, prompts, new_tokens=TP_ENGINE_TOKENS))
-                check(sorted(done) == list(range(ENGINE_REQUESTS)), "the engine lost requests")
+                check(sorted(done) == list(range(TP_ENGINE_REQUESTS)), "the engine lost requests")
                 check(eng.mesh is mesh and eng._state["cache"][0]["k"].shape[1]
                       == shard.config.kv_heads, "the engine's pool is not the rank's heads")
                 r.update(engine_wall_s=eng_wall, engine_launches=eng_launches,
                          engine_steps=eng.stats["decode_steps"], engine_chunks=chunks,
                          engine_digest=_digest([torch.as_tensor(done[i].tokens)
-                                                for i in range(ENGINE_REQUESTS)]))
+                                                for i in range(TP_ENGINE_REQUESTS)]))
                 if rank == 0:
                     with _Logits(full) as en_ref:
                         (_, ref_done, _), ref_eng_wall, _ = counted(
@@ -4614,9 +4682,66 @@ def tp_rank(out_dir, seed) -> int:
                     r.update(engine_rule=_margin_rule(en_log, en_ref, TP_TOL),
                              engine_identical=sum(
                                  done[i].tokens.tolist() == ref_done[i].tokens.tolist()
-                                 for i in range(ENGINE_REQUESTS)),
+                                 for i in range(TP_ENGINE_REQUESTS)),
                              engine_one_rank_wall_s=ref_eng_wall)
                 del eng, done
+
+                # (5) Chat: an upload (the group's first rank runs the expert and the
+                # towers, counted here; the others receive the image tokens) and two greedy
+                # turns on the resident cache, rank 0's whole-model Chat the oracle under
+                # the margin rule; (6) a sampled turn and a top-p generate
+                image = np.random.default_rng(seed + 2).integers(
+                    0, 256, size=(model.arch.img_size, model.arch.img_size, 3), dtype=np.uint8)
+
+                def chat_run(questions, **answer_kw):
+                    chat = Chat(model)
+                    conv, img_list = CONV_VISION.copy(), []
+                    chat.upload_img(image, conv, img_list)
+                    ids = []
+                    for q in questions:
+                        chat.ask(q, conv)
+                        ids.append(chat.answer(conv, img_list, max_new_tokens=TP_CHAT_TOKENS,
+                                               **answer_kw)[1])
+                    return torch.as_tensor(np.concatenate(ids)), img_list[0]
+
+                runs = {"maps": 0, "towers": 0}
+
+                def tally(name, fn):
+                    def run(*a, **k):
+                        runs[name] += 1
+                        return fn(*a, **k)
+                    return run
+
+                model._expert_maps = tally("maps", model._expert_maps)
+                model.module.encode_img = tally("towers", model.module.encode_img)
+                mesh.reset()
+                with _Logits(shard) as ch_log:
+                    (ids, img_tokens), chat_wall, chat_launches = counted(
+                        lambda: chat_run(CHAT_QUESTIONS[:2]))
+                del model._expert_maps, model.module.encode_img
+                r.update(chat_wall_s=chat_wall, chat_launches=chat_launches, chat_runs=runs,
+                         chat_broadcasts=mesh.calls.get("broadcast", 0),
+                         chat_digest=_digest([ids]), chat_image_digest=_digest([img_tokens]))
+                if rank == 0:
+                    with _Logits(full) as ch_ref:
+                        (ref_ids, ref_img), ref_chat_wall, _ = counted(
+                            lambda: one_rank(lambda: chat_run(CHAT_QUESTIONS[:2])))
+                    r.update(chat_rule=_margin_rule(ch_log, ch_ref, TP_TOL),
+                             chat_turns_identical=int((ids == ref_ids).all(dim=1).sum()),
+                             chat_image_equal=bool(torch.equal(img_tokens, ref_img)),
+                             chat_one_rank_wall_s=ref_chat_wall)
+                top, top_wall, top_launches = counted(lambda: model.generate(
+                    samples, max_new_tokens=TP_SAMPLE_TOKENS, do_sample=True,
+                    top_p=SAMPLE_TOP_P, seed=seed))
+                check_tokens(top["token_ids"], BATCH, TP_SAMPLE_TOKENS,
+                             model.arch.llama.vocab_size)
+                (sampled, _), sampled_wall, _ = counted(
+                    lambda: chat_run(CHAT_QUESTIONS[:1], do_sample=True, top_p=SAMPLE_TOP_P))
+                r.update(top_p_wall_s=top_wall, top_p_launches=top_launches,
+                         top_p_digest=_digest([top["token_ids"]]),
+                         top_p_rows_greedy=int((top["token_ids"][:, :TP_SAMPLE_TOKENS]
+                                                == tokens[:, :TP_SAMPLE_TOKENS]).all(dim=1).sum()),
+                         sampled_wall_s=sampled_wall, sampled_digest=_digest([sampled]))
 
             # NCCL's (or gloo's) all-reduce of one row-parallel output, timed
             buf = torch.zeros(BATCH, shard.full_config.hidden_size, device=dev)
@@ -4629,6 +4754,10 @@ def tp_rank(out_dir, seed) -> int:
     mesh.broadcast_(torch.zeros(1, device=dev))  # every rank done
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+    # leave the group together: a rank that exits while another still holds its
+    # connections can abort the other's exit
+    dist.barrier("phase 17 done")
+    dist.destroy()
     return 0
 
 
@@ -4636,28 +4765,44 @@ def tp_slice(dev, seed, checks, card, world=TP_WORLD):
     """Phase 17: ``world`` ranks serving the LLaMA sharded over one model group
     (``python3 chip_smoke.py --tp-rank DIR`` each, on this host's cards by
     ``common.dist``'s rule: gloo on CUDA tensors when they share a card, NCCL
-    a card a rank), held to rank 0's one-rank runs."""
-    import shutil
-
+    a card a rank), held to rank 0's one-rank runs: the int8 LLaMA (and over
+    NCCL the int4 one too), then, on one card, the int4 LLaMA over
+    ``TP4_WORLD`` ranks, whose down rows split a group on every rank."""
     import torch
 
     from myriad_tpu_torch.common import dist
 
-    out_dir = os.path.join(REPO, "build", "tp")
+    cards = torch.cuda.device_count() if TP_DEVICE == "cuda" else 0
+    nccl = dist.transport(TP_DEVICE, world, cards) == "nccl"
+    runs = [(world, "int8,int4" if nccl else "int8", NEW_TOKENS if nccl else TP_TOKENS, 32)]
+    if not nccl:
+        runs.append((TP4_WORLD, "int4", TP4_TOKENS, TP4_LAYERS))
+    return [tp_ranks(seed, checks, card, n, cards, weights, tokens, layers)
+            for n, weights, tokens, layers in runs]
+
+
+def tp_ranks(seed, checks, card, world, cards, weights_run, tokens, layers):
+    """One run of phase 17's ranks: ``world`` ranks serving the LLaMA of each
+    of ``weights_run`` ("int8,int4") at ``layers`` layers, greedy generate of
+    ``tokens`` tokens; their checks and lines.  Returns the ranks' results."""
+    import shutil
+
+    from myriad_tpu_torch.common import dist
+
+    out_dir = os.path.join(REPO, "build", f"tp{world}")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    cards = torch.cuda.device_count() if TP_DEVICE == "cuda" else 0
     backend = dist.transport(TP_DEVICE, world, cards)
-    extra = {"TP_INT4": "1" if backend == "nccl" and world == 2 else "0"}
+    env = {"TP_WEIGHTS": weights_run, "TP_TOKENS": str(tokens), "TP_LAYERS": str(layers)}
     t0 = time.time()
     ranks = ddp_ranks(out_dir, seed, world, command=TP_RANK_COMMAND, flag="--tp-rank",
-                      wall=TP_RANK_WALL_S, env=extra)
+                      wall=TP_RANK_WALL_S, env=env)
     t_ranks = time.time() - t0
     check([r["rank"] for r in ranks] == list(range(world)), "rank numbering")
     want = [f"cuda:{r % cards}" if cards else "cpu" for r in range(world)]
     check([(r["backend"], r["device"]) for r in ranks] == [(backend, d) for d in want],
           f"transport / device: {[(r['backend'], r['device']) for r in ranks]}")
-    for weights in [w for w in ("int8", "int4") if w in ranks[0]]:
+    for weights in weights_run.split(","):
         r0 = ranks[0][weights]
         layers = r0["layers"]
         for r in ranks:
@@ -4665,11 +4810,29 @@ def tp_slice(dev, seed, checks, card, world=TP_WORLD):
             check(q["tokens_digest"] == r0["tokens_digest"], "the ranks' tokens differ")
             check(q["launches"] == r0["launches"], f"launches differ across ranks: "
                   f"{[x[weights]['launches'] for x in ranks]}")
+            for c in checks:
+                c.by_path[f"tp{world}_{weights}_generate_rank{r['rank']}"] = q["launches"].get(
+                    c.name, 0)
             if weights == "int8":
                 check(q["engine_digest"] == r0["engine_digest"], "the ranks' engines differ")
+                for key in ("chat_digest", "chat_image_digest", "top_p_digest",
+                            "sampled_digest"):
+                    check(q[key] == r0[key], f"the ranks' {key} differ")
+                lead = int(r["rank"] == 0)
+                check(q["chat_broadcasts"] == 1 and q["chat_runs"] == {"maps": lead,
+                                                                       "towers": lead}
+                      and q["chat_launches"]["B6 u8_normalize"] == lead,
+                      f"rank {r['rank']}: the upload broadcast {q['chat_broadcasts']} times, "
+                      f"ran the expert and the towers {q['chat_runs']} and B6 "
+                      f"{q['chat_launches']['B6 u8_normalize']} times (the first rank once, "
+                      "the others never)")
                 for c in checks:
-                    c.by_path[f"tp_generate_rank{r['rank']}"] = q["launches"].get(c.name, 0)
                     c.by_path[f"tp_engine_rank{r['rank']}"] = q["engine_launches"].get(c.name, 0)
+                    c.by_path[f"tp_chat_rank{r['rank']}"] = q["chat_launches"].get(c.name, 0)
+                    c.by_path[f"tp_top_p_rank{r['rank']}"] = q["top_p_launches"].get(c.name, 0)
+        if weights == "int8":
+            check(r0["chat_image_equal"], "the sharded upload's image tokens differ from the "
+                  "one-rank upload's")
         la, lo = r0["launches"], r0["one_rank_launches"]
         kernel = "B5 int4_matmul" if weights == "int4" else "B1 int8_matmul"
         other = "B1 int8_matmul" if weights == "int4" else "B5 int4_matmul"
@@ -4688,14 +4851,14 @@ def tp_slice(dev, seed, checks, card, world=TP_WORLD):
               f"each the slice of the whole weights bit for bit), EVA {TP_VIT_BLOCKS} of 39 "
               f"blocks; ranks' wall {t_ranks:.1f} s; built in {r0['build_s']:.1f} s; the prefix "
               f"the same bits on every rank", flush=True)
-        print(f"  greedy generate (batch {BATCH}, {NEW_TOKENS} tokens): sharded {r0['wall_s']:.3f} "
-              f"s ({BATCH / r0['wall_s']:.4f} images/s), one rank {r0['one_rank_wall_s']:.3f} s "
-              f"({BATCH / r0['one_rank_wall_s']:.4f} images/s); prefill logits max|d| "
-              f"{r0['prefill_max_abs']:.4e} (tol {TP_TOL}); rows identical to the one-rank "
-              f"run {r0['rows_identical']} of {BATCH}; free run: calls agreeing "
-              f"{r0['free_run'][0]}, first divergence at call {r0['free_run'][1]} (one-rank "
-              f"margin {r0['free_run'][2]}); launches {la} (one rank {lo}), equal on every rank",
-              flush=True)
+        print(f"  greedy generate (batch {BATCH}, {r0['tokens']} tokens): sharded "
+              f"{r0['wall_s']:.3f} s ({BATCH / r0['wall_s']:.4f} images/s), one rank "
+              f"{r0['one_rank_wall_s']:.3f} s ({BATCH / r0['one_rank_wall_s']:.4f} images/s); "
+              f"prefill logits max|d| {r0['prefill_max_abs']:.4e} (tol {TP_TOL}); rows "
+              f"identical to the one-rank run {r0['rows_identical']} of {BATCH}; free run: "
+              f"calls agreeing {r0['free_run'][0]}, first divergence at call "
+              f"{r0['free_run'][1]} (one-rank margin {r0['free_run'][2]}); launches {la} (one "
+              f"rank {lo}), equal on every rank", flush=True)
         print(f"  teacher-forced on the one-rank transcript ({TP_FORCE_CHUNK} tokens a forward): "
               f"max|d| {r0['forced_max_abs']:.4e}, median of the steps' max "
               f"{r0['forced_median_step_max_abs']:.4e}, first steps "
@@ -4714,12 +4877,28 @@ def tp_slice(dev, seed, checks, card, world=TP_WORLD):
                   f"max|d| {r0['verify_max_abs']:.4e} (tol {TP_TOL}); launches "
                   f"{r0['spec_launches']}", flush=True)
             rule = r0["engine_rule"]
-            print(f"  engine ({ENGINE_REQUESTS} requests over {BATCH} slots, phase 9's "
-                  f"schedule, {TP_ENGINE_TOKENS} tokens a request): sharded {r0['engine_wall_s']:.3f} s, one rank "
+            print(f"  engine ({TP_ENGINE_REQUESTS} requests over {BATCH} slots, phase 9's "
+                  f"schedule, {TP_ENGINE_TOKENS} tokens a request): sharded "
+                  f"{r0['engine_wall_s']:.3f} s, one rank "
                   f"{r0['engine_one_rank_wall_s']:.3f} s, {r0['engine_steps']} decode steps; "
-                  f"transcripts identical {r0['engine_identical']} of {ENGINE_REQUESTS}; "
+                  f"transcripts identical {r0['engine_identical']} of {TP_ENGINE_REQUESTS}; "
                   f"logits calls agreeing {rule[0]}, first divergence at {rule[1]} (one-rank "
                   f"margin {rule[2]}); launches {r0['engine_launches']}", flush=True)
+            rule = r0["chat_rule"]
+            print(f"  chat (an upload, 2 greedy turns of {TP_CHAT_TOKENS} tokens on the resident "
+                  f"cache): sharded {r0['chat_wall_s']:.3f} s, one rank "
+                  f"{r0['chat_one_rank_wall_s']:.3f} s; the image tokens encoded on rank 0 "
+                  f"(B6, the expert and the towers run there once, never elsewhere) and "
+                  f"broadcast, equal to the one-rank upload's bits: "
+                  f"{r0['chat_image_equal']}; turns identical to the one-rank "
+                  f"Chat {r0['chat_turns_identical']} of 2; logits calls agreeing {rule[0]}, "
+                  f"first divergence at {rule[1]} (one-rank margin {rule[2]}); ids equal on "
+                  f"every rank; launches {r0['chat_launches']}", flush=True)
+            print(f"  sampled (top-p {SAMPLE_TOP_P}, seed {seed}, each rank its own generator): "
+                  f"generate (batch {BATCH}, {TP_SAMPLE_TOKENS} tokens) {r0['top_p_wall_s']:.3f} "
+                  f"s, rows equal to the greedy run's {r0['top_p_rows_greedy']} of {BATCH}; a "
+                  f"sampled chat turn {r0['sampled_wall_s']:.3f} s; ids equal on every rank; "
+                  f"launches {r0['top_p_launches']}", flush=True)
         for r in ranks:
             print(f"  rank {r['rank']}: peak device memory "
                   f"{r[weights]['peak_bytes'] / 2**30:.2f} GiB; generate {r[weights]['wall_s']:.3f}"
@@ -5191,7 +5370,7 @@ def main(argv=None) -> int:
     parser.add_argument("--ddp-rank", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--tp-cards", type=int, metavar="N",
                         help="run phases 17 and 18 alone over N ranks, one a card (NCCL; "
-                        "phase 17 with N = 2 also the int4 LLaMA; phase 18 at 32 layers, data "
+                        "phase 17 the int8 and the int4 LLaMA; phase 18 at 32 layers, data "
                         "N / 2 x model 2), and exit: a host of N cards")
     parser.add_argument("--tp-rank", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--tptrain-rank", metavar="DIR", help=argparse.SUPPRESS)
@@ -5310,7 +5489,8 @@ def main(argv=None) -> int:
     say(t_start, "phase 16: data parallelism: two ranks on card 0, a one-rank NCCL group")
     ddp_slice(dev, args.seed, checks, card)
     torch.cuda.empty_cache()
-    say(t_start, "phase 17: tensor-parallel serving: the LLaMA sharded over two ranks on card 0")
+    say(t_start, "phase 17: tensor-parallel serving: the LLaMA sharded over two ranks on card 0, "
+        "then the int4 LLaMA over four")
     tp_slice(dev, args.seed, checks, card)
     say(t_start, "phase 18: tensor-parallel training: the LLaMA sharded over two ranks on card 0")
     tptrain_slice(dev, args.seed, checks, card)

@@ -4,11 +4,14 @@ Two jobs that share one card time-slice it, and each one's measurement reads
 the other's work.  Entry points that measure on the card hold this advisory
 lockfile for their run (``python -m myriad_tpu_torch.evaluate`` on the card):
 
-* ``acquire`` creates the lockfile with ``O_CREAT | O_EXCL``, so of two
-  acquirers that race exactly one creates it.  A record whose pid is dead,
-  whose deadline has passed, or that cannot be read is unlinked (under a
-  guard file's ``flock``, the record read again there) and the create is
-  tried again.
+* ``acquire`` writes its record to a file of its own and hard-links it to
+  the lockfile's name, which fails when the name exists: of two acquirers
+  that race exactly one creates it, and the lockfile is never seen without
+  its record (a holder descheduled between creating an empty file and
+  writing it could lose the lock to a second acquirer).  A record whose pid
+  is dead, whose deadline has passed, or that cannot be read is unlinked
+  (under a guard file's ``flock``, the record read again there) and the
+  create is tried again.
 * A holder past its deadline whose pid is still alive is reported on stderr
   (pid and tag) before its lock is reclaimed, so a measurement window it
   shared is on record.
@@ -89,18 +92,16 @@ def _guard(path: str):
 def _reclaim(path: str) -> bool:
     """Unlink a stale record (reporting a live holder past its deadline);
     True when the lockfile is gone, False when it belongs to a live holder
-    within its deadline or is being written (empty, made within a second)."""
+    within its deadline.  A lockfile appears with its record whole
+    (``_create``), so one that cannot be read is stale."""
     with _guard(path):
         try:
             with open(path) as f:
-                data, st = f.read(), os.fstat(f.fileno())
+                data = f.read()
         except FileNotFoundError:
             return True  # gone already: create again, unlink nothing
         rec = _parse(data)
-        if rec is None:
-            if st.st_size == 0 and time.time() - st.st_mtime < 1.0:
-                return False
-        else:
+        if rec is not None:
             pid = int(rec.get("pid", -1))
             alive = _pid_alive(pid)
             if alive and time.time() <= float(rec.get("deadline", 0)):
@@ -115,17 +116,22 @@ def _reclaim(path: str) -> bool:
 
 
 def _create(path: str, tag: str, max_hold_s: float) -> Optional[str]:
-    """Create the lockfile with our record; the token, or None if it exists."""
-    try:
-        fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY, 0o644)
-    except FileExistsError:
-        return None
+    """Create the lockfile with our record, whole from its first instant (a
+    hard link to the record written beside it); the token, or None if it
+    exists."""
     now = time.time()
     token = f"{os.getpid()}-{time.time_ns()}"
     rec = {"pid": os.getpid(), "tag": tag, "t0": now, "deadline": now + max_hold_s,
            "token": token}
-    with os.fdopen(fd, "w") as f:
+    tmp = f"{path}.{token}"
+    with open(tmp, "w") as f:
         json.dump(rec, f)
+    try:
+        os.link(tmp, path)
+    except FileExistsError:
+        return None
+    finally:
+        os.unlink(tmp)
     return token
 
 

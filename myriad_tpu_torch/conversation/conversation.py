@@ -15,11 +15,23 @@ JAX package's ``Chat``:
 
 - ``upload_img`` takes an HWC uint8 image and normalises it itself, as
   ``LocImageTrainProcessor(identity=True)`` does, with the port's CLIP
-  constants (the processor module imports PIL, which the card lacks);
+  constants, through kernel B6 on the card (``ops.preprocess.
+  u8_normalize_rows``, IEEE divisions: the processor's bytes; the processor
+  module imports PIL, which the card lacks);
 - the delta is prefilled at its exact width.  The JAX package pads it to a
   multiple of 64 (``DELTA_PAD``) only to bound the number of XLA programs it
   compiles; eager PyTorch compiles none, and the transcripts are the same
   (``tests/test_torch_chat.py``).
+
+On a sharded model (``Myriad.shard``), every rank of the model group runs
+the same ``Chat`` calls in lock step.  ``upload_img`` normalises the image
+and runs the vision expert and the towers on the group's first rank alone
+and broadcasts the image tokens, as ``Myriad.serving_maps`` and
+``prefill_embeds`` do; every rank then embeds the text through the split
+``embed_tokens``, holds the resident cache of its own heads and decodes
+from the gathered logits, the same bits on every rank.  A sampled turn
+draws on every rank from a generator seeded alike
+(``generation.greedy_generate``'s rule), so every rank emits the same ids.
 """
 
 from __future__ import annotations
@@ -34,7 +46,7 @@ import torch
 from myriad_tpu_torch.generation import (GenerationConfig, _round_up, continue_generate,
                                          greedy_generate, speculative_generate)
 from myriad_tpu_torch.models.llama import init_cache, serving_cache_dtype
-from myriad_tpu_torch.ops.preprocess import u8_normalize
+from myriad_tpu_torch.ops.preprocess import u8_normalize_rows
 
 
 @dataclasses.dataclass
@@ -76,8 +88,8 @@ class Chat:
 
     ``vis_processor``: the image normalisation of an upload, on the host (the
     reference demo's ``LocImageTrainProcessor(identity=True)``); None
-    normalises on the model's device (``ops.preprocess.u8_normalize``, the
-    same bytes).
+    normalises on the model's device (``ops.preprocess.u8_normalize_rows``,
+    kernel B6 on the card; the same bytes).
     ``spec_k``: speculative decoding depth for incremental turns; None follows
     the model's ``spec_k`` (``llm_spec_k``), 0 disables.  It engages only on
     greedy turns.  The resident cache is re-prefilled from scratch when the
@@ -120,28 +132,36 @@ class Chat:
     def upload_img(self, image, conv: Conversation, img_list: List) -> str:
         """Encode an HWC uint8 image into LLM-space tokens, with the expert's
         maps of the generic 'object' class (``prepare_sample``'s ``maps``: the
-        zero-shot ones of the ImageBind expert; zeros without an expert)."""
+        zero-shot ones of the ImageBind expert; zeros without an expert).  On
+        a sharded model the group's first rank encodes, and the others
+        receive its tokens (``Myriad.image_tokens_on_lead``)."""
         model = self.model
-        if self.vis_processor is None:
-            u8 = torch.as_tensor(np.asarray(image, np.uint8), device=model.device)
-            arr = u8_normalize(u8, out_dtype=torch.float32)[None]
-        else:
-            arr = self.vis_processor({"img": np.asarray(image)})["img"]
-            arr = torch.as_tensor(np.asarray(arr, np.float32), device=model.device)[None]
         ve = model.vision_expert
         if ve is not None and "object" not in ve.class_index:
             ve.class_names = list(ve.class_names) + ["object"]
             ve.class_index["object"] = len(ve.class_names) - 1
             ve._text_feats = None
+        img_list.append(model.image_tokens_on_lead(lambda: self._encode_upload(image), 1))
+        conv.append_message(conv.roles[0], "<Img><ImageHere></Img>")
+        return "Received."
+
+    def _encode_upload(self, image) -> torch.Tensor:
+        """(1, tokens, hidden): the image normalised, the expert's maps, the
+        towers (``upload_img``'s work, on one rank)."""
+        model = self.model
+        if self.vis_processor is None:
+            u8 = torch.as_tensor(np.asarray(image, np.uint8), device=model.device)
+            arr = u8_normalize_rows(u8, out_dtype=torch.float32)[None]
+        else:
+            arr = self.vis_processor({"img": np.asarray(image)})["img"]
+            arr = torch.as_tensor(np.asarray(arr, np.float32), device=model.device)[None]
         samples = {"image": arr, "scene": ["object"],
                    "question": ["<Img><ImageHere></Img>placeholder"], "img_path": ["<chat>"]}
         # prepare_sample's maps, without its one-shot maps: a reference bank
         # that an eval built holds no 'object' class
         img, _, scenes, paths = model._image_question(samples, 1, False)
         maps = model._expert_maps(img, scenes, paths, one_shot=False)
-        img_list.append(model.module.encode_img(img, maps, 1))
-        conv.append_message(conv.roles[0], "<Img><ImageHere></Img>")
-        return "Received."
+        return model.module.encode_img(img, maps, 1)
 
     def ask(self, text: str, conv: Conversation) -> None:
         if (conv.messages and conv.messages[-1][0] == conv.roles[0]

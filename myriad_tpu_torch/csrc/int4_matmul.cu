@@ -10,6 +10,13 @@
 // scale (K/group, N) fp32; y (M, N) bf16.  The scale applies BEFORE the dot
 // and the dequantized weight is rounded to bf16; the sum is fp32.
 //
+// A row-parallel shard of a whole weight (tensor parallelism over the model
+// axis) may start or end inside a group: with a group offset goff, local
+// input row k takes scale row (k + goff) / group, scale holding the rows
+// of the whole weight's scales that the shard touches.  Each weight element
+// is then dequantized as the whole weight's, and the shards' fp32 partials
+// sum to the whole product up to the sums' order.
+//
 // What bounds it on the card: a call does 2*M*K*N operations over K*N/2
 // weight bytes (plus K*N/32 scale bytes at group 128), 4*M operations a
 // byte, far below the H100's ~295 at M <= 32: the weight bytes bound it.
@@ -56,6 +63,10 @@
 //   sums its share of the tile over the ranks' shared memory in rank order
 //   and writes bf16.  One launch, no scratch in device memory, and two runs
 //   give the same bits.
+// - Where a 128-row stage can span two groups (a group that is not a
+//   multiple of 128, or a shard's offset that is not), the stage's scale
+//   row cannot come with it: each thread looks up its registers' scales in
+//   device memory (through the read-only cache) at each 16-row step.
 // - Above 32 rows the warps split x's 32-row slabs (and fewer k-groups) over
 //   the stage's weight tile, which is loaded once: up to 256 rows, each warp
 //   keeps the accumulators of one or two slabs.
@@ -88,6 +99,7 @@ struct Args {
   const float* scale;
   __nv_bfloat16* out;
   int M, K, N, group;
+  int goff;    // group offset: local row k is in scale row (k + goff) / group
   int rows;    // rows of x a stage holds: 8, 16 or 32, or 32 a slab above 32
   int splits;  // blocks of the cluster that split K
   int stages;  // stages of the whole K
@@ -152,7 +164,8 @@ __device__ void issue_stage(const Args& a, const Maps& maps, unsigned char* base
     if (lane == 0) {
       myriad::mbar_arrive_expect_tx(full, kWBytes + (kUniform ? kScaleBytes : 0));
       myriad::tma_load_2d(base, &maps.w, n0, p0, full);
-      if (kUniform) myriad::tma_load_2d(base + kWBytes, &maps.scale, n0, k0 / a.group, full);
+      if (kUniform)
+        myriad::tma_load_2d(base + kWBytes, &maps.scale, n0, (k0 + a.goff) / a.group, full);
     }
     for (int i = lane; i < a.M * (kStageK / 8); i += 32) {
       const int m = i / (kStageK / 8), c = i % (kStageK / 8);
@@ -173,7 +186,8 @@ __device__ void issue_stage(const Args& a, const Maps& maps, unsigned char* base
       const int gn = n0 + 4 * lane;
       const bool ok = gn < a.N;
       myriad::cp_async16(base + kWBytes + 16 * lane,
-                         ok ? a.scale + (size_t)(k0 / a.group) * a.N + gn : a.scale, ok);
+                         ok ? a.scale + (size_t)((k0 + a.goff) / a.group) * a.N + gn : a.scale,
+                         ok);
     }
     for (int i = lane; i < a.M * (kStageK / 2); i += 32) {
       const int m = i / (kStageK / 2), c = i % (kStageK / 2);
@@ -186,11 +200,10 @@ __device__ void issue_stage(const Args& a, const Maps& maps, unsigned char* base
 }
 
 // The bf16x2 (s, s) scales of the thread's kCols columns for input row k,
-// read from device memory: the path of a group that does not hold whole
-// stages.
+// read from device memory: the path of a stage that may span two groups.
 template <int kCols>
 __device__ __forceinline__ void lookup_scales(const Args& a, int k, int n, uint32_t s[kCols]) {
-  const int grp = min(k, a.K - 1) / a.group;
+  const int grp = (min(k, a.K - 1) + a.goff) / a.group;
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     const float v = n + c < a.N ? __ldg(a.scale + (size_t)grp * a.N + n + c) : 0.f;
@@ -417,10 +430,17 @@ void pick(bool uniform, bool f32, int rows, Plan* p) {
   p->smem = (ring > parts ? ring : parts) + 1024;  // and the slack to align the ring
 }
 
+// Whether every 128-row stage lies in one group (the scale row comes with
+// the stage): groups of whole stages from a whole stage's offset, or all
+// the rows in one group.
+bool uniform_stages(int K, int group, int goff) {
+  return (group % kStageK == 0 && goff % kStageK == 0) || goff + K <= group;
+}
+
 Plan plan(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
-          int group, bool f32) {
+          int group, int goff, bool f32) {
   Plan p;
-  const bool uniform = group % kStageK == 0 || group == K;
+  const bool uniform = uniform_stages(K, group, goff);
   const int slabs = (M + kSlab - 1) / kSlab;
   int rows;
   if (M <= kSlab) {  // three blocks an SM, each under 76 KB of shared memory
@@ -448,17 +468,20 @@ Plan plan(const void* x, const void* w, const void* scale, void* out, int M, int
   const bool vec = N % 16 == 0 && K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   p.args = Args{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
                 static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
-                M, K, N, group, rows, splits, stages, vec ? 1 : 0};
+                M, K, N, group, goff, rows, splits, stages, vec ? 1 : 0};
   return p;
 }
 
-// The weight's and the scales' tensor maps (cached in `myriad::tensor_map_2d`).
-cudaError_t tensor_maps(const void* w, const void* scale, int K, int N, int group, Maps* out) {
+// The weight's and the scales' tensor maps (cached in `myriad::tensor_map_2d`):
+// the scales' rows are the groups that the rows from goff to goff + K touch.
+cudaError_t tensor_maps(const void* w, const void* scale, int K, int N, int group, int goff,
+                        Maps* out) {
   cudaError_t e = myriad::tensor_map_2d(&out->w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K / 2, N, N,
                                         kStageP, kTileN, CU_TENSOR_MAP_SWIZZLE_128B,
                                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
   if (e != cudaSuccess) return e;
-  return myriad::tensor_map_2d(&out->scale, scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, K / group, N,
+  return myriad::tensor_map_2d(&out->scale, scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                               (goff + K + group - 1) / group, N,
                                static_cast<uint64_t>(N) * 4, 1, kTileN,
                                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE);
 }
@@ -485,11 +508,11 @@ cudaError_t configure(Plan& p, cudaStream_t stream, cudaLaunchConfig_t* cfg,
 }
 
 cudaError_t launch(const void* x, const void* w, const void* scale, void* out, int M, int K,
-                   int N, int group, void* stream, bool f32) {
-  if (M < 1 || M > 8 * kSlab) return cudaErrorInvalidValue;
-  Plan p = plan(x, w, scale, out, M, K, N, group, f32);
+                   int N, int group, int goff, void* stream, bool f32) {
+  if (M < 1 || M > 8 * kSlab || goff < 0 || goff >= group) return cudaErrorInvalidValue;
+  Plan p = plan(x, w, scale, out, M, K, N, group, goff, f32);
   Maps maps{};
-  cudaError_t e = p.args.vec ? tensor_maps(w, scale, K, N, group, &maps) : cudaSuccess;
+  cudaError_t e = p.args.vec ? tensor_maps(w, scale, K, N, group, goff, &maps) : cudaSuccess;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   if (e == cudaSuccess) e = configure(p, static_cast<cudaStream_t>(stream), &cfg, &attr);
@@ -500,29 +523,35 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out, i
 
 }  // namespace
 
-// x (M, K) bf16, 4-byte aligned; w (K/2, N) uint8 and scale (K/group, N)
-// fp32, 16-byte aligned; out (M, N) bf16; all contiguous, 1 <= M <= 256, K
-// and group even, group dividing K, N a multiple of 4.  One launch.
+// x (M, K) bf16, 4-byte aligned; w (K/2, N) uint8 and scale (ceil((goff +
+// K) / group), N) fp32, 16-byte aligned; out (M, N) bf16; all contiguous,
+// 1 <= M <= 256, K, group and goff even, 0 <= goff < group, N a multiple
+// of 4.  Local row k takes scale row (k + goff) / group.  One launch.
 extern "C" int myriad_int4_matmul(const void* x, const void* w, const void* scale, void* out,
-                                  int M, int K, int N, int group, void* stream) {
-  return static_cast<int>(launch(x, w, scale, out, M, K, N, group, stream, false));
+                                  int M, int K, int N, int group, int goff, void* stream) {
+  return static_cast<int>(launch(x, w, scale, out, M, K, N, group, goff, stream, false));
 }
 
 // The fp32-output mode: the same product, out (M, N) fp32 = the fp32 sum,
 // unrounded.  The same contract otherwise.  One launch.
 extern "C" int myriad_int4_matmul_f32(const void* x, const void* w, const void* scale,
-                                      void* out, int M, int K, int N, int group, void* stream) {
-  return static_cast<int>(launch(x, w, scale, out, M, K, N, group, stream, true));
+                                      void* out, int M, int K, int N, int group, int goff,
+                                      void* stream) {
+  return static_cast<int>(launch(x, w, scale, out, M, K, N, group, goff, stream, true));
 }
 
 // B5's launch at these widths: out[0] the splits of K (the cluster's
 // blocks), out[1] the column tiles, out[2] a block's dynamic shared memory,
 // bytes, out[3] how many such clusters the card holds at once
-// (cudaOccupancyMaxActiveClusters; 0 with one split: no cluster).  Returns
-// a CUDA error.
-extern "C" int myriad_int4_matmul_launch_info(int M, int K, int N, int group, int* out) {
-  if (M < 1 || M > 8 * kSlab) return static_cast<int>(cudaErrorInvalidValue);
-  Plan p = plan(nullptr, nullptr, nullptr, nullptr, M, K, N, group, false);
+// (cudaOccupancyMaxActiveClusters; 0 with one split: no cluster), out[4] 1
+// where every stage lies in one group (its scale row comes with the stage)
+// and 0 where the scales are looked up a register at a time.  Returns a
+// CUDA error.
+extern "C" int myriad_int4_matmul_launch_info(int M, int K, int N, int group, int goff,
+                                              int* out) {
+  if (M < 1 || M > 8 * kSlab || goff < 0 || goff >= group)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan p = plan(nullptr, nullptr, nullptr, nullptr, M, K, N, group, goff, false);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = configure(p, nullptr, &cfg, &attr);
@@ -530,6 +559,7 @@ extern "C" int myriad_int4_matmul_launch_info(int M, int K, int N, int group, in
   out[1] = p.tiles;
   out[2] = p.smem;
   out[3] = 0;
+  out[4] = uniform_stages(K, group, goff) ? 1 : 0;
   if (e == cudaSuccess && p.args.splits > 1)
     e = cudaOccupancyMaxActiveClusters(&out[3], p.kernel, &cfg);
   return static_cast<int>(e);

@@ -21,7 +21,12 @@ Under a tensor-parallel model (``LlamaForCausalLM(mesh=)``) every rank of
 the model group runs these loops in lock step: every host decision (the
 loop's ``done.all()``, the stop rules, the drafts, the staged spans) is
 taken from the gathered logits' argmax, the same bits on every rank, so no
-rank leaves a loop while another waits in a collective.
+rank leaves a loop while another waits in a collective.  A sampled decode
+draws on every rank from its own generator: the gathered logits are the
+same bits everywhere, so generators in one state draw the same ids, with no
+collective a step (the lead drawing and broadcasting would add one).  The
+generators' states are compared once a decode (one gather of a digest) and
+differing ones raise on every rank.
 """
 
 from __future__ import annotations
@@ -110,12 +115,21 @@ def _select_token(logits: torch.Tensor, cfg: GenerationConfig,
 
 
 def _sampler(cfg: GenerationConfig, generator: Optional[torch.Generator],
-             device) -> Optional[torch.Generator]:
+             device, mesh=None) -> Optional[torch.Generator]:
     """The decode's generator: the caller's, or one seeded with 0 when a
-    sampled decode is given none (the JAX package's ``PRNGKey(0)``)."""
+    sampled decode is given none (the JAX package's ``PRNGKey(0)``).  Under
+    a tensor-parallel model (``mesh``), every rank of the model group must
+    hold its generator in the same state: checked by one gather."""
     if cfg.do_sample and generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
+    if cfg.do_sample and mesh is not None:
+        state = generator.get_state().long()
+        digest = torch.stack([state.sum(), (state * torch.arange(1, state.numel() + 1)).sum()])
+        seen = mesh.all_gather(digest.to(mesh.device)[None]).reshape(-1, 2)
+        if not bool((seen == seen[:1]).all()):
+            raise ValueError("a sampled decode over a model group needs every rank's generator "
+                             "in one state (seeded alike): the ranks would draw other tokens")
     return generator
 
 
@@ -170,7 +184,7 @@ def greedy_generate(model: LlamaForCausalLM, inputs_embeds: torch.Tensor, *,
     None)."""
     cfg = config or GenerationConfig()
     b, p, _ = inputs_embeds.shape
-    generator = _sampler(cfg, generator, inputs_embeds.device)
+    generator = _sampler(cfg, generator, inputs_embeds.device, getattr(model, "mesh", None))
     max_len = _round_up(p + cfg.max_new_tokens, cfg.cache_granularity)
     cache = init_cache(model.config, b, max_len, cache_dtype, inputs_embeds.device)
     logits = _prefill(model, inputs_embeds, cache, cfg.prefill_chunks)
@@ -206,7 +220,7 @@ def continue_generate(model: LlamaForCausalLM, new_embeds: torch.Tensor, cache, 
     cfg = config or GenerationConfig()
     if cache[0]["k"].shape[0] != new_embeds.shape[0]:
         raise ValueError("cache batch mismatch")
-    generator = _sampler(cfg, generator, new_embeds.device)
+    generator = _sampler(cfg, generator, new_embeds.device, getattr(model, "mesh", None))
     if valid_len is not None:
         if _chunk_count(new_embeds.shape[1], cfg.prefill_chunks) != 1:
             raise ValueError("valid_len needs a single-chunk prefill")

@@ -108,21 +108,20 @@ class QuantDense(nn.Module):
 class Quant4Dense(nn.Module):
     """Int4 group-wise weight-only Dense with no bias: w_int4 (in/2, out)
     uint8 and scale4 (in/group, out) fp32, named as the JAX package's.  With
-    ``mesh``, a row-parallel shard: ``in_features`` (this rank's) must hold
-    whole groups of the whole weight's, and ``scale4`` stays the whole
-    weight's (the rules replicate it)."""
+    ``mesh``, a row-parallel shard: ``in_features`` (this rank's, even: a
+    nibble pair never straddles a shard) may start or end inside a group of
+    the whole weight's (``ops.quant.int4_row_groups``), and ``scale4``
+    stays the whole weight's (the rules replicate it)."""
 
     def __init__(self, in_features: int, features: int, *, policy: Policy, device, mesh=None):
         super().__init__()
         self.dtype = policy.compute_dtype
         self.mesh = mesh
         whole = in_features * (mesh.n_model if mesh is not None else 1)
+        if in_features % 2:
+            raise ValueError(f"int4 packing needs an even input dim, got {in_features}"
+                             + (f" of the weight's {whole}" if mesh is not None else ""))
         group = int4_group(whole)
-        if in_features % group:
-            raise NotImplementedError(
-                f"int4 row shard: {in_features} of the weight's {whole} input rows over "
-                f"{mesh.n_model} ranks split a group of {group} ({whole} -> {features}); int4 "
-                "row shards that split a group are not ported")
         self.register_buffer("w_int4", torch.empty((in_features // 2, features),
                                                    dtype=torch.uint8, device=device))
         self.register_buffer("scale4", torch.empty((whole // group, features),

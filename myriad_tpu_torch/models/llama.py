@@ -29,7 +29,9 @@ rank's shard, Megatron-style as ``parallel.partition.LLAMA_RULES`` cuts the
 state: the rank holds ``num_heads / n`` heads (and ``kv_heads / n``); q, k,
 v, gate and up are column-parallel (the rank's output columns, their int8
 scales; under LoRA the rank's ``lora_b`` columns, ``lora_a`` whole); o and
-down row-parallel (the rank's input rows, the whole scale), each partial
+down row-parallel (the rank's input rows, the whole scale; an int4 shard's
+rows may start or end inside a group: down's 11008 rows over 4 ranks are
+21.5 groups of 128 a rank), each partial
 product summed over the model group in fp32 and rounded once;
 ``embed_tokens`` is split over hidden and the looked-up rows are gathered;
 ``lm_head`` is split over the vocabulary and the logits are gathered whole

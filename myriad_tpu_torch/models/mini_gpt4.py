@@ -36,6 +36,7 @@ from myriad_tpu_torch.models.layers import (Dense, LayerNormFp32, Policy, init_r
 from myriad_tpu_torch.models.llama import LlamaForCausalLM, lm_nll
 from myriad_tpu_torch.models.myriad import MyriadArch
 from myriad_tpu_torch.models.qformer import QFormer
+from myriad_tpu_torch.parallel.mesh import from_lead
 from myriad_tpu_torch.tokenization import load_llama_tokenizer
 
 # the frozen roots each tower covers (the missing-leaf accounting), as the
@@ -84,13 +85,9 @@ class MiniGPT4Module(nn.Module):
         loss."""
         b = image.shape[0]
         embed = self.llama.embed
-        if mesh is None or mesh.model_rank == 0:
-            img = self.encode_img(image)
-        else:
-            img = torch.empty((b, self.arch.num_query_token, self.arch.llama.hidden_size),
-                              dtype=self.llama_proj.dtype, device=image.device)
-        if mesh is not None:
-            img = mesh.broadcast_from_lead(img)
+        img = from_lead(mesh, lambda: self.encode_img(image),
+                        (b, self.arch.num_query_token, self.arch.llama.hidden_size),
+                        self.llama_proj.dtype, image.device)
         bos = embed(torch.full((b, 1), bos_id, dtype=torch.int64, device=img.device))
         before = embed(before_ids[None].expand(b, -1))
         after = embed(after_ids[None].expand(b, -1))

@@ -26,7 +26,8 @@ Across ranks, ``Myriad.shard(mesh)`` (a ``parallel.mesh.Mesh``, after the
 weights are loaded) makes the LLaMA this rank's tensor-parallel shard; the
 towers and the vision expert stay whole, and only the model group's first
 rank runs them: its maps and image tokens are broadcast, so every rank
-decodes from the same bits.  ``generate`` (greedy and speculative) and
+decodes from the same bits.  ``generate`` (greedy, speculative and top-p),
+``conversation.Chat`` (its upload encodes on the first rank too) and
 ``serving.MyriadServing`` then run on every rank of the group in lock step.
 A sharded model built with ``training=True`` trains: the group's first rank
 runs the towers forward and backward (the gradient of the image tokens is
@@ -66,6 +67,7 @@ from myriad_tpu_torch.models.vision_experts import PrecomputedMaskExpert, build_
 from myriad_tpu_torch.ops import quant
 from myriad_tpu_torch.ops.preprocess import u8_normalize
 from myriad_tpu_torch.orbax_format.checkpointer import is_checkpoint as orbax_checkpoint
+from myriad_tpu_torch.parallel.mesh import from_lead
 from myriad_tpu_torch.tokenization import load_llama_tokenizer
 
 
@@ -175,13 +177,9 @@ class MyriadModule(nn.Module):
         b = image.shape[0]
         before = self.embed_tokens(before_ids[None].expand(b, -1))
         after = self.embed_tokens(after_ids[None].expand(b, -1))
-        if mesh is None or mesh.model_rank == 0:
-            img = self.encode_img(image, maps, stage).to(before.dtype)
-        else:
-            img = torch.empty((b, self.image_tokens(stage), before.shape[-1]),
-                              dtype=before.dtype, device=before.device)
-        if mesh is not None:
-            img = mesh.broadcast_from_lead(img)
+        img = from_lead(mesh, lambda: self.encode_img(image, maps, stage).to(before.dtype),
+                        (b, self.image_tokens(stage), before.shape[-1]), before.dtype,
+                        before.device)
         pieces = [before, img, after]
         if add_bos:
             bos = torch.full((b, 1), bos_id, dtype=torch.int64, device=before.device)
@@ -658,6 +656,16 @@ class Myriad(TrainableModel):
             maps = maps.clone()
             one_maps = maps if same else one_maps.clone()
         return image, question, texts, maps, one_maps
+
+    def image_tokens_on_lead(self, encode: Callable[[], torch.Tensor], stage: int,
+                             b: int = 1) -> torch.Tensor:
+        """``encode()``'s image tokens (b, ``module.image_tokens(stage)``,
+        hidden): as they are on an unsharded model; on a sharded one run on
+        the model group's first rank alone and broadcast to the others in the
+        compute dtype (``parallel.mesh.from_lead``)."""
+        return from_lead(self.mesh, encode,
+                         (b, self.module.image_tokens(stage), self.arch.llama.hidden_size),
+                         self.policy.compute_dtype, self.device)
 
     def serving_maps(self, samples: Dict, stage: int):
         """(image, question, maps) of a batch to serve: the maps that

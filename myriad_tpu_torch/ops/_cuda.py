@@ -37,9 +37,9 @@ _SIGNATURES = {
     "myriad_int8_matmul": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "myriad_int8_matmul_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "myriad_int8_matmul_launch_info": ([_I] * 3 + [_P], _I),
-    "myriad_int4_matmul": ([_P] * 4 + [_I] * 4 + [_P], _I),
-    "myriad_int4_matmul_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
-    "myriad_int4_matmul_launch_info": ([_I] * 4 + [_P], _I),
+    "myriad_int4_matmul": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    "myriad_int4_matmul_f32": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    "myriad_int4_matmul_launch_info": ([_I] * 5 + [_P], _I),
     "myriad_decode_attention": (
         [_P] * 7 + [_I] * 4 + [_L] * 6 + [_I, _F, _P], _I),
     "myriad_decode_attention_launch_info": ([_I] * 4 + [_P], _I),

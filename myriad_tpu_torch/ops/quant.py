@@ -20,8 +20,9 @@ other route requantizes the int4 groups to per-column int8 at each call, as
 the JAX package does off the TPU, and runs W8A8.
 
 Row-parallel shards (a ``mesh`` given to ``int8_matmul`` or ``int4_matmul``:
-x holds this rank's slice of the input features) sum over the model group
-before any rounding: the kernels' fp32-output mode gives fp32 partials,
+x holds this rank's slice of the input features; an int4 shard may start or
+end inside a group, ``int4_row_groups``) sum over the model group before
+any rounding: the kernels' fp32-output mode gives fp32 partials,
 summed over the ranks and rounded once; the W8A8 route takes the row's
 amax over the ranks (a MAX all-reduce, so every rank quantizes x as the
 unsharded product would) and sums the int32 accumulators, exactly.
@@ -246,38 +247,68 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=1).reshape(d2 * 2, f)
 
 
-def dequant_int4(packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Reference dequantization to fp32."""
+def _group_rows(t: torch.Tensor, group: int, goff: int, groups: int) -> torch.Tensor:
+    """t (K, N): a shard's rows, whose first row is row ``goff`` of its first
+    group, as (groups, group, N) with zeros before it and past the last row
+    (a shard that starts or ends inside a group)."""
+    k = t.shape[0]
+    tail = groups * group - goff - k
+    if goff or tail:
+        t = torch.nn.functional.pad(t, (0, 0, goff, tail))
+    return t.reshape(groups, group, t.shape[-1])
+
+
+def _shard_rows(t: torch.Tensor, goff: int, k: int) -> torch.Tensor:
+    """The inverse of ``_group_rows``: (groups, group, N) -> the shard's (K, N)."""
+    return t.reshape(-1, t.shape[-1])[goff:goff + k]
+
+
+def _group_of(k: int, scale4: torch.Tensor, group: Optional[int]) -> int:
+    """The group size: ``group``, or (a whole weight) the rows over the scale rows."""
+    return int(group) if group else k // scale4.shape[0]
+
+
+def dequant_int4(packed: torch.Tensor, scale: torch.Tensor, goff: int = 0,
+                 group: Optional[int] = None) -> torch.Tensor:
+    """Reference dequantization to fp32; ``goff``/``group``: a row shard's
+    (its first row is row ``goff`` of the first scale row's group)."""
     q = unpack_int4(packed).float()
-    d, f = q.shape
-    g = d // scale.shape[0]
-    return (q.reshape(-1, g, f) * scale[:, None, :].float()).reshape(d, f)
+    d = q.shape[0]
+    g = _group_of(d, scale, group)
+    w = _group_rows(q, g, goff, scale.shape[0]) * scale[:, None, :].float()
+    return _shard_rows(w, goff, d)
 
 
 def int4_weight_only_matmul_plain(x2: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor,
-                                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                                  out_dtype: Optional[torch.dtype] = None, goff: int = 0,
+                                  group: Optional[int] = None) -> torch.Tensor:
     """Plain version of B5, the TPU kernel's arithmetic: each nibble and its
     group scale go to bf16, their product is rounded to bf16 (the scale
     applies before the dot), and x @ that weight sums in fp32; the result
-    is in ``out_dtype`` (x's dtype by default; fp32: unrounded)."""
+    is in ``out_dtype`` (x's dtype by default; fp32: unrounded).  ``goff``
+    and ``group``: a row shard's group offset and group size (local row k
+    is in scale row (k + goff) // group)."""
     q = unpack_int4(w4).to(torch.bfloat16)
-    d, f = q.shape
-    groups = scale4.shape[0]
-    w = (q.reshape(groups, d // groups, f) * scale4.to(torch.bfloat16)[:, None, :])
-    return torch.matmul(x2.float(), w.reshape(d, f).float()).to(out_dtype or x2.dtype)
+    d = q.shape[0]
+    g = _group_of(d, scale4, group)
+    w = _group_rows(q, g, goff, scale4.shape[0]) * scale4.to(torch.bfloat16)[:, None, :]
+    return torch.matmul(x2.float(), _shard_rows(w, goff, d).float()).to(out_dtype or x2.dtype)
 
 
 def int4_weight_only_matmul(x2: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor,
-                            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x2 (M, K) @ int4 W (K/2, N) with group scales (K/g, N) -> (M, N) in
+                            out_dtype: Optional[torch.dtype] = None, goff: int = 0,
+                            group: Optional[int] = None) -> torch.Tensor:
+    """x2 (M, K) @ int4 W (K/2, N) with group scales (groups, N) -> (M, N) in
     ``out_dtype`` (x2's dtype by default; ``torch.float32`` is the
-    fp32-output mode, the sum unrounded).
+    fp32-output mode, the sum unrounded).  Local row k takes scale row (k +
+    ``goff``) // ``group``: a row shard of a whole weight may start or end
+    inside a group (``group`` defaults to K / groups, with no offset).
 
     A CPU tensor takes the plain version; a CUDA tensor launches kernel B5
     (bf16 x, M <= SMALL_M) or raises.  One launch and one allocation (the
     output) a call."""
     if not x2.is_cuda:
-        return int4_weight_only_matmul_plain(x2, w4, scale4, out_dtype)
+        return int4_weight_only_matmul_plain(x2, w4, scale4, out_dtype, goff, group)
     # every check runs at every projection of every decode step: each is a
     # comparison, and its message is built only when it fails
     m, k = x2.shape
@@ -288,10 +319,15 @@ def int4_weight_only_matmul(x2: torch.Tensor, w4: torch.Tensor, scale4: torch.Te
         raise ValueError(f"weight must be uint8 ({k // 2}, N), got {w4.dtype} "
                          f"{tuple(w4.shape)}")
     groups = scale4.shape[0] if scale4.dim() == 2 else 0
-    if (scale4.dtype != torch.float32 or groups == 0 or k % groups
-            or (k // groups) % 2 or scale4.shape[1] != n):
-        raise ValueError(f"scale4 must be fp32 (groups, {n}) with an even group dividing {k}, "
-                         f"got {scale4.dtype} {tuple(scale4.shape)}")
+    g = int(group) if group else (k // groups if groups else 0)
+    # the groups cover the shard's rows: its first row is row goff of the
+    # first group, its last row in the last group, and a nibble pair shares
+    # one group (g and goff even)
+    if (scale4.dtype != torch.float32 or groups == 0 or g < 2 or g % 2 or goff % 2
+            or not 0 <= goff < g or groups != -(-(goff + k) // g) or scale4.shape[1] != n):
+        raise ValueError(f"scale4 must be fp32 (groups, {n}) whose even groups of {g} cover "
+                         f"the {k} rows from offset {goff}, got {scale4.dtype} "
+                         f"{tuple(scale4.shape)}")
     if not 1 <= m <= SMALL_M:
         raise ValueError(f"int4_matmul kernel serves 1..{SMALL_M} rows, got {m}")
     if n % 4:
@@ -308,27 +344,31 @@ def int4_weight_only_matmul(x2: torch.Tensor, w4: torch.Tensor, scale4: torch.Te
     lib = _cuda.library()
     out = torch.empty((m, n), dtype=torch.float32 if f32 else torch.bfloat16, device=x2.device)
     err = (lib.myriad_int4_matmul_f32 if f32 else lib.myriad_int4_matmul)(
-        x2.data_ptr(), w4.data_ptr(), scale4.data_ptr(), out.data_ptr(), m, k, n, k // groups,
+        x2.data_ptr(), w4.data_ptr(), scale4.data_ptr(), out.data_ptr(), m, k, n, g, goff,
         _cuda.stream_ptr(x2.device))
     _cuda.check(err, "int4_matmul")
     counter4.count += 1
     return out
 
 
-def int4_launch(m: int, k: int, n: int, group: int) -> dict:
+def int4_launch(m: int, k: int, n: int, group: int, goff: int = 0) -> dict:
     """Kernel B5's launch at these widths, asked of the card: ``splits``
     (the blocks of one column tile's cluster, which split K), ``tiles`` (128
-    output columns each), ``smem`` (a block's dynamic shared memory, bytes)
-    and ``clusters`` (how many of them the card holds at once; 0 with one
-    split, which launches no cluster)."""
-    out = (ctypes.c_int * 4)()
-    _cuda.check(_cuda.library().myriad_int4_matmul_launch_info(m, k, n, group, out),
+    output columns each), ``smem`` (a block's dynamic shared memory, bytes),
+    ``clusters`` (how many of them the card holds at once; 0 with one
+    split, which launches no cluster) and ``uniform`` (whether every
+    128-row stage lies in one group, whose scale row comes with the stage;
+    else each register's scale is looked up)."""
+    out = (ctypes.c_int * 5)()
+    _cuda.check(_cuda.library().myriad_int4_matmul_launch_info(m, k, n, group, goff, out),
                 "int4_matmul launch info")
-    return {"splits": out[0], "tiles": out[1], "smem": out[2], "clusters": out[3]}
+    return {"splits": out[0], "tiles": out[1], "smem": out[2], "clusters": out[3],
+            "uniform": bool(out[4])}
 
 
 def requantize_int4_to_int8(w4: torch.Tensor, scale4: torch.Tensor,
-                            s_col: Optional[torch.Tensor] = None
+                            s_col: Optional[torch.Tensor] = None, goff: int = 0,
+                            group: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The int4 groups as per-column int8 (error <= the plain int8 path's):
     (w8 (in, out) int8, s_col (out,) fp32), as the JAX package computes them
@@ -336,16 +376,18 @@ def requantize_int4_to_int8(w4: torch.Tensor, scale4: torch.Tensor,
     form its compiler gives it inside the jitted model, one multiply by
     fp32(8 / 127), which can differ from the two steps in the last bit.
     ``s_col`` given (a row shard's: the whole weight's column scales) is
-    used as it is."""
+    used as it is; ``goff`` and ``group`` map a row shard's rows to their
+    groups (``int4_weight_only_matmul``'s), so every row is the whole
+    weight's requantized row."""
     q = unpack_int4(w4)
-    d, f = q.shape
-    groups = scale4.shape[0]
+    d = q.shape[0]
+    g = _group_of(d, scale4, group)
     if s_col is None:
         s_col = torch.clamp_min(scale4.amax(dim=0) * (8.0 / 127.0), 1e-8)
     ratio = scale4 / s_col[None, :]
-    w8 = torch.clamp(torch.round(q.reshape(groups, d // groups, f).float() * ratio[:, None, :]),
-                     -127, 127).to(torch.int8).reshape(d, f)
-    return w8, s_col
+    w8 = torch.clamp(torch.round(_group_rows(q.float(), g, goff, scale4.shape[0])
+                                 * ratio[:, None, :]), -127, 127).to(torch.int8)
+    return _shard_rows(w8, goff, d), s_col
 
 
 def int4_matmul(x: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor, *,
@@ -357,10 +399,13 @@ def int4_matmul(x: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor, *,
     requires one raises.
 
     With ``mesh``, a row-parallel shard: x and w4 hold this rank's input
-    features (whole groups), ``scale4`` is the whole weight's (the rules
-    replicate it), and the result is summed over the model group before its
-    one rounding (B5's fp32 partials; W8A8 over the whole weight's column
-    scales, the amax and int32 sums reduced)."""
+    features (which may start or end inside a group: ``int4_row_groups``),
+    ``scale4`` is the whole weight's (the rules replicate it), and the
+    result is summed over the model group before its one rounding (B5's
+    fp32 partials; W8A8 over the whole weight's column scales, the amax and
+    int32 sums reduced).  Each weight element is dequantized as the whole
+    weight's, so the sum differs from the whole product only in the fp32
+    sums' order (W8A8: not at all)."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise NotImplementedError("llm_weight_dtype=int4 under training: a gradient through "
                                   "int4 weights is not ported (B5 has no derivative in the "
@@ -370,13 +415,15 @@ def int4_matmul(x: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor, *,
     f = w4.shape[1]
     x2 = x.reshape(-1, d)
     if mesh is not None:
-        local = int4_row_groups(scale4, mesh)
+        local, goff, group = int4_row_groups(scale4, d, mesh)
         if takes_kernel(x2):
             y = mesh.all_reduce_(int4_weight_only_matmul(x2.contiguous(), w4, local,
-                                                         out_dtype=torch.float32))
+                                                         out_dtype=torch.float32, goff=goff,
+                                                         group=group))
         else:
             s_col = torch.clamp_min(scale4.amax(dim=0) * (8.0 / 127.0), 1e-8)
-            y = w8a8_matmul(x2.float(), *requantize_int4_to_int8(w4, local, s_col), mesh=mesh)
+            y = w8a8_matmul(x2.float(), *requantize_int4_to_int8(w4, local, s_col, goff, group),
+                            mesh=mesh)
     elif takes_kernel(x2):
         y = int4_weight_only_matmul(x2.contiguous(), w4, scale4)
     else:
@@ -384,16 +431,22 @@ def int4_matmul(x: torch.Tensor, w4: torch.Tensor, scale4: torch.Tensor, *,
     return y.to(out_dtype).reshape(*lead, f)
 
 
-def int4_row_groups(scale4: torch.Tensor, mesh) -> torch.Tensor:
-    """The rows of a whole weight's ``scale4`` (groups, out) that this rank's
-    row shard covers (a contiguous view); raises where the shard would split
-    a group."""
+def int4_row_groups(scale4: torch.Tensor, k_local: int, mesh) -> Tuple[torch.Tensor, int, int]:
+    """This rank's row shard of a whole weight's groups: ``k_local`` input
+    rows from row ``model_rank * k_local`` of ``n_model * k_local``.  Returns
+    (the rows of the whole ``scale4`` (groups, out) that the shard touches,
+    a contiguous view; the group offset of its first row; the group size).
+    A shard may hold a partial first group, a partial last group, or both
+    (Vicuna-7B's down over 4 ranks: 2752 rows, 21.5 groups of 128)."""
     groups, n = scale4.shape[0], mesh.n_model
-    if groups % n:
-        raise NotImplementedError(
-            f"int4 row shard: {groups} groups of the weight's scale4 {tuple(scale4.shape)} "
-            f"over {n} ranks split a group; int4 row shards that split a group are not ported")
-    return scale4.narrow(0, mesh.model_rank * (groups // n), groups // n)
+    whole = k_local * n
+    if whole % groups:
+        raise ValueError(f"int4 row shard: {groups} groups of scale4 {tuple(scale4.shape)} do "
+                         f"not divide the weight's {whole} input rows ({n} x {k_local})")
+    group = whole // groups
+    start = mesh.model_rank * k_local
+    first = start // group
+    return scale4.narrow(0, first, -(-(start + k_local) // group) - first), start % group, group
 
 
 # ---------------------------------------------------------------------------

@@ -183,6 +183,24 @@ class Mesh:
         self.calls, self.times, self.seconds = {}, {}, 0.0
 
 
+def from_lead(mesh: Optional[Mesh], make, shape, dtype: torch.dtype,
+              device) -> torch.Tensor:
+    """``make()``, run once a model group: without a sharded ``mesh``, as it
+    is; under one, on the group's first rank alone (its result cast to
+    ``dtype`` and checked to be of ``shape``), while the other ranks
+    allocate the buffer, which ``broadcast_from_lead`` fills on every rank.
+    The towers' image tokens take this road in serving and training."""
+    if mesh is None or not mesh.sharded:
+        return make()
+    if mesh.model_rank == 0:
+        x = make().to(dtype)
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"the lead's tensor is {tuple(x.shape)}, not {tuple(shape)}")
+    else:
+        x = torch.empty(shape, dtype=dtype, device=device)
+    return mesh.broadcast_from_lead(x)
+
+
 def _tracked(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 

@@ -63,7 +63,8 @@ LLAMA_RULES: List[Rule] = [
     (r"(gate_proj|up_proj)/w_int8$", COLUMN),
     (r"(o_proj|down_proj)/w_int8$", ROW),
     # int4 serving layout: the packed weight shards as its float kernel (a
-    # nibble pair never straddles a shard); a row-parallel scale4 is whole
+    # nibble pair never straddles a shard; a row shard may split a group);
+    # a row-parallel scale4 is whole
     (r"(q_proj|v_proj)/base/w_int4$", COLUMN),
     (r"(q_proj|k_proj|v_proj)/w_int4$", COLUMN),
     (r"(gate_proj|up_proj)/w_int4$", COLUMN),

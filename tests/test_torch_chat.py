@@ -33,7 +33,7 @@ from myriad_tpu.processors.blip_processors import LocImageTrainProcessor
 from myriad_tpu_torch import generation
 from myriad_tpu_torch.conversation import CONV_VISION, Chat
 from myriad_tpu_torch.generation import top_p_filter
-from myriad_tpu_torch.ops.preprocess import u8_normalize
+from myriad_tpu_torch.ops.preprocess import u8_normalize, u8_normalize_rows
 from test_torch_myriad import pair  # noqa: F401  (the module's JAX/port model pair)
 from test_torch_sampling import jax_nucleus
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -95,10 +95,13 @@ def test_chat_matches_jax(pair, jax_chat, incremental, spec_k):  # noqa: F811
 
 
 def test_upload_normalises_as_the_jax_processor():
+    """The upload's normalisation (kernel B6's wrapper, its plain version on
+    the CPU) and the models' plain one both give the processor's bits."""
     image = _image(2)
     ref = LocImageTrainProcessor(identity=True)({"img": image})["img"]
-    out = u8_normalize(torch.from_numpy(image), out_dtype=torch.float32)
-    np.testing.assert_array_equal(out.numpy(), np.asarray(ref, np.float32))
+    for normalise in (u8_normalize_rows, u8_normalize):
+        out = normalise(torch.from_numpy(image), out_dtype=torch.float32)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref, np.float32))
 
 
 def test_chat_replaced_image_forces_reprefill(pair):  # noqa: F811

@@ -918,6 +918,94 @@ def test_int4_matmul_fp32_out_matches_plain(dev, m, k, n):
     assert torch.equal(out.to(torch.bfloat16), quant.int4_weight_only_matmul(x, w4, s4))
 
 
+def _int4_shard(dev, k, n, group, goff, seed=7):
+    """A row shard's random int4 rows (every nibble value) and the scale rows
+    that its rows from offset ``goff`` touch (several binades)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w4 = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    s4 = torch.exp(torch.randn(-(-(goff + k) // group), n, generator=g, device=dev) * 3) * 0.01
+    return w4, s4
+
+
+# (K, N, group offset): Vicuna-7B's down over 4 ranks (2752 rows, 21.5 groups
+# of 128: a partial last group from offset 0, a partial first group from 64),
+# over 8 (1376 from 32: both partial), and a small shard that starts and ends
+# inside groups at an N the tensor copies do not take (40)
+INT4_SHARDS = [(2752, 4096, 0), (2752, 4096, 64), (1376, 4096, 32), (200, 40, 96)]
+
+
+@pytest.mark.parametrize("k,n,goff", INT4_SHARDS)
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_int4_matmul_group_offset_matches_plain(dev, m, k, n, goff):
+    """B5 on a row shard whose rows start ``goff`` rows into a group of 128:
+    one-hot rows of x make every output one dequantized weight element, so
+    each row's scale row is checked bit for bit against the plain version;
+    random rows within one bf16 rounding, in both output modes."""
+    w4, s4 = _int4_shard(dev, k, n, 128, goff)
+    g = torch.Generator(device=dev).manual_seed(m)
+    pick = torch.randint(0, k, (m,), generator=g, device=dev)
+    onehot = torch.zeros(m, k, device=dev, dtype=torch.bfloat16)
+    onehot[torch.arange(m, device=dev), pick] = 1.0
+    kw = dict(goff=goff, group=128)
+    assert torch.equal(quant.int4_weight_only_matmul(onehot, w4, s4, **kw),
+                       quant.int4_weight_only_matmul_plain(onehot, w4, s4, **kw))
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16) * 0.1
+    before = quant.counter4.count
+    out = quant.int4_weight_only_matmul(x, w4, s4, **kw)
+    f32 = quant.int4_weight_only_matmul(x, w4, s4, out_dtype=torch.float32, **kw)
+    assert quant.counter4.count == before + 2
+    ref = quant.int4_weight_only_matmul_plain(x, w4, s4, out_dtype=torch.float32, **kw)
+    assert (out.float() - ref).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
+    tol = 2.0 ** -14 * _abs_sum(x, quant.dequant_int4(w4, s4, **kw)).max().item()
+    assert (f32 - ref).abs().max().item() <= tol
+    assert torch.equal(f32.to(torch.bfloat16), out)
+
+
+@pytest.mark.parametrize("ranks", [4, 8])
+def test_int4_matmul_row_shards_that_split_groups_sum_to_the_whole(dev, ranks):
+    """Vicuna-7B's down (11008 -> 4096, 86 groups of 128) over 4 and 8
+    ranks, each shard's scale rows a view of the whole scale4 from
+    ``int4_row_groups``: the fp32 partials sum to the unsharded fp32 product
+    up to the sums' order."""
+    from myriad_tpu_torch.parallel.mesh import Mesh
+
+    w4, s4 = _int4_weight(11008, 4096)
+    x = torch.randn(8, 11008, generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    x = x.to(torch.bfloat16)
+    kl = 11008 // ranks
+    total = torch.zeros(8, 4096, device=dev)
+    for r in range(ranks):
+        view, goff, group = quant.int4_row_groups(s4, kl, Mesh(n_model=ranks, model_rank=r))
+        total += quant.int4_weight_only_matmul(
+            x[:, r * kl:(r + 1) * kl].contiguous(), w4[r * kl // 2:(r + 1) * kl // 2], view,
+            out_dtype=torch.float32, goff=goff, group=group)
+    whole = quant.int4_weight_only_matmul(x, w4, s4, out_dtype=torch.float32)
+    tol = 2.0 ** -14 * _abs_sum(x, quant.dequant_int4(w4, s4)).max().item()
+    assert (total - whole).abs().max().item() <= tol
+
+
+def test_int4_matmul_launch_plan_with_a_group_offset(dev):
+    """Stages of 128 rows lie in one group (the uniform path: the scale row
+    comes with the stage) from a whole stage's offset; from any other
+    offset, or with a group that splits stages, the scales are looked up."""
+    for k, n, group, goff, uniform in ((2752, 4096, 128, 0, True), (2752, 4096, 128, 64, False),
+                                       (1376, 4096, 128, 32, False), (4096, 11008, 128, 0, True),
+                                       (1000, 40, 1000, 0, True), (1000, 40, 40, 0, False),
+                                       (200, 40, 128, 96, False)):
+        plan = quant.int4_launch(8, k, n, group, goff)
+        assert plan["uniform"] is uniform, (k, n, group, goff)
+        assert plan["tiles"] == -(-n // 128)
+
+
+def test_int4_matmul_refuses_an_offset_its_groups_do_not_cover(dev):
+    w4, s4 = _int4_shard(dev, 192, 64, 128, 64)  # 2 scale rows cover offsets 0-64
+    x = torch.zeros(8, 192, dtype=torch.bfloat16, device=dev)
+    quant.int4_weight_only_matmul(x, w4, s4, goff=64, group=128)
+    for goff, group in ((66, 128), (63, 128), (128, 128), (0, 64)):
+        with pytest.raises(ValueError, match="cover"):
+            quant.int4_weight_only_matmul(x, w4, s4, goff=goff, group=group)
+
+
 def test_fp32_out_refuses_other_dtypes(dev):
     w8, scale = _int8_weight(4096, 4096)
     x = torch.zeros(8, 4096, dtype=torch.bfloat16, device=dev)

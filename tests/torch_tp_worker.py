@@ -13,7 +13,14 @@ one model group, then serves what INPUTS (``torch.save``) holds:
   mesh=mesh)`` (the whole model given, sharded by the engine);
 * ``myriad``: the tiny Myriad's state dict, its samples and the generate
   cases (spec_k, max_new_tokens): ``Myriad.shard(mesh)``, then
-  ``generate`` and the first prefill's logits.
+  ``generate`` and the first prefill's logits;
+* ``int4``: an int4 LLaMA whose down rows split a group on each rank, its
+  prompts and a prefix: the engine (fp32 cache) and ``greedy_generate`` on
+  the shard;
+* ``chat``: an image, two questions and the sampled turn's settings: on
+  the sharded Myriad (``myriad``'s state) a greedy two-turn ``Chat``, a
+  sampled ``Chat.answer`` and a top-p ``generate``, with the upload's
+  normalisations, expert maps and tower runs counted on this rank.
 
 Writes OUT (``torch.save``): the token ids of every case, the logits, the
 collectives counted and this rank's shard shapes.  Imports the port, torch
@@ -81,6 +88,79 @@ def serve_myriad(inputs, mesh):
     return out
 
 
+def serve_int4(inputs, mesh):
+    import torch
+
+    from myriad_tpu_torch.generation import GenerationConfig, greedy_generate
+    from myriad_tpu_torch.models.layers import Policy
+    from myriad_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from myriad_tpu_torch.serving.engine import ServingEngine
+
+    spec = inputs["int4"]
+    cfg = GenerationConfig(**spec["gen"])
+    full = LlamaForCausalLM(LlamaConfig.tiny(**spec["config"]), policy=Policy.fp32(),
+                            device="cpu")
+    full.load_state_dict(spec["state"], strict=True)
+    shard = full.sharded(mesh)
+    down = shard.model.layers[0].mlp.down_proj
+    eng = ServingEngine(shard, slots=2, bucket=64, config=cfg, cache_dtype=torch.float32,
+                        segment=4, admit_widths=(8, 16), mesh=mesh)
+    for i, p in enumerate(spec["prompts"]):
+        eng.submit(torch.as_tensor(p), request_id=i)
+    done = {f.request_id: f.tokens.tolist() for f in eng.drain()}
+    tokens = greedy_generate(shard, torch.as_tensor(spec["prefix"]), config=cfg,
+                             cache_dtype=torch.float32)
+    return {"engine": [done[i] for i in range(len(spec["prompts"]))],
+            "generate": tokens.tolist(), "down_rows": down.w_int4.shape[0] * 2,
+            "w_int4": {k: v for k, v in shard.state_dict().items() if k.endswith("w_int4")}}
+
+
+def serve_chat(inputs, mesh):
+    import torch
+
+    from myriad_tpu_torch.conversation import conversation
+    from myriad_tpu_torch.models.layers import Policy
+    from myriad_tpu_torch.models.myriad import Myriad, MyriadArch
+
+    spec = inputs["chat"]
+    m = Myriad(MyriadArch.tiny(), policy=Policy.fp32(), device="cpu", use_ve=False,
+               max_txt_len=16, end_sym="###")
+    m.load_state_dicts(inputs["myriad"]["state"], None)
+    m.shard(mesh)
+    runs = {"normalise": 0, "maps": 0, "towers": 0}
+
+    def counted(name, fn):
+        def run(*a, **k):
+            runs[name] += 1
+            return fn(*a, **k)
+        return run
+
+    conversation.u8_normalize_rows = counted("normalise", conversation.u8_normalize_rows)
+    m._expert_maps = counted("maps", m._expert_maps)
+    m.module.encode_img = counted("towers", m.module.encode_img)
+
+    def chat_run(questions, **answer_kw):
+        chat = conversation.Chat(m)
+        conv, img_list = conversation.CONV_VISION.copy(), []
+        mesh.reset()
+        chat.upload_img(spec["image"], conv, img_list)
+        upload_calls = dict(mesh.calls)
+        out = []
+        for q in questions:
+            chat.ask(q, conv)
+            out.append(chat.answer(conv, img_list, max_new_tokens=spec["new"],
+                                   **answer_kw)[1].tolist())
+        return {"tokens": out, "upload_calls": upload_calls, "deltas": chat._delta_log,
+                "image_tokens": img_list[0], "cache_heads": chat._cache[0]["k"].shape[1]}
+
+    out = {"greedy": chat_run(spec["questions"]),
+           "sampled": chat_run(spec["questions"][:1], **spec["sample"])}
+    out["runs"] = dict(runs)  # the two chats' uploads
+    out["top_p"] = m.generate(inputs["myriad"]["samples"], max_new_tokens=spec["new"],
+                              seed=spec["seed"], **spec["sample"])["token_ids"].tolist()
+    return out
+
+
 def main(argv):
     rank, world, store, inputs_path, out_path = (int(argv[0]), int(argv[1]), argv[2], argv[3],
                                                  argv[4])
@@ -102,7 +182,8 @@ def main(argv):
     with torch.inference_mode():
         out = {"rank": rank, "model_rank": mesh.model_rank, "backend": mesh.backend,
                "refused": refused, "engine": serve_engine(inputs, mesh),
-               "myriad": serve_myriad(inputs, mesh)}
+               "myriad": serve_myriad(inputs, mesh), "int4": serve_int4(inputs, mesh),
+               "chat": serve_chat(inputs, mesh)}
     torch.save(out, out_path)
     return 0
 
